@@ -14,7 +14,14 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      envelope (configs/replica/room_0.json, 680x1200 frames, 50 objects +
      background, 512-d part features) for 3 frames, with the launch counts
      reset just before and read just after;
-  5. prints one JSON line with every kernel's numbers, the card's
+  5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
+     scripts/bench_ensemble_mm.py and scripts/bench_fused_step_probe.py):
+     drives the two probe scripts' port (openobj_torch.scripts.*) with the
+     probe counts reset just before and read just after, logs their
+     answers, and holds each kernel's output from that run against its
+     plain version, beside the times the scripts took of kernel, plain
+     version and library call, and the bound;
+  6. prints one JSON line with every kernel's numbers, the card's
      nvidia-smi line, and last a JSON line {"ok": true, "device": ...}.
 
 Each phase raises on failure; the script then exits non-zero and prints no
@@ -408,6 +415,85 @@ def run_main_path(device, profile: bool = False) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 5: the probe kernels (K3, K4)
+# --------------------------------------------------------------------------- #
+
+def run_probe_path(device) -> list[dict]:
+    """The probe scripts' port, driven through their entry points with the
+    probe counts reset just before and read just after. Each section
+    returns the cases it measured (kernel, plain version and library call
+    timed once each with scan_time: CUDA graphs of 1 and N calls); each
+    kernel's output from that run is then held against its plain version on
+    the same inputs. Logs the scripts' answers."""
+    import torch
+    from openobj_torch.ops import probes
+    from openobj_torch.scripts import bench_ensemble_mm as em
+    from openobj_torch.scripts import bench_fused_step_probe as fs
+    from openobj_torch.scripts._benchlib import rel_err
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    probes.reset_counts()
+    k3, cases = em.run(device)
+    answers = {}
+    for name, section in fs.SECTIONS.items():
+        answers[name], more = section(device)
+        cases += more
+    torch.cuda.synchronize()
+    counts = dict(probes.COUNTS)
+
+    for row in k3:
+        log(f"[K3] {json.dumps(row)}")
+    for name, ans in answers.items():
+        log(f"[{name}] {json.dumps(ans)}")
+    verdicts = {**answers["q4"], **{k: v for k, v in answers["q5"].items()
+                                    if k.startswith("compile")}}
+    bad = {k: v for k, v in verdicts.items() if v != "ok"}
+    if bad:
+        raise AssertionError(f"probe cases failed: {bad}")
+    missing = [k for k in probes.kernel_names() if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"probe kernels never launched by the probe scripts: {missing}")
+    if counts["probes_plain"] != 0:
+        raise AssertionError(f"plain probe versions ran {counts['probes_plain']} times on the card")
+    for key in probes.kernel_names():     # every launch belongs to exactly one case
+        attributed = sum(c.launches for c in cases if c.key == key)
+        if attributed != counts[key]:
+            raise AssertionError(f"{key}: {counts[key]} launches, {attributed} in its cases")
+    log(f"[probes] launches by the probe scripts (eager; graph replays not counted): {counts}")
+
+    rows = []
+    for case in cases:
+        ref = case.plain()
+        got = case.out if isinstance(case.out, tuple) else (case.out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        rel = rel_err(got, ref)
+        exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+        tol = case.tol
+        if (tol is None and not exact) or (tol is not None and not rel <= tol):
+            raise AssertionError(f"{case.name}: max|d| {err:.3e}, max|d|/max|ref| "
+                                 f"{rel:.3e} (limit {'exact' if tol is None else tol})")
+        b = bound_ms(case.flops, case.nbytes)
+        lib = case.library_us
+        rows.append({
+            "name": case.name, "route": "cuda", "source": "openobj_torch/csrc/probes.cu",
+            "replaces": case.site, "launches": case.launches, "max_abs_err": err,
+            "ms": case.us / 1e3, "plain_ms": case.plain_us / 1e3, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": lib / 1e3 if lib is not None else None,
+            "path": "probe scripts",
+        })
+        log(f"[probe] {case.name}: max|d| {err:.2e} rel {rel:.2e} "
+            f"(limit {'exact' if tol is None else tol}); {case.us:.3f} us "
+            f"(plain {case.plain_us:.3f}, library "
+            f"{f'{lib:.3f}' if lib is not None else 'none'}, bound {1e3 * b[0]:.3f} {b[1]}); "
+            f"{case.launches} launches")
+    log(f"[probes] phase 5 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main(argv=None) -> int:
@@ -447,6 +533,7 @@ def main(argv=None) -> int:
     check_convergence(device)
     check_steps_vs_cpu(device)
     counts = run_main_path(device, profile=args.profile)
+    probe_rows = run_probe_path(device)
 
     replaces = {
         "fused_field_fwd": "openobj_tpu/ops/fused_field.py:160",
@@ -471,6 +558,7 @@ def main(argv=None) -> int:
                            "bound_ms": s["bound"][0], "bound_by": s["bound"][1]}
                           for s in shapes],
         })
+    rows += probe_rows
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

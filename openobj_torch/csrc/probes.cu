@@ -1,0 +1,695 @@
+// Probe kernels for Hopper (sm_90a): the design probes of the fused-step and
+// part-term plans, written for this card.
+//
+// Replaces the Pallas TPU kernels of the two probe scripts:
+//   ens_gemm<GRID>         <- scripts/bench_ensemble_mm.py batched_kernel (:52)
+//                             and, with the sin prologue,
+//                             scripts/bench_fused_step_probe.py
+//                             _batched_dot_kernel (:74)
+//   ens_gemm<OBJTILE>      <- bench_ensemble_mm.py tiled_kernel (:79); with
+//                             sin, bench_fused_step_probe.py
+//                             _unrolled_dot_kernel (:82)
+//   ens_gemm<PERSISTENT>   <- bench_ensemble_mm.py loop_kernel (:105)
+//   launch_nop_kernel      <- bench_ensemble_mm.py nop_kernel (:135)
+//   slab_stream_kernel     <- bench_fused_step_probe.py q2 noop_kernel (:144)
+//   step_chain_kernel      <- bench_fused_step_probe.py q3 kernel (:192) at
+//                             depth 4, q4's compile_case bodies (:281, :286,
+//                             :290) at depth 0 and 1
+//   part_tg_kernel         <- bench_fused_step_probe.py q5 kernel (:342)
+//   part_dw_kernel         <- q5 compile_case body bwd_dw (:422)
+//   part_quad_kernel       <- q5 compile_case body fwd_quadratic_chained (:426)
+//
+// All arithmetic is FP32 FMA on the SIMT cores, no fast math, no tensor
+// cores: the plain PyTorch versions (openobj_torch/ops/probes.py) run in full
+// FP32 and are the reference. Each kernel's note says what bounds it on an
+// H100 and what its design does about that. A simple kernel that is right
+// comes first here; none of them uses wgmma or TMA yet.
+//
+// The C entry points return cudaGetLastError() after each launch (or a CUDA
+// error code for an argument the kernel cannot take); the Python wrapper
+// raises if it is not cudaSuccess.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 256;          // threads per block
+constexpr int NW = NT / 32;      // warps per block
+constexpr int TM = 64;           // rows per tile (P1, P4)
+constexpr int RPW = TM / NW;     // rows per warp in a tile
+
+__host__ __device__ inline int round4(int k) { return (k + 3) & ~3; }
+
+// ---------------------------------------------------------------- cp.async
+
+__device__ inline void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ inline void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy `rows` rows of `cols` contiguous floats (row stride `cols` in global
+// memory) into shared memory at row stride `ld`, asynchronously. `vec`: 16-
+// byte copies (cols % 4 == 0, src 16-byte aligned, ld % 4 == 0).
+__device__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
+                           int rows, int cols, bool vec) {
+  if (vec) {
+    const int c4 = cols >> 2;
+    for (int i = threadIdx.x; i < rows * c4; i += NT) {
+      const int r = i / c4, c = (i - r * c4) << 2;
+      cp_async16(dst + r * ld + c, src + (size_t)r * cols + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += NT) {
+      const int r = i / cols, c = i - r * cols;
+      cp_async4(dst + r * ld + c, src + (size_t)r * cols + c);
+    }
+  }
+}
+
+__device__ void zero_cols(float* buf, int ld, int rows, int c0, int c1) {
+  const int w = c1 - c0;
+  if (w <= 0) return;
+  for (int i = threadIdx.x; i < rows * w; i += NT) {
+    const int r = i / w;
+    buf[r * ld + c0 + (i - r * w)] = 0.0f;
+  }
+}
+
+// Tile product shared by P1 and P4: for the TM rows of `a` (row stride lda,
+// lda % 4 == 0, columns past the contraction zero-padded up to kp) and the
+// [kp][H] matrix `b` (row stride H), each lane owns column c (then c + 32)
+// and each warp the rows warp, warp + NW, ...; the sum runs over k in order,
+// one FMA chain per output. Rows of `a` read as float4 are the same for all
+// lanes of a warp (a broadcast); rows of `b` are read by consecutive lanes
+// at consecutive addresses. The result goes to `emit(row, col, value)`.
+template <typename Emit>
+__device__ inline void tile_mm(const float* a, int lda, int kp,
+                               const float* b, int H, Emit emit) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c = lane; c < H; c += 32) {
+    float acc[RPW];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) acc[i] = 0.0f;
+    for (int k = 0; k < kp; k += 4) {
+      const float b0 = b[(k + 0) * H + c], b1 = b[(k + 1) * H + c];
+      const float b2 = b[(k + 2) * H + c], b3 = b[(k + 3) * H + c];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(a + (warp + NW * i) * lda + k);
+        acc[i] = fmaf(x.x, b0, acc[i]);
+        acc[i] = fmaf(x.y, b1, acc[i]);
+        acc[i] = fmaf(x.z, b2, acc[i]);
+        acc[i] = fmaf(x.w, b3, acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) emit(warp + NW * i, c, acc[i]);
+  }
+}
+
+// ------------------------------------------------------------------- P1
+//
+// out[o] = f(x[o]) w[o] with f = identity or sin; x [O,N,K], w [O,K,H].
+//
+// Bound: bytes. At the ensemble probe's shape (O=64, N=1200, K=88, H=32)
+// the product is 0.43 GFLOP against 37.6 MB moved: 11 FLOP per byte, under
+// the card's FP32 ratio (20). Each input element is read from device memory
+// once (x by exactly one block, w[o] by the few blocks of object o, through
+// L2) and each output written once, coalesced.
+//
+// The three schedules are three placements of the same tile product:
+//  GRID       one block per (64-row tile, object): every tile of the whole
+//             ensemble in one launch, the counterpart of the TPU's single
+//             grid step over the whole ensemble;
+//  OBJTILE    one block per (64-row tile, group of `obj_tile` objects),
+//             walking its objects in turn: the TPU's object-tiled grid;
+//  PERSISTENT at most one block per SM, each walking a contiguous run of
+//             (object, tile) items; the next item's rows (and its weights,
+//             when the object changes) are staged with cp.async into the
+//             other half of a double buffer while the current item is
+//             multiplied: the TPU's per-object loop with a DMA into scratch.
+// Which placement fills 132 SMs best at O=16 and O=64 is what the probe
+// measures. Shared memory per stage: x tile [64][round4(K)] and w
+// [round4(K)][H], pad columns zero.
+
+enum Schedule { GRID = 0, OBJTILE = 1, PERSISTENT = 2 };
+
+struct GemmArgs {
+  const float* x;
+  const float* w;
+  float* out;
+  int O, N, K, H, kp, tiles, obj_tile;
+  bool vec_x, vec_w;
+};
+
+__device__ inline void stage_item(const GemmArgs& g, int o, int r0, float* xs,
+                                  float* ws, bool load_w) {
+  const int nv = min(TM, g.N - r0);
+  stage_rows(xs, g.kp, g.x + ((size_t)o * g.N + r0) * g.K, nv, g.K, g.vec_x);
+  if (load_w) stage_rows(ws, g.H, g.w + (size_t)o * g.K * g.H, 1, g.K * g.H, g.vec_w);
+}
+
+template <bool SIN>
+__device__ inline void finish_item(const GemmArgs& g, int o, int r0, float* xs,
+                                   const float* ws) {
+  const int nv = min(TM, g.N - r0);
+  if (SIN) {
+    for (int i = threadIdx.x; i < nv * g.K; i += NT) {
+      const int r = i / g.K;
+      float* p = xs + r * g.kp + (i - r * g.K);
+      *p = sinf(*p);
+    }
+    __syncthreads();
+  }
+  float* out = g.out + ((size_t)o * g.N + r0) * g.H;
+  const int H = g.H;
+  tile_mm(xs, g.kp, g.kp, ws, H, [&](int r, int c, float v) {
+    if (r < nv) out[r * H + c] = v;
+  });
+}
+
+__device__ inline void init_pads(const GemmArgs& g, float* xs, float* ws) {
+  zero_cols(xs, g.kp, TM, g.K, g.kp);
+  zero_cols(ws + g.K * g.H, g.H, g.kp - g.K, 0, g.H);
+}
+
+template <int SCHED, bool SIN>
+__global__ void __launch_bounds__(NT) ens_gemm_kernel(GemmArgs g) {
+  extern __shared__ __align__(16) float sm[];
+  const int stage = TM * g.kp + g.kp * g.H;
+  float* xs = sm;
+  float* ws = sm + TM * g.kp;
+  init_pads(g, xs, ws);
+
+  if (SCHED == GRID || SCHED == OBJTILE) {
+    const int r0 = blockIdx.x * TM;
+    const int o0 = SCHED == GRID ? blockIdx.y : blockIdx.y * g.obj_tile;
+    const int o1 = SCHED == GRID ? o0 + 1 : min(g.O, o0 + g.obj_tile);
+    for (int o = o0; o < o1; ++o) {
+      stage_item(g, o, r0, xs, ws, true);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      finish_item<SIN>(g, o, r0, xs, ws);
+      __syncthreads();
+    }
+    return;
+  }
+
+  // PERSISTENT: items are (object, tile) in object-major order; block b
+  // takes the contiguous run [b*items/G, (b+1)*items/G).
+  float* xb[2] = {xs, sm + stage};
+  float* wb[2] = {ws, sm + stage + TM * g.kp};
+  init_pads(g, xb[1], wb[1]);
+  const long items = (long)g.O * g.tiles;
+  const int i0 = (int)(items * blockIdx.x / gridDim.x);
+  const int i1 = (int)(items * (blockIdx.x + 1) / gridDim.x);
+  if (i0 >= i1) return;
+  int wobj[2] = {-1, -1};   // object whose weights each half holds
+  {
+    const int o = i0 / g.tiles;
+    stage_item(g, o, (i0 - o * g.tiles) * TM, xb[0], wb[0], true);
+    wobj[0] = o;
+    cp_async_commit();
+  }
+  for (int it = i0; it < i1; ++it) {
+    const int s = (it - i0) & 1;
+    if (it + 1 < i1) {
+      const int on = (it + 1) / g.tiles;
+      const bool lw = wobj[s ^ 1] != on;
+      stage_item(g, on, (it + 1 - on * g.tiles) * TM, xb[s ^ 1], wb[s ^ 1], lw);
+      wobj[s ^ 1] = on;
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int o = it / g.tiles;
+    finish_item<SIN>(g, o, (it - o * g.tiles) * TM, xb[s], wb[s]);
+    __syncthreads();
+  }
+}
+
+template <int SCHED, bool SIN>
+int launch_ens(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
+  const int stage = TM * g.kp + g.kp * g.H;
+  const size_t smem = sizeof(float) * stage * (SCHED == PERSISTENT ? 2 : 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      ens_gemm_kernel<SCHED, SIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid;
+  if (SCHED == GRID) grid = dim3(g.tiles, g.O);
+  else if (SCHED == OBJTILE) grid = dim3(g.tiles, (g.O + g.obj_tile - 1) / g.obj_tile);
+  else grid = dim3(n_blocks);
+  ens_gemm_kernel<SCHED, SIN><<<grid, NT, smem, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------- P2
+//
+// y = x for a few hundred floats: the empty kernel whose cost is the launch.
+
+__global__ void launch_nop_kernel(const float* __restrict__ x, float* __restrict__ y, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    y[i] = x[i];
+}
+
+
+// ------------------------------------------------------------------- P3
+//
+// Grid (object tiles, steps). Block (i, j) streams the step's ray slab
+// xs[j, i*ot:(i+1)*ot] (ot*R*DX contiguous floats) through shared memory in
+// 16 KB chunks with cp.async, double-buffered, and discards it, as the
+// Pallas pipeline streams a block its body never reads; then it writes
+// out[j, i*ot + b, 0, :H] = w0[i*ot + b, 0, :H] * 1.000001.
+//
+// Bound: bytes, the slab read once (246 MB at the probe's full shape). The
+// copies are 16 bytes a thread, consecutive threads on consecutive
+// addresses, and wait on no compute.
+
+constexpr int SLAB_CHUNK = 4096;   // floats per chunk (16 KB)
+
+__global__ void __launch_bounds__(NT)
+slab_stream_kernel(const float* __restrict__ xs, const float* __restrict__ w0,
+                   float* __restrict__ out, int O, int slab_floats, int w0_floats,
+                   int H, int ot) {
+  __shared__ __align__(16) float buf[2][SLAB_CHUNK];
+  const int b0 = blockIdx.x * ot, j = blockIdx.y;
+  const int nobj = min(ot, O - b0);
+  const float* src = xs + ((size_t)j * O + b0) * slab_floats;
+  const long total = (long)nobj * slab_floats;   // a multiple of 4
+  const int n_chunks = (int)((total + SLAB_CHUNK - 1) / SLAB_CHUNK);
+  for (int c = 0; c < n_chunks; ++c) {
+    const long base = (long)c * SLAB_CHUNK;
+    const int len = (int)min((long)SLAB_CHUNK, total - base);
+    float* dst = buf[c & 1];
+    for (int q = threadIdx.x * 4; q < len; q += NT * 4) cp_async16(dst + q, src + base + q);
+    cp_async_commit();
+    cp_async_wait<1>();   // chunk c-1 has landed; its half is free again
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  for (int q = threadIdx.x; q < nobj * H; q += NT) {
+    const int b = q / H, c = q - b * H;
+    out[((size_t)j * O + b0 + b) * H + c] = w0[(size_t)(b0 + b) * w0_floats + c] * 1.000001f;
+  }
+}
+
+// ------------------------------------------------------------------- P4
+//
+// One block per (object o, step s), walking the object's N rays in tiles of
+// 64 rows:
+//   e = sin(x w0)              x [N, DX], w0 [DX, K]
+//   h = relu(e w1)             w1 [K, H]             (depth >= 1)
+//   h = relu(h w2), depth-1 times                    w2 [H, H]
+//   out[s, o, :] = sum over rows of h   (depth 0: of e[:, :H])
+// The block keeps the three weight matrices and every activation of its
+// tile in shared memory and the row sums in registers: nothing but the
+// [H] result per (step, object) is written to device memory. That is the
+// fused-step kernel's forward in miniature.
+//
+// Bound: operations. At q3's shape a ray costs 8*87 + 87*32 + 3*32*32 =
+// 6,552 multiply-adds (plus 87 sines) against 32 bytes of input, so the
+// chain is ~400 FLOP per byte. The layers run as the tile product above
+// (float4 broadcast reads of the activation row, conflict-free weight
+// reads, 8 independent FMA chains per thread). The row sum is taken in a
+// fixed order (rows of a warp in tile order, then warps in order), so the
+// result does not depend on scheduling.
+
+struct ChainArgs {
+  const float* xs;
+  const float* w0;
+  const float* w1;
+  const float* w2;
+  float* out;
+  int S, O, N, DX, K, H, depth, kp;
+};
+
+__global__ void __launch_bounds__(NT) step_chain_kernel(ChainArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int H = a.H, K = a.K, kp = a.kp, DX = a.DX;
+  const int o = blockIdx.x, s = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* w1s = sm;                  // [kp][H], rows >= K zero
+  float* w2s = w1s + kp * H;        // [H][H]
+  float* ha = w2s + H * H;          // [TM][H]
+  float* hb = ha + TM * H;          // [TM][H]
+  float* e = hb + TM * H;           // [TM][kp], columns >= K zero
+  float* red = e + TM * kp;         // [NW][H]
+  float* w0s = red + NW * H;        // [DX][K]
+  float* xt = w0s + DX * K;         // [TM][DX]
+
+  const float* w0g = a.w0 + (size_t)o * DX * K;
+  for (int i = threadIdx.x; i < DX * K; i += NT) w0s[i] = w0g[i];
+  if (a.depth >= 1) {
+    const float* w1g = a.w1 + (size_t)o * K * H;
+    for (int i = threadIdx.x; i < kp * H; i += NT) w1s[i] = i < K * H ? w1g[i] : 0.0f;
+  }
+  if (a.depth >= 2) {
+    const float* w2g = a.w2 + (size_t)o * H * H;
+    for (int i = threadIdx.x; i < H * H; i += NT) w2s[i] = w2g[i];
+  }
+  zero_cols(e, kp, TM, K, kp);
+  // depth 0 needs only the first H columns of e
+  const int ne = a.depth == 0 ? min(H, K) : K;
+
+  float part[2] = {0.0f, 0.0f};     // this thread's row sums, columns lane, lane + 32
+  const float* xg = a.xs + ((size_t)s * a.O + o) * a.N * DX;
+  for (int r0 = 0; r0 < a.N; r0 += TM) {
+    const int nv = min(TM, a.N - r0);
+    __syncthreads();                // the previous tile is done with xt, e, ha, hb
+    for (int i = threadIdx.x; i < nv * DX; i += NT) xt[i] = xg[(size_t)r0 * DX + i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < TM * ne; i += NT) {
+      const int r = i / ne, c = i - r * ne;
+      float v = 0.0f;
+      if (r < nv) {
+        for (int d = 0; d < DX; ++d) v = fmaf(xt[r * DX + d], w0s[d * K + c], v);
+        v = sinf(v);
+      }
+      e[r * kp + c] = v;            // rows past the ragged edge stay zero
+    }
+    __syncthreads();
+    const float* f = e;             // the activation whose rows are summed
+    int ldf = kp;
+    if (a.depth >= 1) {
+      tile_mm(e, kp, kp, w1s, H, [&](int r, int c, float v) {
+        ha[r * H + c] = v > 0.0f ? v : 0.0f;
+      });
+      float* cur = ha;
+      float* nxt = hb;
+      for (int l = 1; l < a.depth; ++l) {
+        __syncthreads();
+        tile_mm(cur, H, H, w2s, H, [&](int r, int c, float v) {
+          nxt[r * H + c] = v > 0.0f ? v : 0.0f;
+        });
+        float* t = cur; cur = nxt; nxt = t;
+      }
+      f = cur;
+      ldf = H;
+    }
+    __syncthreads();
+    // rows past nv hold relu(0 . w) = 0 (no biases), so they add nothing;
+    // they are skipped all the same
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + NW * i;
+      if (r >= nv) break;
+      if (lane < H) part[0] += f[r * ldf + lane];
+      if (lane + 32 < H) part[1] += f[r * ldf + lane + 32];
+    }
+  }
+  if (lane < H) red[warp * H + lane] = part[0];
+  if (lane + 32 < H) red[warp * H + lane + 32] = part[1];
+  __syncthreads();
+  float* og = a.out + ((size_t)s * a.O + o) * H;
+  for (int c = threadIdx.x; c < H; c += NT) {
+    float t = 0.0f;
+    for (int w = 0; w < NW; ++w) t += red[w * H + c];
+    og[c] = t;
+  }
+}
+
+size_t chain_smem(int DX, int K, int H) {
+  const int kp = round4(K);
+  return sizeof(float) * ((size_t)kp * H + H * H + 2 * TM * H + TM * kp + NW * H +
+                          DX * K + TM * DX);
+}
+
+// ------------------------------------------------------------------- P5
+//
+// The part term's contractions, per object:
+//   tg    t = gt wb^T [R, Hp] and g = wb wb^T [Hp, Hp], over C (512)
+//   dw    dW = dt^T gt [Hp, C], over the R rays
+//   quad  z = hp (wb wb^T) [R, Hp], the Gram matrix formed in the kernel
+//
+// Bound: bytes (tg 21.4 MB for 0.33 GFLOP, about 16 FLOP per byte; dw and
+// quad less). tg and dw read each operand element from device memory once
+// per block that needs it, in coalesced rows, through shared memory (row
+// stride 65 floats, so that the strided reads of the other operand are free
+// of bank conflicts). tg gives every object ceil(R/32) row blocks plus one
+// block for g, so that 64 objects fill the card; dw gives every object one
+// block per 128 columns of C. quad forms g in one block per object and
+// keeps it in shared memory for z; it is the smallest of the three and
+// leaves SMs idle at 64 objects.
+
+constexpr int PT_RT = 32;       // rows of t per block (tg)
+constexpr int PT_CC = 64;       // C per chunk (tg, quad)
+constexpr int PT_LD = PT_CC + 1;
+constexpr int PT_MAXO = 16;     // outputs per thread: nA * nB <= NT * 16
+constexpr int DW_CT = 128;      // columns of C per block (dw)
+constexpr int DW_RC = 32;       // rays per chunk (dw)
+
+// acc[j] = sum_c A[a][c] B[b][c] for output j*NT + tid = a*nB + b, with A
+// rows at global stride C; the sum runs over c in order.
+__device__ void abt_block(const float* __restrict__ A, int nA,
+                          const float* __restrict__ B, int nB, int C,
+                          float* As, float* Bs, float acc[PT_MAXO]) {
+#pragma unroll
+  for (int j = 0; j < PT_MAXO; ++j) acc[j] = 0.0f;
+  const int nout = nA * nB;
+  for (int c0 = 0; c0 < C; c0 += PT_CC) {
+    const int cw = min(PT_CC, C - c0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nA * cw; i += NT) {
+      const int r = i / cw, c = i - r * cw;
+      As[r * PT_LD + c] = A[(size_t)r * C + c0 + c];
+    }
+    for (int i = threadIdx.x; i < nB * cw; i += NT) {
+      const int r = i / cw, c = i - r * cw;
+      Bs[r * PT_LD + c] = B[(size_t)r * C + c0 + c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < PT_MAXO; ++j) {
+      const int idx = j * NT + threadIdx.x;
+      if (idx < nout) {
+        const float* ar = As + (idx / nB) * PT_LD;
+        const float* br = Bs + (idx % nB) * PT_LD;
+        float v = acc[j];
+        for (int c = 0; c < cw; ++c) v = fmaf(ar[c], br[c], v);
+        acc[j] = v;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+part_tg_kernel(const float* __restrict__ gt, const float* __restrict__ wb,
+               float* __restrict__ t, float* __restrict__ g, int R, int Hp, int C) {
+  extern __shared__ __align__(16) float sm[];
+  float* As = sm;
+  float* Bs = sm + max(PT_RT, Hp) * PT_LD;
+  const int o = blockIdx.y;
+  const int n_rt = gridDim.x - 1;
+  const float* wo = wb + (size_t)o * Hp * C;
+  float acc[PT_MAXO];
+  if ((int)blockIdx.x < n_rt) {
+    const int r0 = blockIdx.x * PT_RT;
+    const int nv = min(PT_RT, R - r0);
+    abt_block(gt + ((size_t)o * R + r0) * C, nv, wo, Hp, C, As, Bs, acc);
+    float* to = t + ((size_t)o * R + r0) * Hp;
+#pragma unroll
+    for (int j = 0; j < PT_MAXO; ++j) {
+      const int idx = j * NT + threadIdx.x;
+      if (idx < nv * Hp) to[idx] = acc[j];
+    }
+  } else {
+    abt_block(wo, Hp, wo, Hp, C, As, Bs, acc);
+    float* go = g + (size_t)o * Hp * Hp;
+#pragma unroll
+    for (int j = 0; j < PT_MAXO; ++j) {
+      const int idx = j * NT + threadIdx.x;
+      if (idx < Hp * Hp) go[idx] = acc[j];
+    }
+  }
+}
+
+// dW[o][h][c] = sum_r dt[o][r][h] gt[o][r][c]. Thread t owns column
+// c0 + t % 128 and the rows h = t / 128 + 2j.
+__global__ void __launch_bounds__(NT)
+part_dw_kernel(const float* __restrict__ dt, const float* __restrict__ gt,
+               float* __restrict__ dw, int R, int Hp, int C) {
+  constexpr int MAXJ = 32;           // Hp <= 64
+  __shared__ float ds[DW_RC * 64];
+  __shared__ float gs[DW_RC * DW_CT];
+  const int o = blockIdx.y, c0 = blockIdx.x * DW_CT;
+  const int cw = min(DW_CT, C - c0);
+  const int col = threadIdx.x % DW_CT, hg = threadIdx.x / DW_CT;
+  const int nj = (Hp - hg + 1) / 2;
+  float acc[MAXJ];
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) acc[j] = 0.0f;
+  const float* dto = dt + (size_t)o * R * Hp;
+  const float* gto = gt + (size_t)o * R * C + c0;
+  for (int r0 = 0; r0 < R; r0 += DW_RC) {
+    const int nr = min(DW_RC, R - r0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nr * Hp; i += NT) ds[i] = dto[(size_t)r0 * Hp + i];
+    for (int i = threadIdx.x; i < nr * DW_CT; i += NT) {
+      const int r = i / DW_CT, c = i - r * DW_CT;
+      gs[i] = c < cw ? gto[(size_t)(r0 + r) * C + c] : 0.0f;
+    }
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      const float gv = gs[r * DW_CT + col];
+      const float* dr = ds + r * Hp + hg;
+#pragma unroll
+      for (int j = 0; j < MAXJ; ++j)
+        if (j < nj) acc[j] = fmaf(dr[2 * j], gv, acc[j]);
+    }
+  }
+  if (col >= cw) return;
+  float* out = dw + (size_t)o * Hp * C + c0 + col;
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j)
+    if (j < nj) out[(size_t)(hg + 2 * j) * C] = acc[j];
+}
+
+// z[o] = hp[o] g with g = wb[o] wb[o]^T formed first, into shared memory.
+__global__ void __launch_bounds__(NT)
+part_quad_kernel(const float* __restrict__ hp, const float* __restrict__ wb,
+                 float* __restrict__ z, int R, int Hp, int C) {
+  extern __shared__ __align__(16) float sm[];
+  float* As = sm;
+  float* Bs = sm + Hp * PT_LD;
+  float* gs = Bs + Hp * PT_LD;       // [Hp][Hp]
+  const int o = blockIdx.x;
+  const float* wo = wb + (size_t)o * Hp * C;
+  float acc[PT_MAXO];
+  abt_block(wo, Hp, wo, Hp, C, As, Bs, acc);
+#pragma unroll
+  for (int j = 0; j < PT_MAXO; ++j) {
+    const int idx = j * NT + threadIdx.x;
+    if (idx < Hp * Hp) gs[idx] = acc[j];
+  }
+  __syncthreads();
+  const float* ho = hp + (size_t)o * R * Hp;
+  float* zo = z + (size_t)o * R * Hp;
+  for (int idx = threadIdx.x; idx < R * Hp; idx += NT) {
+    const int r = idx / Hp, b = idx - r * Hp;
+    const float* hr = ho + (size_t)r * Hp;
+    float v = 0.0f;
+    for (int k = 0; k < Hp; ++k) v = fmaf(__ldg(hr + k), gs[k * Hp + b], v);
+    zo[idx] = v;
+  }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+}  // namespace
+
+extern "C" {
+
+// schedule: 0 grid, 1 objtile, 2 persistent (n_blocks blocks)
+int pr_ens_gemm(const float* x, const float* w, float* out, int O, int N, int K,
+                int H, int schedule, int use_sin, int obj_tile, int n_blocks,
+                void* stream) {
+  if (O < 1 || N < 1 || K < 1 || K > 128 || H < 1 || H > 64 || obj_tile < 1 ||
+      n_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  GemmArgs g;
+  g.x = x; g.w = w; g.out = out;
+  g.O = O; g.N = N; g.K = K; g.H = H;
+  g.kp = round4(K);
+  g.tiles = (N + TM - 1) / TM;
+  g.obj_tile = obj_tile;
+  g.vec_x = K % 4 == 0 && aligned16(x);
+  g.vec_w = (K * H) % 4 == 0 && aligned16(w);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int key = schedule * 2 + (use_sin ? 1 : 0);
+  switch (key) {
+    case 0: return launch_ens<GRID, false>(g, n_blocks, st);
+    case 1: return launch_ens<GRID, true>(g, n_blocks, st);
+    case 2: return launch_ens<OBJTILE, false>(g, n_blocks, st);
+    case 3: return launch_ens<OBJTILE, true>(g, n_blocks, st);
+    case 4: return launch_ens<PERSISTENT, false>(g, n_blocks, st);
+    case 5: return launch_ens<PERSISTENT, true>(g, n_blocks, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int pr_launch_nop(const float* x, float* y, int n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  launch_nop_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(x, y, n);
+  return (int)cudaGetLastError();
+}
+
+// xs [S, O, R, DX], w0 [O, DX, K], out [S, O, H]
+int pr_slab_stream(const float* xs, const float* w0, float* out, int S, int O,
+                   int R, int DX, int K, int H, int obj_tile, void* stream) {
+  if (S < 1 || O < 1 || obj_tile < 1 || H > K || ((R * DX) % 4) != 0 || !aligned16(xs))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((O + obj_tile - 1) / obj_tile, S);
+  slab_stream_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(xs, w0, out, O, R * DX,
+                                                           DX * K, H, obj_tile);
+  return (int)cudaGetLastError();
+}
+
+// xs [S, O, N, DX], w0 [O, DX, K], w1 [O, K, H], w2 [O, H, H], out [S, O, H]
+int pr_step_chain(const float* xs, const float* w0, const float* w1, const float* w2,
+                  float* out, int S, int O, int N, int DX, int K, int H, int depth,
+                  void* stream) {
+  if (S < 1 || O < 1 || N < 1 || DX < 1 || DX > 16 || K < 1 || K > 128 || H < 4 ||
+      H > 64 || H % 4 != 0 || depth < 0)
+    return (int)cudaErrorInvalidValue;
+  ChainArgs a;
+  a.xs = xs; a.w0 = w0; a.w1 = w1; a.w2 = w2; a.out = out;
+  a.S = S; a.O = O; a.N = N; a.DX = DX; a.K = K; a.H = H; a.depth = depth;
+  a.kp = round4(K);
+  const size_t smem = chain_smem(DX, K, H);
+  cudaError_t err = cudaFuncSetAttribute(
+      step_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  step_chain_kernel<<<dim3(O, S), NT, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// gt [O, R, C], wb [O, Hp, C] -> t [O, R, Hp], g [O, Hp, Hp]
+int pr_part_tg(const float* gt, const float* wb, float* t, float* g, int O, int R,
+               int Hp, int C, void* stream) {
+  if (O < 1 || R < 1 || C < 1 || Hp < 1 || Hp > 64) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (max(PT_RT, Hp) + Hp) * PT_LD;
+  cudaError_t err = cudaFuncSetAttribute(
+      part_tg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((R + PT_RT - 1) / PT_RT + 1, O);
+  part_tg_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(gt, wb, t, g, R, Hp, C);
+  return (int)cudaGetLastError();
+}
+
+// dt [O, R, Hp], gt [O, R, C] -> dw [O, Hp, C]
+int pr_part_dw(const float* dt, const float* gt, float* dw, int O, int R, int Hp,
+               int C, void* stream) {
+  if (O < 1 || R < 1 || C < 1 || Hp < 1 || Hp > 64) return (int)cudaErrorInvalidValue;
+  dim3 grid((C + DW_CT - 1) / DW_CT, O);
+  part_dw_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(dt, gt, dw, R, Hp, C);
+  return (int)cudaGetLastError();
+}
+
+// hp [O, R, Hp], wb [O, Hp, C] -> z [O, R, Hp]
+int pr_part_quad(const float* hp, const float* wb, float* z, int O, int R, int Hp,
+                 int C, void* stream) {
+  if (O < 1 || R < 1 || C < 1 || Hp < 1 || Hp > 64) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * Hp * PT_LD + Hp * Hp);
+  cudaError_t err = cudaFuncSetAttribute(
+      part_quad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  part_quad_kernel<<<O, NT, smem, (cudaStream_t)stream>>>(hp, wb, z, R, Hp, C);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,2 +1,2 @@
 """Array ops: positional encoding, field MLP, fused field, rendering,
-losses and ray sampling."""
+losses, ray sampling, and the design-probe kernels (probes)."""

@@ -1,0 +1,156 @@
+"""Micro-benchmark timing for the port's probe scripts, on a CUDA device.
+
+``scan_time`` is the counterpart of ``scripts/_benchlib.py``'s protocol:
+time a program of 1 call and a program of N calls separately, ``reps``
+times each, and return (median(t_N) - median(t_1)) / (N - 1), so that
+the fixed cost of starting a program cancels. Here the two programs are
+CUDA graphs (``torch.cuda.CUDAGraph``) that capture 1 and N calls of
+``fn``; each replay is timed with CUDA events on the stream.
+
+It adds no operand perturbation. The JAX protocol perturbs an operand in
+every iteration because its remote runtime deduplicates identical
+dispatches and XLA hoists work that is linear in the perturbation out of
+the loop. Neither happens to CUDA launches: every captured launch runs.
+
+``eager_time`` times back-to-back calls of ``fn`` issued from Python on
+one stream, the cost a caller that launches from Python sees. A probe of
+launch cost reports both.
+
+A ``Case`` is one probe kernel at fixed inputs beside its plain version,
+the library call that computes the same function (if one does) and the
+work that bounds it. ``measure`` runs its kernel once, keeps the output
+for a later check against the plain version, and times kernel, plain
+version and library call once each; ``counted`` adds the kernel's
+launches inside a block to the case, so that every launch of a probe
+driver is attributed to exactly one case.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import statistics
+from typing import Any, Callable
+
+import torch
+
+
+def _require_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("timing needs a CUDA device")
+
+
+def scan_time(fn, args=(), iters: int = 400, reps: int = 5, warmup: int = 3) -> float:
+    """Seconds per call of ``fn(*args)`` inside a CUDA graph."""
+    _require_cuda()
+    if iters < 2:
+        raise ValueError(f"iters={iters}: need at least 2")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the default stream, as capture wants
+        for _ in range(warmup):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+
+    def capture(n: int) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn(*args)
+        return graph
+
+    g1, gn = capture(1), capture(iters)
+    g1.replay()
+    gn.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1s, tns = [], []
+    for _ in range(reps):
+        for graph, acc in ((g1, t1s), (gn, tns)):
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            acc.append(start.elapsed_time(end) * 1e-3)
+    del g1, gn
+    return (statistics.median(tns) - statistics.median(t1s)) / (iters - 1)
+
+
+def eager_time(fn, args=(), iters: int = 200, warmup: int = 10) -> float:
+    """Seconds per call of ``fn(*args)`` launched back to back from Python."""
+    _require_cuda()
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3 / iters
+
+
+@dataclasses.dataclass
+class Case:
+    """One probe kernel call at fixed inputs. ``key`` is its entry in
+    ``openobj_torch.ops.probes.COUNTS``; ``site`` the Pallas kernel it ports
+    (``scripts/<file>.py:<line>``); ``tol`` the limit on max|d|/max|ref|
+    against ``plain`` (None: exact); ``flops`` and ``nbytes`` the work of
+    one call. The other fields are filled by ``measure``."""
+
+    name: str
+    site: str
+    key: str
+    kernel: Callable[[], Any]
+    plain: Callable[[], Any]
+    library: Callable[[], Any] | None
+    flops: float
+    nbytes: float
+    tol: float | None
+    iters: int
+    out: Any = None
+    us: float = 0.0
+    plain_us: float = 0.0
+    library_us: float | None = None
+    launches: int = 0
+
+
+@contextlib.contextmanager
+def counted(case: Case):
+    """Add the launches of ``case``'s kernel inside the block to the case."""
+    from openobj_torch.ops.probes import COUNTS
+
+    before = COUNTS.get(case.key, 0)
+    try:
+        yield case
+    finally:
+        case.launches += COUNTS.get(case.key, 0) - before
+
+
+def measure(case: Case, same_as: Case | None = None) -> Case:
+    """Run the case's kernel once (kept in ``case.out``) and time it with
+    ``scan_time``; time the plain version and the library call too, or take
+    their times from ``same_as``, a measured case of the same function on
+    the same inputs."""
+    with counted(case):
+        case.out = case.kernel()
+        case.us = scan_time(case.kernel, iters=case.iters) * 1e6
+    if same_as is not None:
+        case.plain_us, case.library_us = same_as.plain_us, same_as.library_us
+        return case
+    case.plain_us = scan_time(case.plain, iters=case.iters) * 1e6
+    if case.library is not None:
+        case.library_us = scan_time(case.library, iters=case.iters) * 1e6
+    return case
+
+
+def rel_err(got, ref) -> float:
+    """max|d| / max|ref| over a tensor or a tuple of tensors."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref))
