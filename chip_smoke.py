@@ -42,8 +42,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3
 PEAK_F32 = 67e12
+PEAK_TF32 = 494.7e12
 PEAK_BYTES = 3.35e12
 
 # main-path shapes at the room_0 envelope
@@ -63,9 +65,16 @@ def log(msg: str) -> None:
 # --------------------------------------------------------------------------- #
 
 
+def fwd_mm_macs(h: int) -> int:
+    """Multiply-adds per point of the forward's matrix products (the trunk
+    and the two e2-fed heads, N = h)."""
+    return 87 * h + h * h + (h + 87) * h + h * h + 2 * (h + 42) * h
+
+
 def fwd_macs(h: int) -> int:
-    """Multiply-adds per point of the field forward (clip head on)."""
-    return 21 * 3 + 87 * h + h * h + (h + 87) * h + h * h + h + 2 * (h + 42) * h + 3 * h
+    """Multiply-adds per point of the field forward (clip head on): the
+    matrix products, the projection, the alpha and colour heads."""
+    return 21 * 3 + fwd_mm_macs(h) + h + 3 * h
 
 
 def bwd_macs(h: int) -> int:
@@ -75,8 +84,22 @@ def bwd_macs(h: int) -> int:
     return fwd_macs(h) + fwd_macs(h) + dx + 6 * 21
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+def bwd_mm_macs(h: int) -> int:
+    """The backward's matrix products: the recomputed forward's, the weight
+    gradients X^T dY and the input gradients dY W^T, each as many
+    multiply-adds as the forward's products."""
+    return 3 * fwd_mm_macs(h)
+
+
+def bound_ms(flops: float, nbytes: float, mm_flops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) for ``flops`` FP32-accurate operations moving
+    ``nbytes``, and what bounds it. The ``mm_flops`` of them that are matrix
+    products may run on the tensor cores in 3xTF32 (three TF32 products for
+    one FP32-accurate one); the rest run at the FP32 rate. The two kinds of
+    unit may overlap, so the operations take the longer of the two times.
+    With mm_flops = 0 this is the SIMT-only bound."""
+    t_ops = max(3.0 * mm_flops / PEAK_TF32, (flops - mm_flops) / PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -153,11 +176,9 @@ def check_kernels(device) -> dict:
                     f"K2 {shape['name']} leaf {name}: max|d|/max|ref| {rel:.3e} > {GRAD_RTOL}")
 
         # the reduction on its own, against torch.sum over the tile axis
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
         lib = ff._lib()
         p = lib.ff_param_count(h)
-        tile = ff.bwd_tile(o, n, lib.ff_chunk_points(h), n_sm)
-        n_tiles = -(-n // tile)
+        tile, n_tiles = ff.bwd_tiling(lib, o, n, h, device)
         part = torch.randn((o, n_tiles, p), generator=gen, device=device)
         red = torch.empty((o, p), device=device)
 
@@ -191,24 +212,28 @@ def check_kernels(device) -> dict:
 
         npts = o * n
         wbytes = o * p * 4
-        b_fwd = bound_ms(2.0 * fwd_macs(h) * npts,
-                         npts * 12 + wbytes + npts * 4 * (1 + 3 + h))
-        b_bwd = bound_ms(2.0 * bwd_macs(h) * npts,
-                         npts * 12 + wbytes + npts * 4 * (1 + 3 + h) + wbytes)
+        fwd_bytes = npts * 12 + wbytes + npts * 4 * (1 + 3 + h)
+        bwd_bytes = npts * 12 + wbytes + npts * 4 * (1 + 3 + h) + wbytes
+        b_fwd = bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes, 2.0 * fwd_mm_macs(h) * npts)
+        b_bwd = bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes, 2.0 * bwd_mm_macs(h) * npts)
+        simt_fwd = bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes)[0]
+        simt_bwd = bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes)[0]
         b_red = bound_ms(float(o * n_tiles * p), 4.0 * o * n_tiles * p + wbytes)
         per["fused_field_fwd"].append(dict(
             shape=shape["name"], ms=t_fwd, plain_ms=t_fwd_plain, bound=b_fwd,
-            err=fwd_err, library_ms=None))
+            bound_simt=simt_fwd, err=fwd_err, library_ms=None))
         per["fused_field_bwd"].append(dict(
             shape=shape["name"], ms=t_bwd, plain_ms=t_bwd_plain, bound=b_bwd,
-            err=bwd_err, rel=worst, library_ms=None))
+            bound_simt=simt_bwd, err=bwd_err, rel=worst, library_ms=None))
         per["fused_field_bwd_reduce"].append(dict(
             shape=shape["name"], ms=t_red, plain_ms=t_sum, bound=b_red,
-            err=red_err, library_ms=t_sum, tiles=n_tiles))
+            bound_simt=b_red[0], err=red_err, library_ms=t_sum, tiles=n_tiles))
         log(f"[kernels] {shape['name']} O={o} N={n} h={h}: "
-            f"K1 err {fwd_err:.2e} {t_fwd:.4f} ms (plain {t_fwd_plain:.4f}, bound {b_fwd[0]:.4f} {b_fwd[1]}) | "
-            f"K2 err {bwd_err:.2e} worst-leaf rel {worst:.2e} {t_bwd:.4f} ms "
-            f"(plain bwd {t_bwd_plain:.4f}, bound {b_bwd[0]:.4f} {b_bwd[1]}) | "
+            f"K1 err {fwd_err:.2e} {t_fwd:.4f} ms (plain {t_fwd_plain:.4f}, bound {b_fwd[0]:.4f} "
+            f"{b_fwd[1]}, SIMT-only {simt_fwd:.4f}) | "
+            f"K2 err {bwd_err:.2e} worst-leaf rel {worst:.2e} {t_bwd:.4f} ms tile {tile} "
+            f"(plain bwd {t_bwd_plain:.4f}, bound {b_bwd[0]:.4f} {b_bwd[1]}, "
+            f"SIMT-only {simt_bwd:.4f}) | "
             f"reduce {n_tiles} tiles err {red_err:.2e} {t_red:.4f} ms "
             f"(torch.sum {t_sum:.4f}, bound {b_red[0]:.4f} {b_red[1]})")
         del params, wflat, pts, da, dc, dh, part, red, obj, w_req
@@ -552,10 +577,12 @@ def main(argv=None) -> int:
             "plain_ms": sum(s["plain_ms"] for s in shapes),
             "bound_ms": sum(x[0] for x in b),
             "bound_by": max(b)[1],     # that of the larger per-shape bound
+            "bound_simt_ms": sum(s["bound_simt"] for s in shapes),
             "library_ms": (sum(s["library_ms"] for s in shapes)
                            if shapes[0]["library_ms"] is not None else None),
             "per_shape": [{"shape": s["shape"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-                           "bound_ms": s["bound"][0], "bound_by": s["bound"][1]}
+                           "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
+                           "bound_simt_ms": s["bound_simt"]}
                           for s in shapes],
         })
     rows += probe_rows

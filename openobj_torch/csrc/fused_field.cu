@@ -13,37 +13,72 @@
 // weight and bias gradient and the gradient of the direction table. Points
 // receive no gradient (nothing upstream of them is trainable).
 //
-// What bounds it: arithmetic. One point costs about 5h^2 + 268h multiply-adds
-// forward (h = hidden width) and about three times that backward, against
-// 12 bytes of point in and (4 + 3*4 + 4h) bytes out; at h = 32 that is about
-// 70 FLOP per byte, far above the card's FP32 ratio. The kernels therefore
-// keep every activation of a tile of points in shared memory and never write
-// one to device memory; the weights (55 KB per object at h = 32, 465 KB at
-// h = 128) are read through the read-only/L2 path by all tiles of an object.
+// What bounds both: arithmetic. One point costs about 5h^2 + 268h
+// multiply-adds forward (h = hidden width) and about three times that
+// backward, against 12 bytes of point in and (4 + 3*4 + 4h) bytes out; at
+// h = 32 that is about 70 FLOP per byte, above the card's ratio even for
+// FP32-accurate work on the tensor cores. Both kernels therefore keep every
+// activation of a chunk of points in shared memory and never write one to
+// device memory.
 //
-// Design, against the TPU kernel:
+// Shared by both, against the TPU kernel:
 //  * Pallas pads N to its tile; here each block masks its ragged edge.
-//  * Matmuls are FP32 FMAs on the SIMT cores, up to 4x4 outputs per thread
-//    (`mm`), so that the phases of the top band (up to 32 pi) and every
-//    product stay in full FP32; no tensor-core or TF32 path is involved.
-//    The projection t . dirs^T is an explicit FMA chain with the plain
+//  * The projection t . dirs^T is an explicit FMA chain with the plain
 //    version's rounding, and the bands use sinf/cosf, never the __sinf
 //    intrinsics: a phase error of one ulp at 32 pi is already 4e-6.
-//  * Input gradients (dY W^T) are computed transposed (`mm_dx`) so that
-//    weight reads stay row-wise: reading W's columns from global memory at
-//    a stride of h floats touches a cache line per thread.
+//
+// K1: matrix products are FP32 FMAs on the SIMT cores, up to 4x4 outputs per
+// thread (`mm`); the weights (55 KB per object at h = 32, 465 KB at h = 128)
+// are read through the read-only/L2 path by all tiles of an object.
+//
+// K2, what bounds it: about 98% of its multiply-adds are matrix products
+// (the recomputed trunk and heads, the weight gradients X^T dY, the input
+// gradients dY W^T). On the tensor cores in 3xTF32 they could run at the dense
+// TF32 rate / 3 (165 TFLOP/s of FP32-accurate work on an H100 SXM); the rest
+// (the 3- and 1-wide heads, d_dirs, the projection) at the FP32 rate of 67
+// TFLOP/s. Its bytes (points, cotangents and weights in, one gradient slot per
+// block out) at 3.35 TB/s take far less time than either.
+// What the design does about it:
+//  * The gradient products (two thirds of the work) run on the tensor cores:
+//    mma.sync m16n8k8 with tf32 operands, each split into hi = tf32(x) and
+//    lo = tf32(x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi per 8-deep step,
+//    the steps summed in f32 (`product`): within ~2^-22 of FP32, no TF32
+//    rounding left in the result. Fragments are loaded element by element,
+//    so a width pads only to the tile (K to 8, M to 16), and bias gradients
+//    ride along as a column of ones (`Dims`).
+//  * The recomputed forward stays on the SIMT cores in FP32 with the plain
+//    version's rounding (`fp32_layer`): its signs are the backward's ReLU
+//    masks, and 3xTF32 rounding flipped a few of them per room_0 step.
+//  * Each warp owns a fixed set of 16 x 8 output tiles of each product, so
+//    barriers sit only between dependent layers (16 per chunk of 32 points)
+//    and every accumulator has one owner: no atomics, deterministic.
+//  * Shared-memory matrices are XOR-swizzled (`Sw`), so that both fragment
+//    patterns (X and X^T, W and W^T) read 32 different banks.
+//  * h = 32: the object's weights (55 KB) are copied to shared memory once per
+//    block with cp.async, and the weight gradients (70 KB with padding) are
+//    accumulated there across all chunks of the block's tile; the block
+//    writes its slot once. The tile is as long as fills the card in the
+//    fewest waves of one block per SM (ops.fused_field.bwd_tile).
+//  * h = 128: the weights (465 KB) do not fit; B fragments come from global
+//    memory (L2-resident). A tile is one chunk, so the accumulators of each
+//    weight-gradient tile go from registers to the slot once: no per-chunk
+//    read-modify-write of the slot.
 //  * The TPU accumulates weight gradients across ray tiles in order along
-//    its grid. Blocks here run in parallel, so each block owns one
-//    (object, tile) slot of a scratch buffer, accumulates its tile's chunks
-//    into it (only that block touches it: no atomics), and a second kernel
-//    sums the slots in a fixed order, so that results are deterministic.
-//  * At h = 128 the weights do not fit in shared memory beside the
-//    activations; they are read from global memory (L2-resident) instead.
+//    its grid. Blocks here run in parallel, so each block owns one (object,
+//    tile) slot of a scratch buffer and ff_reduce_kernel sums the slots in
+//    tile order, so that results are deterministic.
 //
 // The C entry points return cudaGetLastError() after each launch; the
 // Python wrapper raises if it is not cudaSuccess.
 
+// Without nvcc (tests/test_torch_kernel_emulation.py runs K2 on the CPU), a
+// header included ahead of this file stands in for the CUDA runtime and the
+// inline-PTX helpers under `#ifdef __CUDACC__` below.
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
+
+#include <cstdint>
 
 namespace {
 
@@ -169,16 +204,6 @@ __device__ void mm(int M, int N, int K,
   }
 }
 
-// Input gradient of a layer: dX[p][k] (+)= sum_j dY[p][j] W[k][j], with W
-// row-major [in][out] in global memory. Computed as the transposed product
-// (rows = k, columns = p), so that the threads of a warp read a few weight
-// rows (broadcast) and step through points in shared memory at an odd
-// stride, instead of reading W's columns at a stride of `out` floats.
-__device__ void mm_dx(int nv, int n_in, int n_out, const float* dY, int ldy,
-                      const float* W, float* dX, int ldx, bool acc) {
-  mm(n_in, nv, n_out, W, n_out, 1, dY, 1, ldy, dX, 1, ldx, acc);
-}
-
 // X[p][j] = relu(X[p][j] + b[j])
 __device__ void bias_relu(float* X, int ld, int P, int N, const float* b) {
   for (int i = threadIdx.x; i < P * N; i += NT) {
@@ -186,28 +211,6 @@ __device__ void bias_relu(float* X, int ld, int P, int N, const float* b) {
     const float v = X[p * ld + j] + b[j];
     X[p * ld + j] = v > 0.0f ? v : 0.0f;
   }
-}
-
-// D[p][j] *= (X[p][j] > 0)
-__device__ void relu_mask(float* D, const float* X, int ld, int P, int N) {
-  for (int i = threadIdx.x; i < P * N; i += NT) {
-    const int p = i / N, j = i - p * N;
-    if (!(X[p * ld + j] > 0.0f)) D[p * ld + j] = 0.0f;
-  }
-}
-
-// out[j] (+)= sum_{p < P} X[p][j]   (bias gradients; fixed thread per j)
-__device__ void colsum(const float* X, int ld, int P, int N, float* out,
-                       bool acc) {
-  for (int j = threadIdx.x; j < N; j += NT) {
-    float s = 0.0f;
-    for (int p = 0; p < P; ++p) s += X[p * ld + j];
-    out[j] = acc ? out[j] + s : s;
-  }
-}
-
-__device__ void zero(float* out, int n) {
-  for (int j = threadIdx.x; j < n; j += NT) out[j] = 0.0f;
 }
 
 // Scaled points of one chunk -> t, proj and the two embedding pieces.
@@ -331,155 +334,553 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
 
 // ------------------------------------------------------------------------ K2
 
-__global__ void __launch_bounds__(NT)
+constexpr int BP = 32;        // points per backward chunk
+constexpr int NW = NT / 32;   // warps per block
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared-memory matrix [rows][LD], LD a multiple of 32, whose columns are
+// permuted within each row by an XOR of bits 2-4 with the row's low three
+// bits. Both access patterns of the mma fragments then touch 32 different
+// banks: row = lane&3 (+4), column = lane>>2 (+ a multiple of 8), and
+// row = lane>>2 (+ a multiple of 8), column = lane&3 (+ a multiple of 4).
+// The XOR keeps aligned pairs of columns adjacent (float2 access).
+template <int LD>
+struct Sw {
+  float* p;
+  __device__ float& operator()(int r, int c) const {
+    return p[r * LD + (c ^ (((r & 3) << 3) | (r & 4)))];
+  }
+  __device__ float2& pair(int r, int c) const {   // columns c, c + 1; c even
+    return *reinterpret_cast<float2*>(&(*this)(r, c));
+  }
+};
+
+// Shapes of K2 at hidden width H. Bias gradients ride along: e1 gets a
+// column of ones after its 87 features, so row 87 of the weight-gradient
+// product [e1 | 1]^T d_h1 is b_in's gradient, and the packed layout puts
+// each bias right after its weight, so [w_in; b_in] is one block of rows.
+// The same holds for the skip layer ([h2 | e1 | 1], w_cat, b_cat) and both
+// e2-fed heads ([h3 | e2 | 1 | 0 x 5], w_col / w_clip and their biases).
+template <int H>
+struct Dims {
+  static constexpr int KX2 = H + 88;                 // [h2 | e1 | 1]
+  static constexpr int LDX2 = round_up(KX2, 32);
+  static constexpr int MX2 = round_up(KX2, 16);      // rows of w_cat's gradient product
+  static constexpr int KX3 = H + 48;                 // [h3 | e2 | 1 | 0 x 5]
+  static constexpr int LDX3 = round_up(KX3, 32);
+  static constexpr int RH = H + 43;                  // head weight rows with the bias
+  static constexpr int ME1 = 96;                     // rows of w_in's gradient product
+  // h = 32: the object's weights and the block's weight gradients live in
+  // shared memory for the whole tile. Row offsets (multiples of 8).
+  static constexpr bool SMEM_W = H <= 32;
+  static constexpr int WR_IN = 0, WR_MID1 = 88, WR_CAT = WR_MID1 + H,
+                       WR_MID2 = WR_CAT + KX2, WR_COL = WR_MID2 + H,
+                       WR_CLIP = WR_COL + KX3, WROWS = WR_CLIP + KX3;
+  static constexpr int LDG = H + 8;                  // float2 C fragments: no conflicts
+  static constexpr int GR_IN = 0, GR_MID1 = ME1, GR_CAT = GR_MID1 + H,
+                       GR_MID2 = GR_CAT + MX2, GR_COL = GR_MID2 + H,
+                       GR_CLIP = GR_COL + KX3, GROWS = GR_CLIP + KX3;
+  // small gradients accumulated by a fixed thread each
+  static constexpr int S_DIRS = 0, S_WA = ND * 3, S_BA = S_WA + H, S_WOC = S_BA + 1,
+                       S_BOC = S_WOC + 3 * H, S_BM1 = S_BOC + 3, S_BM2 = S_BM1 + H,
+                       NS = S_BM2 + H;
+  // shared memory in floats
+  static constexpr int SMEM_FLOATS =
+      (SMEM_W ? WROWS * H + GROWS * LDG : 0) +
+      BP * (2 * LDX2 + 2 * LDX3 + 2 * H + 3 * H) +
+      BP * (4 + ND + 4 + 1) + NS;
+};
+
+#ifdef __CUDACC__
+__device__ inline uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a . b for one m16n8k8 tile, tf32 operands, f32 accumulation
+__device__ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
+// the 3xTF32 split: x = hi + lo + O(2^-22 |x|), hi and lo both tf32
+__device__ inline void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// out (M x N) = init + A (M x K) . B (K x N) on the tensor cores in 3xTF32
+// (a_lo b_hi + a_hi b_lo + a_hi b_hi), for the items
+// (16 rows x 8*NB columns) that fall to this warp. Items are dealt to the
+// warps round-robin from `slot`, so that the independent products of one
+// phase share the warps; returns the slot after the last item. a(m, k) and
+// b(k, n) give single elements (no alignment needed); init(m, n) and
+// epi(m, n, v) take the output pair (n, n + 1), n even. The tensor cores
+// sum each 8-deep step from zero and the steps are added in f32 with round
+// to nearest: the tensor cores' own f32 accumulation truncates, a bias that
+// grows with the length of the sum. No barrier inside: an item, and so each
+// output, belongs to one fixed thread per call site.
+template <int M, int N, int K, int NB, class FI, class FA, class FB, class FE>
+__device__ int product(int slot, FI init, FA a, FB b, FE epi) {
+  static_assert(M % 16 == 0 && N % (8 * NB) == 0 && K % 8 == 0, "tile shape");
+  constexpr int NI = N / (8 * NB), ITEMS = (M / 16) * NI;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int it = (warp - slot % NW + NW) % NW; it < ITEMS; it += NW) {
+    const int m0 = (it / NI) * 16, n0 = (it % NI) * 8 * NB;
+    float c[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      const float2 u = init(m0 + g, n), v = init(m0 + g + 8, n);
+      c[j][0] = u.x; c[j][1] = u.y; c[j][2] = v.x; c[j][3] = v.y;
+    }
+#pragma unroll 4
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      uint32_t ah[4], al[4];
+      split(a(m0 + g, k0 + t), ah[0], al[0]);
+      split(a(m0 + g + 8, k0 + t), ah[1], al[1]);
+      split(a(m0 + g, k0 + t + 4), ah[2], al[2]);
+      split(a(m0 + g + 8, k0 + t + 4), ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        uint32_t bh[2], bl[2];
+        split(b(k0 + t, n0 + 8 * j + g), bh[0], bl[0]);
+        split(b(k0 + t + 4, n0 + 8 * j + g), bh[1], bl[1]);
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tf32(d, al, bh);
+        mma_tf32(d, ah, bl);
+        mma_tf32(d, ah, bh);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[j][i] += d[i];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      epi(m0 + g, n, make_float2(c[j][0], c[j][1]));
+      epi(m0 + g + 8, n, make_float2(c[j][2], c[j][3]));
+    }
+  }
+  return slot + ITEMS;
+}
+
+// One layer of the recomputed forward on the SIMT cores: out(m, n, z) for
+// z = (x_h . w_h + x_e . w_e) + bias(n) over the chunk's BP points, x_h the
+// first KH input columns and x_e the next KE, each dot an FP32 FMA chain from
+// k = 0, as torch.bmm in the plain version and K1 round it. The backward's
+// ReLU masks are the signs of these z. A pre-activation within a rounding
+// error of zero takes the sign its rounding gives it; another rounding (a
+// 3xTF32 product, or one chain over [x_h | x_e]) flips a few such masks per
+// room_0 step against the plain version, and one flipped mask moves a leaf's
+// gradient by more than 1e-3 of its largest entry (measured on an H100). Each
+// thread owns RM x RN outputs, rows cy + TM i and columns cx + TN j.
+template <int N, int KH, int KE, class FX, class FW, class FB, class FE>
+__device__ void fp32_layer(FX x, FW w, FB bias, FE out) {
+  constexpr int RN = N >= 128 ? 4 : 2;
+  constexpr int TN = N / RN, TM = NT / TN, RM = BP / TM;
+  static_assert(N % RN == 0 && NT % TN == 0 && BP % TM == 0, "layer shape");
+  const int cx = threadIdx.x % TN, cy = threadIdx.x / TN;
+  float s[RM][RN], e[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) s[i][j] = e[i][j] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < KH; ++k) {
+    float a[RM], b[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = x(cy + TM * i, k);
+#pragma unroll
+    for (int j = 0; j < RN; ++j) b[j] = w(k, cx + TN * j);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+  }
+#pragma unroll 4
+  for (int k = KH; k < KH + KE; ++k) {
+    float a[RM], b[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = x(cy + TM * i, k);
+#pragma unroll
+    for (int j = 0; j < RN; ++j) b[j] = w(k, cx + TN * j);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) e[i][j] = fmaf(a[i], b[j], e[i][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < RN; ++j) {
+    const int n = cx + TN * j;
+    const float bn = bias(n);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) out(cy + TM * i, n, (KE > 0 ? s[i][j] + e[i][j] : s[i][j]) + bn);
+  }
+}
+
+// One weight matrix of the packed layout, [R][H] row-major with its bias row
+// (if any) counted in R: in the block's swizzled shared copy from row r0
+// (h = 32; rows past R are zero there), or in global memory (L2-resident),
+// where rows past R read as zero.
+template <int H, bool SMEM>
+struct Wm {
+  Sw<H> s;
+  const float* g;
+  int r0, R;
+  __device__ float at(int r, int c) const {
+    if constexpr (SMEM) return s(r0 + r, c);
+    else return r < R ? __ldg(g + r * H + c) : 0.0f;
+  }
+};
+
+#ifdef __CUDACC__
+__device__ inline void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
+}
+
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+#endif
+
+// d * (x > 0), elementwise on a pair
+__device__ inline float2 mask2(float2 d, float2 x) {
+  return make_float2(x.x > 0.0f ? d.x : 0.0f, x.y > 0.0f ? d.y : 0.0f);
+}
+
+template <int H>
+__global__ void __launch_bounds__(NT, 1)
 ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
               const float* __restrict__ da, const float* __restrict__ dc,
               const float* __restrict__ dh, float* __restrict__ part,
-              int N, int h, int do_clip, int tile) {
-  extern __shared__ float sm[];
-  const int TP = chunk_points(h);
-  const int ldh = ld_h(h);
+              int N, int do_clip, int tile) {
+  using D = Dims<H>;
+  constexpr bool SW = D::SMEM_W;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
   const int o = blockIdx.y;
   const int ti = blockIdx.x;
-  const Layout L = make_layout(h);
+  const Layout L = make_layout(H);
   const float* W = w + (size_t)o * L.total;
   float* G = part + ((size_t)o * gridDim.x + ti) * L.total;
 
-  float* tt = sm;
-  float* pj = tt + TP * LD_T;       // proj, then d_proj in place
-  float* e1 = pj + TP * LD_P;
-  float* e2 = e1 + TP * LD_E1;
-  float* h1 = e2 + TP * LD_E2;
-  float* h2 = h1 + TP * ldh;
-  float* hc = h2 + TP * ldh;
-  float* h3 = hc + TP * ldh;
-  float* hcol = h3 + TP * ldh;
-  float* hcl = hcol + TP * ldh;
-  float* dA = hcl + TP * ldh;       // d_hcol, then d_hc
-  float* dB = dA + TP * ldh;        // d_hclip, then d_h2
-  float* dC = dB + TP * ldh;        // d_h3, then d_h1
-  float* de1 = dC + TP * ldh;
-  float* de2 = de1 + TP * LD_E1;
-  float* dcp = de2 + TP * LD_E2;    // [TP][3] sigmoid-input cotangent
-  float* dal = dcp + TP * 3;        // [TP]    alpha pre-scale cotangent
+  float* q = sm;
+  const Sw<H> ws{q};             q += SW ? D::WROWS * H : 0;     // weights (h = 32)
+  float* gs = q;                 q += SW ? D::GROWS * D::LDG : 0; // weight grads (h = 32)
+  const Sw<D::LDX2> X2{q};       q += BP * D::LDX2;  // [h2 | e1 | 1]
+  const Sw<D::LDX2> D2{q};       q += BP * D::LDX2;  // [d_h2 | d_e1]
+  const Sw<D::LDX3> X3{q};       q += BP * D::LDX3;  // [h3 | e2 | 1 | 0]
+  const Sw<D::LDX3> D3{q};       q += BP * D::LDX3;  // [d_h3 | d_e2]
+  const Sw<2 * H> DH{q};         q += BP * 2 * H;    // [d_hcol | d_hclip]
+  const Sw<H> A1{q};             q += BP * H;        // h1
+  const Sw<H> AC{q};             q += BP * H;        // hc, then d_h1
+  const Sw<H> AO{q};             q += BP * H;        // hcol, then d_hc
+  float* tt = q;                 q += BP * 4;        // scaled points
+  float* pj = q;                 q += BP * ND;       // proj, then d_proj
+  float* dcp = q;                q += BP * 4;        // sigmoid-input cotangent
+  float* dal = q;                q += BP;            // alpha pre-scale cotangent
+  float* S = q;                                      // small gradients
+
+  const Wm<H, SW> w_in{ws, W + L.w_in, D::WR_IN, 88};
+  const Wm<H, SW> w_mid1{ws, W + L.w_mid1, D::WR_MID1, H};
+  const Wm<H, SW> w_cat{ws, W + L.w_cat, D::WR_CAT, D::KX2};
+  const Wm<H, SW> w_mid2{ws, W + L.w_mid2, D::WR_MID2, H};
+  const Wm<H, SW> w_col{ws, W + L.w_col, D::WR_COL, D::RH};
+  const Wm<H, SW> w_clip{ws, W + L.w_clip, D::WR_CLIP, D::RH};
+
+  if constexpr (SW) {   // the object's weights, once per block, behind the first encode
+    const auto load = [&](int r0, int off, int rows, int padded) {
+      for (int i = tid; i < rows * H; i += NT) cp_async4(&ws(r0 + i / H, i % H), W + off + i);
+      for (int i = rows * H + tid; i < padded * H; i += NT) ws(r0 + i / H, i % H) = 0.0f;
+    };
+    load(D::WR_IN, L.w_in, 88, 88);
+    load(D::WR_MID1, L.w_mid1, H, H);
+    load(D::WR_CAT, L.w_cat, D::KX2, D::KX2);
+    load(D::WR_MID2, L.w_mid2, H, H);
+    load(D::WR_COL, L.w_col, D::RH, D::KX3);
+    load(D::WR_CLIP, L.w_clip, D::RH, D::KX3);
+    for (int i = tid; i < D::GROWS * D::LDG; i += NT) gs[i] = 0.0f;
+  }
+  for (int i = tid; i < D::NS; i += NT) S[i] = 0.0f;
+
+  const auto zero2 = [](int, int) { return make_float2(0.0f, 0.0f); };
+  // weight-gradient accumulator of one matrix: in shared memory across the
+  // tile's chunks (h = 32), or written once to the slot (h = 128: one chunk
+  // per tile); rows past R (padding) are dropped
+  const auto g_init = [&](int gr0) {
+    return [=](int m, int n) {
+      if constexpr (SW) return *reinterpret_cast<const float2*>(gs + (gr0 + m) * D::LDG + n);
+      else return make_float2(0.0f, 0.0f);
+    };
+  };
+  const auto g_store = [&](int gr0, int off, int R) {
+    return [=](int m, int n, float2 v) {
+      if constexpr (SW) {
+        *reinterpret_cast<float2*>(gs + (gr0 + m) * D::LDG + n) = v;
+      } else if (m < R) {
+        G[off + m * H + n] = v.x;
+        G[off + m * H + n + 1] = v.y;
+      }
+    };
+  };
+  constexpr int NBF = H >= 64 ? 2 : 1;    // n-tiles per item of an N = H product
 
   const int t0 = ti * tile;
   const int t1 = min(N, t0 + tile);
-  for (int c0 = t0; c0 < t1; c0 += TP) {
-    const int nv = min(TP, t1 - c0);
-    const bool acc = c0 != t0;
+  for (int c0 = t0; c0 < t1; c0 += BP) {
+    const int nv = min(BP, t1 - c0);
     const size_t row0 = (size_t)o * N + c0;
 
-    // ---- recompute the forward of this chunk
-    encode(pts + row0 * 3, W + L.dirs, nv, tt, pj, e1, e2);
+    // ---- encode; rows past nv get t = 0 and zero cotangents
+    for (int i = tid; i < BP * 3; i += NT) {
+      const int p = i / 3, c = i - p * 3;
+      const float v = p < nv ? pts[row0 * 3 + i] : 0.0f;
+      tt[p * 4 + c] = v;
+      X2(p, H + c) = v;
+    }
+    for (int p = tid; p < BP; p += NT) {
+      dal[p] = p < nv ? da[row0 + p] * ALPHA_SCALE : 0.0f;
+      X2(p, H + 87) = 1.0f;
+      for (int c = D::KX2; c < D::MX2; ++c) X2(p, c) = 0.0f;
+      X3(p, H + 42) = 1.0f;
+      for (int c = H + 43; c < D::KX3; ++c) X3(p, c) = 0.0f;
+    }
     __syncthreads();
-    trunk(W, L, h, nv, e1, h1, h2, hc, h3);
-    head(W, L.w_col, L.b_col, h, nv, h3, e2, hcol);
-    if (do_clip) head(W, L.w_clip, L.b_clip, h, nv, h3, e2, hcl);
+    for (int i = tid; i < BP * ND; i += NT) {
+      const int p = i / ND, d = i - p * ND;
+      const float* t = tt + p * 4;
+      const float* dr = W + L.dirs + d * 3;
+      // full f32 as an explicit FMA chain, the same rounding as the plain
+      // version (embedding.project): fma(t2, d2, fma(t1, d1, t0 d0))
+      const float pr = fmaf(t[2], dr[2], fmaf(t[1], dr[1], __fmul_rn(t[0], dr[0])));
+      pj[i] = pr;
+#pragma unroll
+      for (int k = 0; k < NF; ++k) {
+        const float f = (float)(3.14159265358979323846 * (double)(1 << k));
+        const float s = sinf(__fmul_rn(f, pr));
+        if (k < 4) X2(p, H + 3 + ND * k + d) = s;
+        else X3(p, H + ND * (k - 4) + d) = s;
+      }
+    }
+    if constexpr (SW) {
+      if (c0 == t0) cp_async_wait_all();
+    }
+    __syncthreads();
 
-    // ---- head cotangents
-    for (int i = threadIdx.x; i < nv * 4; i += NT) {
-      const int p = i >> 2, c = i & 3;
-      if (c == 3) {
-        dal[p] = da[row0 + p] * ALPHA_SCALE;
+    // ---- recompute the forward (FP32, the plain version's rounding)
+    const auto relu_to = [](const auto& buf) {
+      return [=](int m, int n, float z) { buf(m, n) = z > 0.0f ? z : 0.0f; };
+    };
+    fp32_layer<H, 87, 0>(     // h1 = relu(e1 . w_in + b_in)
+        [&](int m, int k) { return X2(m, H + k); }, [&](int k, int n) { return w_in.at(k, n); },
+        [&](int n) { return w_in.at(87, n); }, relu_to(A1));
+    __syncthreads();
+    fp32_layer<H, H, 0>(      // h2
+        [&](int m, int k) { return A1(m, k); }, [&](int k, int n) { return w_mid1.at(k, n); },
+        [&](int n) { return W[L.b_mid1 + n]; }, relu_to(X2));
+    __syncthreads();
+    fp32_layer<H, H, 87>(     // hc = relu(h2 . w_cat[:h] + e1 . w_cat[h:] + b_cat)
+        [&](int m, int k) { return X2(m, k); }, [&](int k, int n) { return w_cat.at(k, n); },
+        [&](int n) { return w_cat.at(H + 87, n); }, relu_to(AC));
+    __syncthreads();
+    fp32_layer<H, H, 0>(      // h3
+        [&](int m, int k) { return AC(m, k); }, [&](int k, int n) { return w_mid2.at(k, n); },
+        [&](int n) { return W[L.b_mid2 + n]; }, relu_to(X3));
+    __syncthreads();
+    fp32_layer<H, H, 42>(     // hcol
+        [&](int m, int k) { return X3(m, k); }, [&](int k, int n) { return w_col.at(k, n); },
+        [&](int n) { return w_col.at(H + 42, n); }, relu_to(AO));
+    if (do_clip) {   // d_hclip = dh * (hclip > 0); hclip itself is not kept
+      fp32_layer<H, H, 42>(
+          [&](int m, int k) { return X3(m, k); }, [&](int k, int n) { return w_clip.at(k, n); },
+          [&](int n) { return w_clip.at(H + 42, n); },
+          [&](int m, int n, float z) {
+            DH(m, H + n) = (z > 0.0f && m < nv) ? dh[(row0 + m) * H + n] : 0.0f;
+          });
+    }
+    __syncthreads();
+
+    // ---- colour head: sigmoid-input cotangent (FMAs, as K1's dot_w)
+    for (int i = tid; i < BP * 3; i += NT) {
+      const int p = i / 3, c = i - p * 3;
+      float d = 0.0f;
+      if (p < nv) {
+        float s = 0.0f;
+        for (int k = 0; k < H; ++k) s = fmaf(AO(p, k), W[L.w_oc + k * 3 + c], s);
+        const float col = sigmoid_f(s + W[L.b_oc + c]);
+        d = dc[(row0 + p) * 3 + c] * col * (1.0f - col);
+      }
+      dcp[p * 4 + c] = d;
+    }
+    __syncthreads();
+    // d_hcol = (dcp w_oc^T) * (hcol > 0); the small heads' gradients
+    for (int i = tid; i < BP * H; i += NT) {
+      const int p = i / H, j = i - p * H;
+      const float* wo = W + L.w_oc + j * 3;
+      const float v = fmaf(dcp[p * 4 + 2], wo[2], fmaf(dcp[p * 4 + 1], wo[1], dcp[p * 4] * wo[0]));
+      DH(p, j) = AO(p, j) > 0.0f ? v : 0.0f;
+    }
+    for (int e = tid; e < 4 * H + 4; e += NT) {
+      float s = 0.0f;
+      if (e < 3 * H) {          // w_oc[j][c] += sum_p hcol[p][j] dcp[p][c]
+        const int j = e / 3, c = e - j * 3;
+        for (int p = 0; p < nv; ++p) s = fmaf(AO(p, j), dcp[p * 4 + c], s);
+        S[D::S_WOC + e] += s;
+      } else if (e < 3 * H + 3) {
+        for (int p = 0; p < nv; ++p) s += dcp[p * 4 + e - 3 * H];
+        S[D::S_BOC + e - 3 * H] += s;
+      } else if (e < 4 * H + 3) {   // w_alpha[j] += sum_p h3[p][j] dal[p]
+        const int j = e - 3 * H - 3;
+        for (int p = 0; p < nv; ++p) s = fmaf(X3(p, j), dal[p], s);
+        S[D::S_WA + j] += s;
       } else {
-        const float v = dot_w(hcol + p * ldh, W + L.w_oc + c, h, 3) + W[L.b_oc + c];
-        const float col = sigmoid_f(v);
-        dcp[p * 3 + c] = dc[(row0 + p) * 3 + c] * col * (1.0f - col);
-      }
-    }
-    if (do_clip) {
-      for (int i = threadIdx.x; i < nv * h; i += NT) {
-        const int p = i / h, j = i - p * h;
-        dB[p * ldh + j] = hcl[p * ldh + j] > 0.0f ? dh[(row0 + p) * h + j] : 0.0f;
+        for (int p = 0; p < nv; ++p) s += dal[p];
+        S[D::S_BA] += s;
       }
     }
     __syncthreads();
-    // d_hcol = (dcp W_oc^T) * (hcol > 0)
-    mm_dx(nv, h, 3, dcp, 3, W + L.w_oc, dA, ldh, false);
-    __syncthreads();
-    relu_mask(dA, hcol, ldh, nv, h);
-    __syncthreads();
 
-    // ---- head weight grads; d_h3 and d_e2 (pre-mask)
-    mm(h, 3, nv, hcol, 1, ldh, dcp, 3, 1, G + L.w_oc, 3, 1, acc);
-    colsum(dcp, 3, nv, 3, G + L.b_oc, acc);
-    mm(h, 1, nv, h3, 1, ldh, dal, 1, 1, G + L.w_alpha, 1, 1, acc);
-    colsum(dal, 1, nv, 1, G + L.b_alpha, acc);
-    mm(h, h, nv, h3, 1, ldh, dA, ldh, 1, G + L.w_col, h, 1, acc);
-    mm(E2, h, nv, e2, 1, LD_E2, dA, ldh, 1, G + L.w_col + h * h, h, 1, acc);
-    colsum(dA, ldh, nv, h, G + L.b_col, acc);
-    mm_dx(nv, h, h, dA, ldh, W + L.w_col, dC, ldh, false);
-    mm_dx(nv, E2, h, dA, ldh, W + L.w_col + h * h, de2, LD_E2, false);
-    if (do_clip) {
-      mm(h, h, nv, h3, 1, ldh, dB, ldh, 1, G + L.w_clip, h, 1, acc);
-      mm(E2, h, nv, e2, 1, LD_E2, dB, ldh, 1, G + L.w_clip + h * h, h, 1, acc);
-      colsum(dB, ldh, nv, h, G + L.b_clip, acc);
-      mm_dx(nv, h, h, dB, ldh, W + L.w_clip, dC, ldh, true);
-      mm_dx(nv, E2, h, dB, ldh, W + L.w_clip + h * h, de2, LD_E2, true);
-    } else if (!acc) {
-      zero(G + L.w_clip, (h + E2) * h + h);
-    }
-    __syncthreads();
-    // d_h3 = (dC + dal w_alpha^T) * (h3 > 0)
-    for (int i = threadIdx.x; i < nv * h; i += NT) {
-      const int p = i / h, j = i - p * h;
-      const float v = dC[p * ldh + j] + dal[p] * W[L.w_alpha + j];
-      dC[p * ldh + j] = h3[p * ldh + j] > 0.0f ? v : 0.0f;
+    // ---- e2-fed heads: weight grads; [d_h3 | d_e2]
+    {
+      int slot = product<D::KX3, H, BP, NBF>(   // [w_col; b_col] += [h3 | e2 | 1]^T d_hcol
+          0, g_init(D::GR_COL), [&](int m, int k) { return X3(k, m); },
+          [&](int k, int n) { return DH(k, n); }, g_store(D::GR_COL, L.w_col, D::RH));
+      const auto d3_epi = [&](int m, int n, float2 v) {
+        if (n < H) {   // d_h3 = (. + dal w_alpha^T) * (h3 > 0)
+          v.x = fmaf(dal[m], W[L.w_alpha + n], v.x);
+          v.y = fmaf(dal[m], W[L.w_alpha + n + 1], v.y);
+          v = mask2(v, X3.pair(m, n));
+        }
+        D3.pair(m, n) = v;
+      };
+      if (do_clip) {
+        slot = product<D::KX3, H, BP, NBF>(
+            slot, g_init(D::GR_CLIP), [&](int m, int k) { return X3(k, m); },
+            [&](int k, int n) { return DH(k, H + n); }, g_store(D::GR_CLIP, L.w_clip, D::RH));
+        product<BP, D::KX3, 2 * H, 2>(   // d_hcol w_col^T + d_hclip w_clip^T
+            slot, zero2, [&](int m, int k) { return DH(m, k); },
+            [&](int k, int n) { return k < H ? w_col.at(n, k) : w_clip.at(n, k - H); }, d3_epi);
+      } else {
+        product<BP, D::KX3, H, 2>(
+            slot, zero2, [&](int m, int k) { return DH(m, k); },
+            [&](int k, int n) { return w_col.at(n, k); }, d3_epi);
+      }
     }
     __syncthreads();
 
-    // ---- mid2
-    mm(h, h, nv, hc, 1, ldh, dC, ldh, 1, G + L.w_mid2, h, 1, acc);
-    colsum(dC, ldh, nv, h, G + L.b_mid2, acc);
-    mm_dx(nv, h, h, dC, ldh, W + L.w_mid2, dA, ldh, false);
-    __syncthreads();
-    relu_mask(dA, hc, ldh, nv, h);   // d_hc
-    __syncthreads();
-
-    // ---- skip layer: input [h2 | e1]
-    mm(h, h, nv, h2, 1, ldh, dA, ldh, 1, G + L.w_cat, h, 1, acc);
-    mm(E1, h, nv, e1, 1, LD_E1, dA, ldh, 1, G + L.w_cat + h * h, h, 1, acc);
-    colsum(dA, ldh, nv, h, G + L.b_cat, acc);
-    mm_dx(nv, h, h, dA, ldh, W + L.w_cat, dB, ldh, false);
-    mm_dx(nv, E1, h, dA, ldh, W + L.w_cat + h * h, de1, LD_E1, false);
-    __syncthreads();
-    relu_mask(dB, h2, ldh, nv, h);   // d_h2
-    __syncthreads();
-
-    // ---- mid1
-    mm(h, h, nv, h1, 1, ldh, dB, ldh, 1, G + L.w_mid1, h, 1, acc);
-    colsum(dB, ldh, nv, h, G + L.b_mid1, acc);
-    mm_dx(nv, h, h, dB, ldh, W + L.w_mid1, dC, ldh, false);
-    __syncthreads();
-    relu_mask(dC, h1, ldh, nv, h);   // d_h1
+    // ---- mid2: weight grad; d_hc = (d_h3 w_mid2^T) * (hc > 0)
+    {
+      const int slot = product<H, H, BP, NBF>(
+          0, g_init(D::GR_MID2), [&](int m, int k) { return AC(k, m); },
+          [&](int k, int n) { return D3(k, n); }, g_store(D::GR_MID2, L.w_mid2, H));
+      product<BP, H, H, NBF>(
+          slot, zero2, [&](int m, int k) { return D3(m, k); },
+          [&](int k, int n) { return w_mid2.at(n, k); },
+          [&](int m, int n, float2 v) { AO.pair(m, n) = mask2(v, AC.pair(m, n)); });
+      for (int j = tid; j < H; j += NT) {
+        float s = 0.0f;
+        for (int p = 0; p < BP; ++p) s += D3(p, j);
+        S[D::S_BM2 + j] += s;
+      }
+    }
     __syncthreads();
 
-    // ---- in_layer
-    mm(E1, h, nv, e1, 1, LD_E1, dC, ldh, 1, G + L.w_in, h, 1, acc);
-    colsum(dC, ldh, nv, h, G + L.b_in, acc);
-    mm_dx(nv, E1, h, dC, ldh, W + L.w_in, de1, LD_E1, true);
+    // ---- skip layer: [w_cat; b_cat] += [h2 | e1 | 1]^T d_hc; [d_h2 | d_e1]
+    {
+      const int slot = product<D::MX2, H, BP, NBF>(
+          0, g_init(D::GR_CAT), [&](int m, int k) { return X2(k, m); },
+          [&](int k, int n) { return AO(k, n); }, g_store(D::GR_CAT, L.w_cat, D::KX2));
+      product<BP, D::KX2, H, 1>(
+          slot, zero2, [&](int m, int k) { return AO(m, k); },
+          [&](int k, int n) { return w_cat.at(n, k); },
+          [&](int m, int n, float2 v) {
+            D2.pair(m, n) = n < H ? mask2(v, X2.pair(m, n)) : v;   // d_h2 masked
+          });
+    }
+    __syncthreads();
+
+    // ---- mid1: weight grad; d_h1 = (d_h2 w_mid1^T) * (h1 > 0)
+    {
+      const int slot = product<H, H, BP, NBF>(
+          0, g_init(D::GR_MID1), [&](int m, int k) { return A1(k, m); },
+          [&](int k, int n) { return D2(k, n); }, g_store(D::GR_MID1, L.w_mid1, H));
+      product<BP, H, H, NBF>(
+          slot, zero2, [&](int m, int k) { return D2(m, k); },
+          [&](int k, int n) { return w_mid1.at(n, k); },
+          [&](int m, int n, float2 v) { AC.pair(m, n) = mask2(v, A1.pair(m, n)); });
+      for (int j = tid; j < H; j += NT) {
+        float s = 0.0f;
+        for (int p = 0; p < BP; ++p) s += D2(p, j);
+        S[D::S_BM1 + j] += s;
+      }
+    }
+    __syncthreads();
+
+    // ---- in_layer: [w_in; b_in] += [e1 | 1]^T d_h1; d_e1 += d_h1 w_in^T
+    {
+      const int slot = product<D::ME1, H, BP, NBF>(
+          0, g_init(D::GR_IN), [&](int m, int k) { return X2(k, H + m); },
+          [&](int k, int n) { return AC(k, n); }, g_store(D::GR_IN, L.w_in, 88));
+      product<BP, 88, H, 1>(
+          slot, [&](int m, int n) { return D2.pair(m, H + n); },
+          [&](int m, int k) { return AC(m, k); }, [&](int k, int n) { return w_in.at(n, k); },
+          [&](int m, int n, float2 v) { D2.pair(m, H + n) = v; });
+    }
     __syncthreads();
 
     // ---- PE backward: d_proj = sum_k f_k cos(f_k proj) d_sin_k
-    for (int i = threadIdx.x; i < nv * ND; i += NT) {
+    for (int i = tid; i < BP * ND; i += NT) {
       const int p = i / ND, d = i - p * ND;
-      const float pr = pj[p * LD_P + d];
+      const float pr = pj[i];
       float g = 0.0f;
 #pragma unroll
       for (int k = 0; k < NF; ++k) {
         const float f = (float)(3.14159265358979323846 * (double)(1 << k));
-        const float ds = k < 4 ? de1[p * LD_E1 + 3 + ND * k + d]
-                               : de2[p * LD_E2 + ND * (k - 4) + d];
+        const float ds = k < 4 ? D2(p, H + 3 + ND * k + d) : D3(p, H + ND * (k - 4) + d);
         g += (f * cosf(__fmul_rn(f, pr))) * ds;
       }
-      pj[p * LD_P + d] = g;
+      pj[i] = g;
     }
     __syncthreads();
-    // d_dirs[d][c] = sum_p d_proj[p][d] t[p][c]
-    mm(ND, 3, nv, pj, 1, LD_P, tt, LD_T, 1, G + L.dirs, 3, 1, acc);
+    // d_dirs[d][c] += sum_p d_proj[p][d] t[p][c]
+    for (int e = tid; e < ND * 3; e += NT) {
+      const int d = e / 3, c = e - d * 3;
+      float s = 0.0f;
+      for (int p = 0; p < nv; ++p) s = fmaf(pj[p * ND + d], tt[p * 4 + c], s);
+      S[D::S_DIRS + e] += s;
+    }
     __syncthreads();
   }
+
+  // ---- the block's slot, written once
+  if constexpr (SW) {
+    const auto put = [&](int gr0, int off, int rows) {
+      for (int i = tid; i < rows * H; i += NT)
+        G[off + i] = gs[(gr0 + i / H) * D::LDG + i % H];
+    };
+    put(D::GR_IN, L.w_in, 88);
+    put(D::GR_MID1, L.w_mid1, H);
+    put(D::GR_CAT, L.w_cat, D::KX2);
+    put(D::GR_MID2, L.w_mid2, H);
+    put(D::GR_COL, L.w_col, D::RH);
+    put(D::GR_CLIP, L.w_clip, D::RH);
+  } else if (!do_clip) {
+    for (int i = tid; i < D::RH * H; i += NT) G[L.w_clip + i] = 0.0f;
+  }
+  for (int e = tid; e < ND * 3; e += NT) G[L.dirs + e] = S[D::S_DIRS + e];
+  for (int j = tid; j < H; j += NT) {
+    G[L.w_alpha + j] = S[D::S_WA + j];
+    G[L.b_mid1 + j] = S[D::S_BM1 + j];
+    G[L.b_mid2 + j] = S[D::S_BM2 + j];
+  }
+  for (int e = tid; e < 3 * H; e += NT) G[L.w_oc + e] = S[D::S_WOC + e];
+  if (tid < 3) G[L.b_oc + tid] = S[D::S_BOC + tid];
+  if (tid == 0) G[L.b_alpha] = S[D::S_BA];
 }
 
 // Sum the per-tile partials in tile order: grad[o][i] = sum_t part[o][t][i].
@@ -499,9 +900,17 @@ size_t fwd_smem(int h) {
          (LD_T + LD_P + LD_E1 + LD_E2 + 2 * ld_h(h));
 }
 
-size_t bwd_smem(int h) {
-  return sizeof(float) * chunk_points(h) *
-         (LD_T + LD_P + 2 * (LD_E1 + LD_E2) + 9 * ld_h(h) + 3 + 1);
+template <int H>
+int launch_bwd(const float* pts, const float* w, const float* da, const float* dc,
+               const float* dh, float* part, int O, int N, int do_clip, int tile,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * Dims<H>::SMEM_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(
+      ff_bwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + tile - 1) / tile, O);
+  ff_bwd_kernel<H><<<grid, NT, smem, stream>>>(pts, w, da, dc, dh, part, N, do_clip, tile);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -510,7 +919,13 @@ extern "C" {
 
 int ff_param_count(int h) { return make_layout(h).total; }
 
-int ff_chunk_points(int h) { return chunk_points(h); }
+// K2 walks a tile of points in chunks of this many
+int ff_bwd_chunk(int) { return BP; }
+
+// The largest K2 tile: unbounded at h = 32 (weights and gradients stay in
+// shared memory across chunks), one chunk at h = 128 (each chunk's weight
+// gradients are written to the tile's slot once).
+int ff_bwd_max_tile(int h) { return h <= 32 ? (1 << 30) : BP; }
 
 int ff_forward(const float* pts, const float* w, float* alpha, float* color,
                float* hclip, int O, int N, int h, int do_clip, void* stream) {
@@ -525,17 +940,17 @@ int ff_forward(const float* pts, const float* w, float* alpha, float* color,
   return (int)cudaGetLastError();
 }
 
+// K2 is built for h = 32 and h = 128 (the widths of every shipped config);
+// the tile must be a multiple of the chunk and at most ff_bwd_max_tile(h).
 int ff_backward(const float* pts, const float* w, const float* da,
                 const float* dc, const float* dh, float* part, int O, int N,
                 int h, int do_clip, int tile, void* stream) {
-  const size_t smem = bwd_smem(h);
-  cudaError_t err = cudaFuncSetAttribute(
-      ff_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + tile - 1) / tile, O);
-  ff_bwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      pts, w, da, dc, dh, part, N, h, do_clip, tile);
-  return (int)cudaGetLastError();
+  if (tile <= 0 || tile % BP != 0 || tile > ff_bwd_max_tile(h))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (h == 32) return launch_bwd<32>(pts, w, da, dc, dh, part, O, N, do_clip, tile, s);
+  if (h == 128) return launch_bwd<128>(pts, w, da, dc, dh, part, O, N, do_clip, tile, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int ff_reduce(const float* part, float* grad, int O, int T, int P,

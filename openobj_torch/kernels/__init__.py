@@ -4,7 +4,9 @@ Each source ``openobj_torch/csrc/<name>.cu`` exposes a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout, at first use, then loaded with ``ctypes``. The library's file
 name carries a digest of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import.
+rebuilt and a stale library is never loaded. ``build`` and ``load`` also take
+the path of a source outside ``csrc/`` (for example an older copy of a
+kernel, to time it beside the current one). Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}   # by name or source path
 
 
 def nvcc_path() -> str:
@@ -43,10 +45,15 @@ def nvcc_path() -> str:
         "openobj_torch/csrc at first use")
 
 
-def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def _source(name) -> Path:
+    """``csrc/<name>.cu`` for a name, the path itself for a ``Path``."""
+    return name if isinstance(name, Path) else CSRC / f"{name}.cu"
+
+
+def lib_path(name) -> Path:
+    src = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 
 def build(names=SOURCES, verbose: bool = False) -> dict[str, float]:
@@ -64,7 +71,7 @@ def build(names=SOURCES, verbose: bool = False) -> dict[str, float]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               "-o", str(tmp), str(_source(name))]
         jobs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
@@ -74,23 +81,25 @@ def build(names=SOURCES, verbose: bool = False) -> dict[str, float]:
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+            errors.append(f"nvcc failed for {_source(name)} (rc {proc.returncode}):\n{log}")
             continue
         if verbose and log:
-            print(f"[nvcc {name}.cu]\n{log}", flush=True)
+            print(f"[nvcc {_source(name).name}]\n{log}", flush=True)
         os.replace(tmp, out)   # atomic: a concurrent build never sees a partial file
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _LIBS.get(name)
+def load(name) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (or a source path),
+    building it if needed."""
+    key = str(name)
+    lib = _LIBS.get(key)
     if lib is None:
         path = lib_path(name)
         if not path.exists():
             build((name,))
         lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib

@@ -31,7 +31,7 @@ from openobj_torch.ops.mlp import ALPHA_SCALE
 
 _F32 = torch.float32
 _E1, _E2, _ND, _NF = 87, 42, 21, 6
-_MAX_BWD_TILE = 512
+BWD_WIDTHS = (32, 128)   # hidden widths K2 is built for (every shipped config)
 
 # launches of each kernel (and calls of the plain version), as plain ints
 COUNTS = {"fused_field_fwd": 0, "fused_field_bwd": 0,
@@ -104,7 +104,7 @@ def fused_field_plain(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
     hclip [O,N,h] | None)."""
     w = _unpack(wflat, h)
     t = pts_scaled
-    proj = embedding.project(t, w["dirs"])                       # [O, N, 21]
+    proj = embedding.project(t, w["dirs"]).to(t.dtype)          # [O, N, 21], FP32 rounding
     sins = [torch.sin((math.pi * (2.0 ** k)) * proj) for k in range(_NF)]
     e1 = torch.cat([t] + sins[:4], dim=-1)                       # [O, N, 87]
     e2 = torch.cat(sins[4:], dim=-1)                             # [O, N, 42]
@@ -133,15 +133,18 @@ _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _lib():
+def _lib(source="fused_field"):
+    """The loaded, typed library of ``csrc/fused_field.cu`` (or of another
+    copy of it with the same entry points, given as a path)."""
     from openobj_torch import kernels
 
-    lib = kernels.load("fused_field")
+    lib = kernels.load(source)
     if not getattr(lib, "_openobj_typed", False):
         lib.ff_param_count.argtypes = [_INT]
         lib.ff_param_count.restype = _INT
-        lib.ff_chunk_points.argtypes = [_INT]
-        lib.ff_chunk_points.restype = _INT
+        for fn in (lib.ff_bwd_chunk, lib.ff_bwd_max_tile):
+            fn.argtypes = [_INT]
+            fn.restype = _INT
         lib.ff_forward.argtypes = [_VP] * 5 + [_INT] * 4 + [_VP]
         lib.ff_forward.restype = _INT
         lib.ff_backward.argtypes = [_VP] * 6 + [_INT] * 5 + [_VP]
@@ -172,13 +175,29 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def bwd_tile(o: int, n: int, chunk: int, n_sm: int) -> int:
-    """Points per backward block: the largest power-of-two multiple of the
-    chunk (at most 512) that still gives every SM a block."""
-    tile = _MAX_BWD_TILE
-    while tile > chunk and o * -(-n // tile) < n_sm:
-        tile //= 2
-    return max(tile, chunk)
+def _check_width(h: int) -> None:
+    if h not in BWD_WIDTHS:
+        raise ValueError(f"fused_field backward: K2 is built for h in {BWD_WIDTHS}, got {h}")
+
+
+def bwd_tile(o: int, n: int, chunk: int, n_sm: int, max_tile: int) -> int:
+    """Points per backward block: a multiple of the chunk, at most
+    ``max_tile``, that finishes in the least waves x tile length (a K2 block
+    fills an SM); among equals, the one with the fewest blocks."""
+    best = None
+    for tile in range(chunk, min(max_tile, -(-n // chunk) * chunk) + 1, chunk):
+        blocks = o * -(-n // tile)
+        cost = (-(-blocks // n_sm) * tile, blocks)
+        if best is None or cost < best[0]:
+            best = (cost, tile)
+    return best[1]
+
+
+def bwd_tiling(lib, o: int, n: int, h: int, device) -> tuple[int, int]:
+    """(tile, number of tiles) of K2 for O objects x N points on ``device``."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    tile = bwd_tile(o, n, lib.ff_bwd_chunk(h), n_sm, lib.ff_bwd_max_tile(h))
+    return tile, -(-n // tile)
 
 
 def fused_field_forward_cuda(wflat, pts, h: int, do_clip: bool):
@@ -212,9 +231,8 @@ def fused_field_backward_cuda(wflat, pts, d_alpha, d_color, d_hclip, h: int,
     _check(d_color, "d_color", (o, n, 3))
     if do_clip:
         _check(d_hclip, "d_hclip", (o, n, h))
-    n_sm = torch.cuda.get_device_properties(pts.device).multi_processor_count
-    tile = bwd_tile(o, n, lib.ff_chunk_points(h), n_sm)
-    n_tiles = -(-n // tile)
+    _check_width(h)
+    tile, n_tiles = bwd_tiling(lib, o, n, h, pts.device)
     part = torch.empty((o, n_tiles, p), dtype=_F32, device=pts.device)
     grad = torch.empty((o, p), dtype=_F32, device=pts.device)
     stream = _stream(pts)
@@ -255,6 +273,8 @@ def fused_field_apply(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
                       do_clip: bool):
     """The kernel pair on a CUDA tensor, the plain version on a CPU one."""
     if pts_scaled.is_cuda:
+        if torch.is_grad_enabled() and wflat.requires_grad:
+            _check_width(h)   # before K1 runs, not midway through backward
         alpha, color, hclip = _FusedField.apply(
             wflat.contiguous(), pts_scaled.contiguous(), h, do_clip)
         return alpha, color, (hclip if do_clip else None)

@@ -1,0 +1,170 @@
+"""Time K2, the fused-field backward, of this checkout, alone or against K2
+built from another copy of ``csrc/fused_field.cu`` with the same C entry
+points, in one process on one card.
+
+    python -m openobj_torch.scripts.bench_fused_field
+    mkdir -p chip_proof/other && git archive <commit> openobj_torch/csrc/fused_field.cu \\
+        | tar -x -C chip_proof/other
+    python -m openobj_torch.scripts.bench_fused_field \\
+        --against chip_proof/other/openobj_torch/csrc/fused_field.cu
+
+At the main path's two shapes (fg 64 objects x 1200 points, h=32; bg 1 x
+16800, h=128; clip head on; inputs from a seed) it builds both sources with
+the same ``nvcc`` flags and tiles both with ``fused_field.bwd_tiling``. For
+each backward it reports the worst leaf's max|d|/max|ref| (and which leaf
+and object) against the plain FP32 backward, which is the gate of
+``chip_smoke.py``, and against the plain backward in float64 (``vs_f64``;
+its projection t . dirs^T keeps the FP32 rounding all versions share),
+beside the plain FP32 backward's own distance from float64. It times each
+backward kernel alone (into its own per-tile scratch, without the
+reduction) with CUDA events in turns: this, other, other, this; and the
+plain backward (autograd of ``fused_field_plain``). The last line is one
+JSON object with every number.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+from openobj_torch import kernels
+from openobj_torch.models import object_field
+from openobj_torch.ops import fused_field as ff
+
+SHAPES = (dict(name="fg", o=64, n=1200, h=32), dict(name="bg", o=1, n=16800, h=128))
+ITERS = 20      # timed launches per reading, after 3 warm-ups
+
+
+class K2:
+    """One library's backward at one shape: scratch, launch and reduction."""
+
+    def __init__(self, lib, wflat, pts, da, dc, dh, h: int):
+        self.lib, self.args = lib, (wflat, pts, da, dc, dh)
+        o, n, _ = pts.shape
+        self.o, self.n, self.h = o, n, h
+        self.tile, self.n_tiles = ff.bwd_tiling(lib, o, n, h, pts.device)
+        self.p = lib.ff_param_count(h)
+        self.part = torch.empty((o, self.n_tiles, self.p), device=pts.device)
+        self.stream = torch.cuda.current_stream(pts.device).cuda_stream
+
+    def backward(self) -> None:
+        w, pts, da, dc, dh = self.args
+        err = self.lib.ff_backward(pts.data_ptr(), w.data_ptr(), da.data_ptr(), dc.data_ptr(),
+                                   dh.data_ptr(), self.part.data_ptr(), self.o, self.n,
+                                   self.h, 1, self.tile, self.stream)
+        if err:
+            raise RuntimeError(f"ff_backward: CUDA error {err}")
+
+    def grad(self) -> torch.Tensor:
+        self.backward()
+        g = torch.empty((self.o, self.p), device=self.part.device)
+        err = self.lib.ff_reduce(self.part.data_ptr(), g.data_ptr(), self.o, self.n_tiles,
+                                 self.p, self.stream)
+        if err:
+            raise RuntimeError(f"ff_reduce: CUDA error {err}")
+        return g
+
+
+def _time(fn) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ITERS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / ITERS
+
+
+def _leaf_rel(g: torch.Tensor, ref: torch.Tensor, h: int) -> tuple[float, str]:
+    """Worst per-leaf max|d|/max|ref|, and where: "leaf[object]"."""
+    worst, where, ofs = 0.0, "", 0
+    for name, (r, c) in ff.param_layout(h):
+        sl = slice(ofs, ofs + r * c)
+        ofs += r * c
+        d = (g[:, sl].double() - ref[:, sl].double()).abs()
+        rel = float(d.max()) / (float(ref[:, sl].abs().max()) + 1e-12)
+        if rel > worst:
+            worst, where = rel, f"{name}[{int(d.amax(dim=1).argmax())}]"
+    return worst, where
+
+
+def _plain_grad(wflat, pts, cts, h: int, dtype):
+    """(objective, packed gradient, leaf) of the plain backward in ``dtype``."""
+    w = wflat.detach().to(dtype).requires_grad_(True)
+    outs = ff.fused_field_plain(w, pts.to(dtype), h, True)
+    obj = sum((x * c.to(dtype)).sum() for x, c in zip(outs, cts))
+    (g,) = torch.autograd.grad(obj, w, retain_graph=True)
+    return obj, g, w
+
+
+def run(against: Path | None) -> dict:
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    kernels.build(["fused_field"] + ([against] if against else []), verbose=True)
+    libs = {"this": ff._lib()}
+    if against:
+        libs["other"] = ff._lib(against)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    out = {}
+    for shape in SHAPES:
+        o, n, h = shape["o"], shape["n"], shape["h"]
+        params = object_field.init_stacked_fields(gen, o, hidden=h, clip_size=512, scale=2.0,
+                                                  device=device)
+        params = object_field.tree_map(
+            lambda x: x + 0.05 * torch.randn(x.shape, generator=gen, device=device), params)
+        wflat = ff._pack_params(params, h, True).contiguous()
+        pts = (0.5 * torch.randn((o, n, 3), generator=gen, device=device)).contiguous()
+        cts = [torch.randn((o, n, k), generator=gen, device=device) for k in (1, 3, h)]
+        obj, ref, w_req = _plain_grad(wflat, pts, cts, h, torch.float32)
+        ref64 = _plain_grad(wflat, pts, cts, h, torch.float64)[1]
+
+        row = {"o": o, "n": n, "h": h, "plain_vs_f64": _leaf_rel(ref, ref64, h)[0]}
+        runs = {k: K2(lib, wflat, pts, *cts, h) for k, lib in libs.items()}
+        for k, r in runs.items():
+            g = r.grad()
+            rel, where = _leaf_rel(g, ref, h)
+            row[k] = {"tile": r.tile, "tiles": r.n_tiles, "worst_leaf_rel": rel,
+                      "worst_leaf": where, "vs_f64": _leaf_rel(g, ref64, h)[0]}
+        order = ["this", "other", "other", "this"] if against else ["this", "this"]
+        times = {k: [] for k in runs}
+        for k in order:
+            times[k].append(_time(runs[k].backward))
+        for k, ts in times.items():
+            row[k]["ms"] = ts
+        row["plain_ms"] = _time(lambda: torch.autograd.grad(obj, w_req, retain_graph=True))
+        out[shape["name"]] = row
+        print(f"[k2] {shape['name']} O={o} N={n} h={h}: "
+              + "; ".join(f"{k} {['%.4f' % t for t in row[k]['ms']]} ms (tile {row[k]['tile']}, "
+                          f"worst leaf rel {row[k]['worst_leaf_rel']:.2e} at {row[k]['worst_leaf']}, "
+                          f"vs f64 {row[k]['vs_f64']:.2e})"
+                          for k in runs)
+              + f"; plain backward {row['plain_ms']:.4f} ms (vs f64 {row['plain_vs_f64']:.2e})",
+              flush=True)
+        del params, wflat, pts, cts, w_req, obj, ref, ref64, runs
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", type=Path,
+                    help="another fused_field.cu, with the same entry points, to time beside this one")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_fused_field: no CUDA device", file=sys.stderr)
+        return 2
+    res = run(args.against.resolve() if args.against else None)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "k2": res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

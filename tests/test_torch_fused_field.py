@@ -139,10 +139,11 @@ def test_packed_layout_matches_kernel_layout():
 
 
 def test_bwd_tile_choice():
-    # room_0: fg 64 x 1200 keeps 512-point tiles, bg 1 x 16800 drops to 128
-    assert tff.bwd_tile(64, 1200, 64, 132) == 512
-    assert tff.bwd_tile(1, 16800, 32, 132) == 128
-    assert tff.bwd_tile(1, 40, 64, 132) == 64
+    # room_0: fg 64 x 1200 at h=32 takes 608-point tiles (128 blocks, one
+    # wave on 132 SMs); bg 1 x 16800 at h=128 one 32-point chunk per tile
+    assert tff.bwd_tile(64, 1200, 32, 132, 1 << 30) == 608
+    assert tff.bwd_tile(1, 16800, 32, 132, 32) == 32
+    assert tff.bwd_tile(1, 40, 32, 132, 1 << 30) == 32
 
 
 def test_cpu_path_counts_plain_calls():

@@ -1,0 +1,224 @@
+"""K2, the fused-field backward of openobj_torch/csrc/fused_field.cu, run on
+the CPU against the plain backward.
+
+The CUDA source is compiled by the host C++ compiler with ``STUB`` (below)
+included ahead of it: the stub stands in for the CUDA built-ins and the
+inline-PTX helpers that the source builds only under nvcc, runs each
+block's threads as ``std::thread``s and emulates ``mma.sync`` from its
+documented fragment layout. That checks the kernel's indexing: fragments,
+swizzled shared memory, the packed layout and its bias rows, ragged
+chunks, tiles of several chunks, the clip head on and off, at both widths
+the kernel is built for. It says nothing of speed or of the card's own
+rounding; ``tests/test_torch_kernels.py`` holds the real kernel
+to the same plain version on a GPU.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from openobj_torch.models import object_field as tof
+from openobj_torch.ops import fused_field as tff
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "openobj_torch" / "csrc" / "fused_field.cu"
+GRAD_RTOL = 1e-3     # as tests/test_torch_kernels.py
+
+# What the CUDA source needs from the CUDA runtime and from its inline-PTX
+# helpers, for a host C++20 compiler:
+STUB = r"""
+//  * each block's threads are std::threads, __syncthreads a std::barrier;
+//  * mma.sync m16n8k8 (tf32 operands, f32 accumulator) is a warp-wide
+//    exchange through a std::barrier of 32 threads, computed from the PTX
+//    fragment layout (g = lane >> 2, t = lane & 3; a0..a3 = A[g][t],
+//    A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g];
+//    c0..c3 = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]);
+//  * cvt.rna.tf32.f32 rounds to 10 mantissa bits, ties away from zero;
+//  * dynamic shared memory is filled with NaN before each block, so that a
+//    read of memory the kernel never wrote shows in its outputs.
+// It checks indexing, layouts and synchronisation, not the card's rounding
+// (the tensor cores truncate where this rounds) and not speed.
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <functional>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __shared__
+#define __align__(x)
+#define __launch_bounds__(...)
+#define __restrict__
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct uint3 { unsigned x, y, z; };
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+inline thread_local uint3 threadIdx;
+inline uint3 blockIdx;
+inline dim3 gridDim, blockDim;
+inline float* g_smem;
+inline std::barrier<>* g_block_bar;
+inline std::barrier<>* g_warp_bar[32];
+struct WarpRegs { uint32_t a[32][4], b[32][2]; };
+inline WarpRegs g_wr[32];
+inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+inline float __ldg(const float* p) { return *p; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+template <class T> T min(T a, T b) { return a < b ? a : b; }
+template <class T> T max(T a, T b) { return a > b ? a : b; }
+typedef int cudaError_t; typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline size_t g_smem_max = 0;
+
+inline uint32_t to_tf32(float x) {
+  uint32_t u; std::memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0x1000u;
+  return u & 0xffffe000u;
+}
+inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int w = threadIdx.x >> 5, L = threadIdx.x & 31;
+  WarpRegs& R = g_wr[w];
+  for (int i = 0; i < 4; ++i) R.a[L][i] = a[i];
+  R.b[L][0] = b[0]; R.b[L][1] = b[1];
+  g_warp_bar[w]->arrive_and_wait();
+  float A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    A[g][t] = __uint_as_float(R.a[l][0]); A[g + 8][t] = __uint_as_float(R.a[l][1]);
+    A[g][t + 4] = __uint_as_float(R.a[l][2]); A[g + 8][t + 4] = __uint_as_float(R.a[l][3]);
+    B[t][g] = __uint_as_float(R.b[l][0]); B[t + 4][g] = __uint_as_float(R.b[l][1]);
+  }
+  const int g = L >> 2, t = L & 3;
+  const int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+  for (int i = 0; i < 4; ++i) {
+    float s = c[i];
+    for (int k = 0; k < 8; ++k) s += A[rows[i]][k] * B[k][cols[i]];
+    c[i] = s;
+  }
+  g_warp_bar[w]->arrive_and_wait();
+}
+inline void cp_async4(float* dst, const float* src) { *dst = *src; }
+inline void cp_async_wait_all() {}
+
+template <class F>
+void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F fn) {
+  std::vector<float> mem(smem / 4 + 16, std::nanf(""));   // NaN-filled: catches reads of unset memory
+  if (smem > g_smem_max) g_smem_max = smem;
+  g_smem = mem.data();
+  gridDim = grid; blockDim = dim3(nt);
+  std::barrier<> bb(nt);
+  std::vector<std::barrier<>*> wb;
+  for (int w = 0; w < nt / 32; ++w) { wb.push_back(new std::barrier<>(32)); g_warp_bar[w] = wb.back(); }
+  g_block_bar = &bb;
+  for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned x = 0; x < grid.x; ++x) {
+      blockIdx = {x, y, 0};
+      std::fill(mem.begin(), mem.end(), std::nanf(""));
+      std::vector<std::thread> th;
+      for (int i = 0; i < nt; ++i) th.emplace_back([&, i] { threadIdx = {(unsigned)i, 0, 0}; fn(); });
+      for (auto& t : th) t.join();
+    }
+  for (auto* b : wb) delete b;
+}
+"""
+
+
+def _host_source() -> str:
+    """fused_field.cu for the host compiler: shared memory is the stub's
+    buffer, and each <<<grid, block, smem, stream>>> launch goes through
+    ``emu_launch``."""
+    s = re.sub(r"extern __shared__ (__align__\(16\) )?float sm\[\];", "float* sm = g_smem;",
+               SRC.read_text())
+    return re.sub(r"(\w+(?:<\w+>)?)<<<([^>]*)>>>\((.*?)\);", r"emu_launch(\2, [&] { \1(\3); });",
+                  s, flags=re.S)
+
+
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
+    out = tmp_path_factory.mktemp("k2_emu")
+    cpp, stub, so = (out / "fused_field_emu.cpp", out / "cuda_emu.h",
+                     out / "libfused_field_emu.so")
+    cpp.write_text(_host_source())
+    stub.write_text(STUB)
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-Wno-unknown-pragmas", "-include", str(stub), "-o", str(so), str(cpp)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.ff_backward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.ff_backward.restype = ctypes.c_int
+    lib.ff_param_count.argtypes = [ctypes.c_int]
+    lib.ff_param_count.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@pytest.mark.parametrize("o,n,h,do_clip,tile", [
+    (2, 70, 32, True, 64),       # 2 tiles: 2 chunks, then 6 points
+    (2, 37, 32, False, 64),      # clip head off
+    (3, 40, 32, True, 32),       # one chunk per tile, then 8 points
+    (1, 40, 128, True, 32),      # h=128: one chunk per tile
+    (1, 33, 128, False, 32),
+])
+def test_emulated_k2_matches_plain(emu_lib, o, n, h, do_clip, tile):
+    lib = emu_lib
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    params = tof.init_stacked_fields(gen, o, hidden=h, clip_size=16, device="cpu")
+    params = tof.tree_map(lambda x: x + 0.05 * torch.randn(x.shape, generator=gen), params)
+    w = tff._pack_params(params, h, do_clip).contiguous()
+    pts = torch.from_numpy((0.5 * rng.standard_normal((o, n, 3))).astype(np.float32))
+    cts = [torch.from_numpy(rng.standard_normal((o, n, k)).astype(np.float32)) for k in (1, 3, h)]
+
+    wr = w.detach().requires_grad_(True)
+    outs = tff.fused_field_plain(wr, pts, h, do_clip)
+    obj = sum((x * c).sum() for x, c in zip(outs, cts) if x is not None)
+    (g_p,) = torch.autograd.grad(obj, wr)
+
+    p = lib.ff_param_count(h)
+    assert p == w.shape[1]
+    part = np.full((o, -(-n // tile), p), np.nan, np.float32)
+    arrs = [np.ascontiguousarray(x.detach().numpy()) for x in (w, pts, *cts)]
+    wn, pn, dan, dcn, dhn = arrs
+    err = lib.ff_backward(_ptr(pn), _ptr(wn), _ptr(dan), _ptr(dcn),
+                          _ptr(dhn) if do_clip else None, _ptr(part), o, n, h,
+                          int(do_clip), tile, None)
+    assert err == 0
+    g_k = torch.from_numpy(part.sum(axis=1))
+    ofs = 0
+    for name, (r, c) in tff.param_layout(h):
+        ref, got = g_p[:, ofs:ofs + r * c], g_k[:, ofs:ofs + r * c]
+        ofs += r * c
+        if not do_clip and name in ("w_clip", "b_clip"):
+            assert not got.any(), name
+            continue
+        assert float((got - ref).abs().max()) <= GRAD_RTOL * float(ref.abs().max()) + 1e-7, name
+
+
+def test_emulated_k2_rejects_bad_tiles(emu_lib):
+    """The entry point refuses a tile that is not a whole number of chunks,
+    a multi-chunk tile at h=128 and a width it is not built for."""
+    lib = emu_lib
+    buf = np.zeros(1, np.float32)
+    args = [_ptr(buf)] * 6
+    assert lib.ff_backward(*args, 1, 40, 32, 1, 48, None) != 0
+    assert lib.ff_backward(*args, 1, 40, 128, 1, 64, None) != 0
+    assert lib.ff_backward(*args, 1, 40, 64, 1, 32, None) != 0

@@ -33,16 +33,33 @@ def _params(gen, o, h, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("o,n,h,do_clip", [
-    (3, 700, 32, True),      # two backward tiles, ragged last chunk
-    (2, 90, 32, False),      # clip head off
-    (1, 1000, 128, True),    # the bg width
-    (2, 5, 32, True),        # fewer points than a chunk
+@pytest.mark.parametrize("o,n,h,do_clip,wide", [
+    (3, 700, 32, True, False),     # ragged last chunk
+    (2, 90, 32, False, False),     # clip head off
+    (1, 1000, 128, True, False),   # the bg width
+    (2, 5, 32, True, False),       # fewer points than a chunk
+    # K2 walks 32-point chunks: one chunk - 1, + 1, and a 16-row edge
+    (2, 31, 32, True, False),
+    (2, 33, 32, True, False),
+    (2, 48, 32, True, False),
+    (1, 31, 128, True, False),
+    (1, 33, 128, True, False),
+    (1, 48, 128, True, False),
+    (1, 100, 128, False, False),   # h=128, clip head off
+    # 104 blocks of 96-point tiles (3 chunks each): fewer blocks than SMs,
+    # gradients accumulated on chip across chunks
+    (8, 1200, 32, True, False),
+    # |t| up to 1.5: the top band's phases pass 32 pi
+    (2, 300, 32, True, True),
+    (1, 300, 128, True, True),
 ])
-def test_cuda_kernels_match_plain(cuda_device, o, n, h, do_clip):
+def test_cuda_kernels_match_plain(cuda_device, o, n, h, do_clip, wide):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     w = tff._pack_params(_params(gen, o, h, cuda_device), h, do_clip).contiguous()
-    pts = 0.5 * torch.randn((o, n, 3), generator=gen, device=cuda_device)
+    if wide:
+        pts = 3.0 * torch.rand((o, n, 3), generator=gen, device=cuda_device) - 1.5
+    else:
+        pts = 0.5 * torch.randn((o, n, 3), generator=gen, device=cuda_device)
     cts = [torch.randn((o, n, k), generator=gen, device=cuda_device) for k in (1, 3, h)]
     outs_k = tff.fused_field_forward_cuda(w, pts, h, do_clip)
     wr = w.detach().requires_grad_(True)
@@ -120,3 +137,20 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
         tff.fused_field_forward_cuda(w[:, :-1].contiguous(), pts, 32, True)
     with pytest.raises(ValueError, match="CUDA"):
         tff.fused_field_forward_cuda(w.cpu(), pts.cpu(), 32, True)
+
+
+@pytest.mark.cuda
+def test_unbuilt_width_raises_before_the_forward(cuda_device):
+    """K2 is built for h in BWD_WIDTHS: a differentiable call at another
+    width raises before K1 runs; without gradients K1 alone runs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    w = tff._pack_params(_params(gen, 2, 64, cuda_device), 64, True).contiguous()
+    pts = torch.randn((2, 8, 3), generator=gen, device=cuda_device)
+    before = tff.COUNTS["fused_field_fwd"]
+    with pytest.raises(ValueError, match="built for"):
+        tff.fused_field_apply(w.requires_grad_(True), pts, 64, True)
+    assert tff.COUNTS["fused_field_fwd"] == before
+    with torch.no_grad():
+        alpha, _, _ = tff.fused_field_apply(w, pts, 64, True)
+    assert tff.COUNTS["fused_field_fwd"] == before + 1
+    assert alpha.shape == (2, 8, 1)
