@@ -146,6 +146,14 @@ def check_kernels(device) -> dict:
         dc = torch.randn((o, n, 3), generator=gen, device=device)
         dh = torch.randn((o, n, h), generator=gen, device=device)
 
+        lib = ff._lib()
+
+        def fwd_k():   # the forward kernel alone, into preallocated outputs
+            err = lib.ff_forward(pts.data_ptr(), wflat.data_ptr(), a_k.data_ptr(),
+                                 c_k.data_ptr(), f_k.data_ptr(), o, n, h, 1, ff._stream(pts))
+            if err:
+                raise RuntimeError(f"ff_forward: CUDA error {err}")
+
         # forward
         a_k, c_k, f_k = ff.fused_field_forward_cuda(wflat, pts, h, True)
         a_p, c_p, f_p = ff.fused_field_plain(wflat, pts, h, True)
@@ -176,7 +184,6 @@ def check_kernels(device) -> dict:
                     f"K2 {shape['name']} leaf {name}: max|d|/max|ref| {rel:.3e} > {GRAD_RTOL}")
 
         # the reduction on its own, against torch.sum over the tile axis
-        lib = ff._lib()
         p = lib.ff_param_count(h)
         tile, n_tiles = ff.bwd_tiling(lib, o, n, h, device)
         part = torch.randn((o, n_tiles, p), generator=gen, device=device)
@@ -203,7 +210,7 @@ def check_kernels(device) -> dict:
                 raise RuntimeError(f"ff_backward: CUDA error {err}")
 
         # times: kernel, plain version, bound
-        t_fwd = time_ms(lambda: ff.fused_field_forward_cuda(wflat, pts, h, True))
+        t_fwd = time_ms(fwd_k)
         t_fwd_plain = time_ms(lambda: ff.fused_field_plain(wflat, pts, h, True))
         t_bwd = time_ms(bwd_k)
         t_red = time_ms(reduce_k)

@@ -1,7 +1,8 @@
 // Fused object-field forward (K1) and backward (K2) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels in openobj_tpu/ops/fused_field.py:
-//   ff_fwd_kernel    <- _fwd_kernel (:160), launched by _fused_core_fwd (:360)
+//   ff_fwd_kernel    <- _fwd_kernel (:160), launched by _fused_core_fwd (:360);
+//                       ff_fwd_generic_kernel at widths other than 32 and 128
 //   ff_bwd_kernel    <- _bwd_kernel (:172), launched by _fused_core_bwd (:392)
 //   ff_reduce_kernel <- the cross-tile gradient accumulation that _bwd_kernel
 //                       carries along its sequential grid axis (:285-309)
@@ -27,9 +28,11 @@
 //    version's rounding, and the bands use sinf/cosf, never the __sinf
 //    intrinsics: a phase error of one ulp at 32 pi is already 4e-6.
 //
-// K1: matrix products are FP32 FMAs on the SIMT cores, up to 4x4 outputs per
-// thread (`mm`); the weights (55 KB per object at h = 32, 465 KB at h = 128)
-// are read through the read-only/L2 path by all tiles of an object.
+// K1 at h = 32 and 128 (every shipped config) runs its matrix products on the
+// tensor cores in 3xTF32, as K2's gradient products do (its section below).
+// At any other width, ff_fwd_generic_kernel: FP32 FMAs on the SIMT cores, up
+// to 4x4 outputs per thread (`mm`), weights read through the read-only/L2
+// path by all tiles of an object.
 //
 // K2, what bounds it: about 98% of its multiply-adds are matrix products
 // (the recomputed trunk and heads, the weight gradients X^T dY, the input
@@ -285,10 +288,10 @@ __device__ inline float dot_w(const float* x, const float* w, int n, int sw) {
   return s;
 }
 
-// ------------------------------------------------------------------------ K1
+// ------------------------------------------------- K1 at other widths (SIMT)
 
 __global__ void __launch_bounds__(NT)
-ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
+ff_fwd_generic_kernel(const float* __restrict__ pts, const float* __restrict__ w,
               float* __restrict__ alpha, float* __restrict__ color,
               float* __restrict__ hclip, int N, int h, int do_clip) {
   extern __shared__ float sm[];
@@ -551,6 +554,382 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;" :
 // d * (x > 0), elementwise on a pair
 __device__ inline float2 mask2(float2 d, float2 x) {
   return make_float2(x.x > 0.0f ? d.x : 0.0f, x.y > 0.0f ? d.y : 0.0f);
+}
+
+__device__ inline float2 relu2(float2 v) {
+  return make_float2(v.x > 0.0f ? v.x : 0.0f, v.y > 0.0f ? v.y : 0.0f);
+}
+
+// ------------------------------------------------------------------------ K1
+//
+// The forward at h = 32 and h = 128. Every matrix product (the trunk and the
+// two e2-fed heads) runs on the tensor cores in 3xTF32 (`rows_product`), on
+// K2's activation layouts: [h2 | e1 | 1] for the skip layer, then
+// [h3 | e2 | 1 | 0 x 5] for the heads, in one buffer (the first is dead once
+// the skip layer has read it), so that each bias rides as a row of its
+// packed weight matrix and the skip layer and both heads are one product
+// each; mid1's and mid2's biases start the accumulators.
+//
+// What bounds it on an H100: the matrix products, and with operands split
+// at every use (as K2 does) the SIMT work around each mma.sync (swizzled
+// addressing, the hi/lo split: about ten instructions per mma) rather than
+// the tensor cores. So K1 keeps every shared-memory operand already split
+// and in fragment order (`FragA`, `FragB`): each producer (the encode, each
+// product's epilogue, the weight copy) splits a value once, and a warp
+// reads a fragment with 128-bit loads and no arithmetic. Each epilogue
+// applies bias and ReLU and writes the next layer's operand; hclip goes
+// from the C fragments straight to device memory, and h3 and hcol also go
+// to plain rows for the SIMT alpha and colour heads. The outputs are
+// continuous in the rounding (a ReLU whose sign flips sits at ~0), so
+// 3xTF32 stays far inside K1's 1e-4 gate.
+//
+// A block walks a tile of FP-point chunks of one object (`fwd_tile`):
+// h = 32 splits the object's weights (55 KB, 110 KB split) into shared
+// memory once per tile; h = 128 (465 KB) reads B fragments from L2 and
+// splits them, each fragment serving all FP rows of the chunk. One block
+// fills an SM (about 200 KB of shared memory).
+
+constexpr int FP = 64;          // points per forward chunk
+
+// A matrix of 16-row tiles x KS 8-column steps in shared memory, in the
+// order of mma.sync's A fragments, each element pre-split into its TF32 hi
+// and lo parts: a (row tile, k-step) block of 256 words holds lane l's
+// hi parts (a0..a3) at 4l and its lo parts 128 words later, so that a warp
+// reads a fragment with two conflict-free 128-bit loads.
+template <int KS>
+struct FragA {
+  uint32_t* p;
+  __device__ static int at(int m, int k) {
+    const int r = m & 15, c = k & 7;
+    return ((m >> 4) * KS + (k >> 3)) * 256 + ((r & 7) * 4 + (c & 3)) * 4 + (r >> 3) +
+           ((c >> 2) << 1);
+  }
+  __device__ void put(int m, int k, float v) const {
+    uint32_t h, l;
+    split(v, h, l);
+    p[at(m, k)] = h;
+    p[at(m, k) + 128] = l;
+  }
+  // a 16 x 8 tile from its C fragments (c0, c1 = C[g][2t], C[g][2t + 1];
+  // c2, c3 eight rows on) into A fragments (a0 = A[g][t], a1 eight rows on,
+  // a2 = A[g][t + 4], a3): four values from the two lanes of the quad that
+  // hold them, then two conflict-free 128-bit stores
+  __device__ void put_tile(int mt, int ks, const float (&c)[4]) const {
+    const int lane = threadIdx.x & 31, src = (lane & ~3) | ((lane & 3) >> 1);
+    const bool odd = lane & 1;
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // a_i: row +8 if i is odd, column +4 if i >= 2
+      const int from = src + (i >> 1) * 2, e = (i & 1) * 2;
+      const float x = __shfl_sync(0xffffffffu, c[e], from);
+      const float y = __shfl_sync(0xffffffffu, c[e + 1], from);
+      a[i] = odd ? y : x;
+    }
+    uint4 h, l;
+    split(a[0], h.x, l.x);
+    split(a[1], h.y, l.y);
+    split(a[2], h.z, l.z);
+    split(a[3], h.w, l.w);
+    uint4* q = reinterpret_cast<uint4*>(p + (mt * KS + ks) * 256) + lane;
+    q[0] = h;
+    q[32] = l;
+  }
+  __device__ void frag(int mt, int ks, uint32_t (&h)[4], uint32_t (&l)[4]) const {
+    const uint4* q = reinterpret_cast<const uint4*>(p + (mt * KS + ks) * 256) + (threadIdx.x & 31);
+    const uint4 u = q[0], v = q[32];
+    h[0] = u.x; h[1] = u.y; h[2] = u.z; h[3] = u.w;
+    l[0] = v.x; l[1] = v.y; l[2] = v.z; l[3] = v.w;
+  }
+};
+
+// A [K][8 NTS] weight matrix in the order of mma.sync's B fragments,
+// pre-split: a (k-step, n-tile) block of 128 words holds lane l's
+// {b0 hi, b1 hi, b0 lo, b1 lo} at 4l (one 128-bit load).
+template <int NTS>
+struct FragB {
+  uint32_t* p;
+  __device__ void put(int k, int n, float v) const {
+    const int i = (((k >> 3) * NTS + (n >> 3)) * 32 + (n & 7) * 4 + (k & 3)) * 4 + ((k >> 2) & 1);
+    uint32_t h, l;
+    split(v, h, l);
+    p[i] = h;
+    p[i + 2] = l;
+  }
+  __device__ void frag(int ks, int nt, uint32_t (&h)[2], uint32_t (&l)[2]) const {
+    const uint4 u = reinterpret_cast<const uint4*>(p + (ks * NTS + nt) * 128)[threadIdx.x & 31];
+    h[0] = u.x; h[1] = u.y; l[0] = u.z; l[1] = u.w;
+  }
+};
+
+// One packed weight matrix [R][H] (bias row counted in R; rows past R read
+// as zero) as B fragments: from its split copy in shared memory from k-step
+// ks0 (h = 32), or from device memory (L2-resident), split as it is read.
+template <int H, bool SMEM>
+struct WFrag {
+  FragB<H / 8> s;
+  const float* g;
+  int R;
+  __device__ void frag(int ks, int nt, uint32_t (&h)[2], uint32_t (&l)[2]) const {
+    if constexpr (SMEM) {
+      s.frag(ks, nt, h, l);
+    } else {
+      const int lane = threadIdx.x & 31, k = 8 * ks + (lane & 3), n = 8 * nt + (lane >> 2);
+      split(k < R ? __ldg(g + k * H + n) : 0.0f, h[0], l[0]);
+      split(k + 4 < R ? __ldg(g + (k + 4) * H + n) : 0.0f, h[1], l[1]);
+    }
+  }
+};
+
+// out (M x N) = init + A (M x K) . B (K x N) in 3xTF32, as `product` (the
+// same three mma.sync per tile and f32 sums of each 8-deep step), for items
+// of MT 16-row tiles x NB 8-column tiles dealt to the warps round-robin:
+// each B fragment serves MT row tiles, each A fragment NB column tiles.
+// a(mt, ks, hi, lo) and b(ks, nt, hi, lo) give split fragments; init(m, n)
+// takes the output pair (n, n + 1), n even; epi(mt, nt, c) takes the C
+// fragment of the 16 x 8 tile (mt, nt).
+template <int M, int N, int K, int NB, int MT, class FI, class FA, class FB, class FE>
+__device__ void rows_product(FI init, FA a, FB b, FE epi) {
+  static_assert(M % (16 * MT) == 0 && N % (8 * NB) == 0 && K % 8 == 0, "tile shape");
+  constexpr int NI = N / (8 * NB), ITEMS = (M / (16 * MT)) * NI;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int it = warp; it < ITEMS; it += NW) {
+    const int mt0 = (it / NI) * MT, nt0 = (it % NI) * NB;
+    float c[MT][NB][4];
+#pragma unroll
+    for (int r = 0; r < MT; ++r)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int m = 16 * (mt0 + r) + g, n = 8 * (nt0 + j) + 2 * t;
+        const float2 u = init(m, n), v = init(m + 8, n);
+        c[r][j][0] = u.x; c[r][j][1] = u.y; c[r][j][2] = v.x; c[r][j][3] = v.y;
+      }
+#pragma unroll 2
+    for (int ks = 0; ks < K / 8; ++ks) {
+      uint32_t bh[NB][2], bl[NB][2];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) b(ks, nt0 + j, bh[j], bl[j]);
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        uint32_t ah[4], al[4];
+        a(mt0 + r, ks, ah, al);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(d, al, bh[j]);
+          mma_tf32(d, ah, bl[j]);
+          mma_tf32(d, ah, bh[j]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[r][j][i] += d[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < MT; ++r)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) epi(mt0 + r, nt0 + j, c[r][j]);
+  }
+}
+
+// f(m, n, v) for the two output pairs of a C fragment of tile (mt, nt)
+template <class F>
+__device__ void each_pair(int mt, int nt, const float (&c)[4], F f) {
+  const int lane = threadIdx.x & 31, m = 16 * mt + (lane >> 2), n = 8 * nt + 2 * (lane & 3);
+  f(m, n, make_float2(c[0], c[1]));
+  f(m + 8, n, make_float2(c[2], c[3]));
+}
+
+template <int H>
+struct FwdDims {
+  using D = Dims<H>;
+  static constexpr int KSX = D::KX2 / 8;        // k-steps of [h2 | e1 | 1]
+  // row tiles per item: h = 128 reads its weights from L2, so each B
+  // fragment serves all FP rows; column tiles per item: an h-wide product
+  // is one item per warp
+  static constexpr int MT = H >= 128 ? FP / 16 : 1;
+  static constexpr int NB = H * (FP / (16 * MT)) / (8 * NW);
+  // k-step offsets of the split weights in shared memory (h = 32)
+  static constexpr int WK_IN = 0, WK_MID1 = 11, WK_CAT = WK_MID1 + H / 8,
+                       WK_MID2 = WK_CAT + KSX, WK_COL = WK_MID2 + H / 8,
+                       WK_CLIP = WK_COL + D::KX3 / 8, WKS = WK_CLIP + D::KX3 / 8;
+  static constexpr int LDP = H + 1;             // plain h3 and hcol rows
+  static constexpr int SMALL = ND * 3 + 4 * H + 4;   // dirs, w_alpha, b_alpha, w_oc, b_oc
+  static constexpr int SMEM_WORDS =
+      (D::SMEM_W ? WKS * (H / 8) * 128 : 0) + (FP / 16) * (KSX + H / 8) * 256 + FP * LDP +
+      FP * (4 + ND) + SMALL;
+};
+
+template <int H>
+__global__ void __launch_bounds__(NT, 1)
+ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
+              float* __restrict__ alpha, float* __restrict__ color,
+              float* __restrict__ hclip, int N, int do_clip, int tile) {
+  using D = Dims<H>;
+  using F = FwdDims<H>;
+  constexpr bool SW = D::SMEM_W;
+  constexpr int HS = H / 8;   // k-steps (and n-tiles) of an h-wide operand
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x;
+  const int o = blockIdx.y;
+  const Layout L = make_layout(H);
+  const float* W = w + (size_t)o * L.total;
+
+  uint32_t* q = reinterpret_cast<uint32_t*>(sm);
+  uint32_t* wsp = q;             q += SW ? F::WKS * HS * 128 : 0;     // split weights (h = 32)
+  const FragA<F::KSX> X{q};      q += (FP / 16) * F::KSX * 256;  // [h2 | e1 | 1], then [h3 | e2 | 1 | 0]
+  const FragA<HS> HB{q};                                          // h1, then hc
+  float* hcp = reinterpret_cast<float*>(q);  q += (FP / 16) * HS * 256;  // then hcol, plain
+  float* h3p = reinterpret_cast<float*>(q);  q += FP * F::LDP;   // h3, plain
+  float* tt = reinterpret_cast<float*>(q);   q += FP * 4;        // scaled points
+  float* pj = reinterpret_cast<float*>(q);   q += FP * ND;       // proj
+  // the small parameters: dirs, then [w_alpha; b_alpha] and [w_oc; b_oc]
+  float* dirs = reinterpret_cast<float*>(q);
+  const float* sh = dirs + ND * 3;
+
+  const auto wm = [&](int ks0, int off, int R) {
+    return WFrag<H, SW>{FragB<HS>{wsp + ks0 * HS * 128}, W + off, R};
+  };
+  const WFrag<H, SW> w_in = wm(F::WK_IN, L.w_in, 88);
+  const WFrag<H, SW> w_mid1 = wm(F::WK_MID1, L.w_mid1, H);
+  const WFrag<H, SW> w_cat = wm(F::WK_CAT, L.w_cat, D::KX2);
+  const WFrag<H, SW> w_mid2 = wm(F::WK_MID2, L.w_mid2, H);
+  const WFrag<H, SW> w_col = wm(F::WK_COL, L.w_col, D::RH);
+  const WFrag<H, SW> w_clip = wm(F::WK_CLIP, L.w_clip, D::RH);
+
+  if constexpr (SW) {   // the object's weights, split once per block
+    const auto load = [&](const WFrag<H, SW>& m, int off, int rows, int padded) {
+      for (int i = tid; i < padded * H; i += NT)
+        m.s.put(i / H, i % H, i < rows * H ? W[off + i] : 0.0f);
+    };
+    load(w_in, L.w_in, 88, 88);
+    load(w_mid1, L.w_mid1, H, H);
+    load(w_cat, L.w_cat, D::KX2, D::KX2);
+    load(w_mid2, L.w_mid2, H, H);
+    load(w_col, L.w_col, D::RH, D::KX3);
+    if (do_clip) load(w_clip, L.w_clip, D::RH, D::KX3);
+  }
+  // the ones column of [h2 | e1 | 1], past every column the heads' layout uses
+  for (int p = tid; p < FP; p += NT) X.put(p, H + 87, 1.0f);
+  for (int i = tid; i < ND * 3; i += NT) dirs[i] = W[L.dirs + i];
+  for (int i = tid; i < H + 1; i += NT) dirs[ND * 3 + i] = W[L.w_alpha + i];
+  for (int i = tid; i < 3 * H + 3; i += NT) dirs[ND * 3 + H + 1 + i] = W[L.w_oc + i];
+
+  const auto bias_init = [&](int off) {
+    return [=](int, int n) { return make_float2(W[off + n], W[off + n + 1]); };
+  };
+  const auto zero2 = [](int, int) { return make_float2(0.0f, 0.0f); };
+  const auto relu_to = [](const auto& buf) {   // the next layer's A fragments
+    return [=](int mt, int nt, const float (&c)[4]) {
+      const float r[4] = {fmaxf(c[0], 0.0f), fmaxf(c[1], 0.0f), fmaxf(c[2], 0.0f),
+                          fmaxf(c[3], 0.0f)};
+      buf.put_tile(mt, nt, r);
+    };
+  };
+  const auto wb = [](const WFrag<H, SW>& m) {
+    return [=](int ks, int nt, uint32_t (&h)[2], uint32_t (&l)[2]) { m.frag(ks, nt, h, l); };
+  };
+  const auto xa = [&](int mt, int ks, uint32_t (&h)[4], uint32_t (&l)[4]) { X.frag(mt, ks, h, l); };
+  const auto ha = [&](int mt, int ks, uint32_t (&h)[4], uint32_t (&l)[4]) { HB.frag(mt, ks, h, l); };
+  // pi 2^k in f32 (k unrolled: a constant)
+  const auto band = [](int k) { return (float)(3.14159265358979323846 * (double)(1 << k)); };
+
+  const int t0 = blockIdx.x * tile;
+  const int t1 = min(N, t0 + tile);
+  for (int c0 = t0; c0 < t1; c0 += FP) {
+    const int nv = min(FP, t1 - c0);
+    const size_t row0 = (size_t)o * N + c0;
+
+    // ---- encode t, proj and e1 (bands 0-3); rows past nv get t = 0
+    for (int i = tid; i < FP * 3; i += NT) {
+      const int p = i / 3, c = i - p * 3;
+      const float v = p < nv ? pts[row0 * 3 + i] : 0.0f;
+      tt[p * 4 + c] = v;
+      X.put(p, H + c, v);
+    }
+    __syncthreads();
+    for (int i = tid; i < FP * ND; i += NT) {
+      const int p = i / ND, d = i - p * ND;
+      const float* t = tt + p * 4;
+      const float* dr = dirs + d * 3;
+      // full f32 as an explicit FMA chain, the same rounding as the plain
+      // version (embedding.project): fma(t2, d2, fma(t1, d1, t0 d0))
+      const float pr = fmaf(t[2], dr[2], fmaf(t[1], dr[1], __fmul_rn(t[0], dr[0])));
+      pj[i] = pr;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) X.put(p, H + 3 + ND * k + d, sinf(__fmul_rn(band(k), pr)));
+    }
+    __syncthreads();
+
+    // ---- the trunk
+    rows_product<FP, H, 88, F::NB, F::MT>(     // h1 = relu([e1 | 1] . [w_in; b_in])
+        zero2, [&](int mt, int ks, uint32_t (&h)[4], uint32_t (&l)[4]) { X.frag(mt, HS + ks, h, l); },
+        wb(w_in), relu_to(HB));
+    __syncthreads();
+    rows_product<FP, H, H, F::NB, F::MT>(      // h2
+        bias_init(L.b_mid1), ha, wb(w_mid1), relu_to(X));
+    __syncthreads();
+    rows_product<FP, H, D::KX2, F::NB, F::MT>(   // hc = relu([h2 | e1 | 1] . [w_cat; b_cat])
+        zero2, xa, wb(w_cat), relu_to(HB));
+    __syncthreads();
+    // [h2 | e1 | 1] is dead: the heads' layout [h3 | e2 | 1 | 0 x 5] takes
+    // its place, h3 from mid2 (and a plain copy for alpha), e2 (bands 4, 5)
+    for (int i = tid; i < FP * ND; i += NT) {
+      const int p = i / ND, d = i - p * ND;
+#pragma unroll
+      for (int k = 4; k < NF; ++k) X.put(p, H + ND * (k - 4) + d, sinf(__fmul_rn(band(k), pj[i])));
+    }
+    for (int i = tid; i < FP * 6; i += NT) {
+      const int p = i / 6, c = i - p * 6;
+      X.put(p, H + 42 + c, c == 0 ? 1.0f : 0.0f);
+    }
+    rows_product<FP, H, H, F::NB, F::MT>(      // h3
+        bias_init(L.b_mid2), ha, wb(w_mid2), [&](int mt, int nt, const float (&c)[4]) {
+          relu_to(X)(mt, nt, c);
+          each_pair(mt, nt, c, [&](int m, int n, float2 v) {
+            v = relu2(v);
+            h3p[m * F::LDP + n] = v.x;
+            h3p[m * F::LDP + n + 1] = v.y;
+          });
+        });
+    __syncthreads();
+
+    // ---- the e2-fed heads: hcol = relu([h3 | e2 | 1] . [w_col; b_col]),
+    // hclip the same with w_clip, straight to device memory
+    rows_product<FP, H, D::KX3, F::NB, F::MT>(
+        zero2, xa, wb(w_col), [&](int mt, int nt, const float (&c)[4]) {
+          each_pair(mt, nt, c, [&](int m, int n, float2 v) {
+            v = relu2(v);
+            hcp[m * F::LDP + n] = v.x;
+            hcp[m * F::LDP + n + 1] = v.y;
+          });
+        });
+    if (do_clip) {
+      rows_product<FP, H, D::KX3, F::NB, F::MT>(
+          zero2, xa, wb(w_clip), [&](int mt, int nt, const float (&c)[4]) {
+            each_pair(mt, nt, c, [&](int m, int n, float2 v) {
+              if (m < nv) *reinterpret_cast<float2*>(hclip + (row0 + m) * H + n) = relu2(v);
+            });
+          });
+    }
+    __syncthreads();
+
+    // ---- alpha and colour (SIMT FMAs, four partial sums per dot)
+    for (int i = tid; i < nv * 4; i += NT) {
+      const int p = i >> 2, c = i & 3;
+      // alpha: h3 . w_alpha + b_alpha; colour c: hcol . w_oc[:, c] + b_oc[c]
+      const float* x = (c == 3 ? h3p : hcp) + p * F::LDP;
+      const float* wv = c == 3 ? sh : sh + H + 1 + c;
+      const int sw = c == 3 ? 1 : 3;
+      float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int k = 0; k < H; ++k) s4[k & 3] = fmaf(x[k], wv[k * sw], s4[k & 3]);
+      const float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+      if (c == 3) alpha[row0 + p] = (s + sh[H]) * ALPHA_SCALE;
+      else color[(row0 + p) * 3 + c] = sigmoid_f(s + sh[4 * H + 1 + c]);
+    }
+    // the next chunk's encode writes none of what this step reads (the
+    // plain h3 and hcol) before its first barrier
+  }
 }
 
 template <int H>
@@ -900,6 +1279,43 @@ size_t fwd_smem(int h) {
          (LD_T + LD_P + LD_E1 + LD_E2 + 2 * ld_h(h));
 }
 
+// Points per K1 block: a whole number of chunks that finishes in the fewest
+// waves x tile length (a block fills an SM), among equals the fewest blocks;
+// the rule of ops.fused_field.bwd_tile.
+int fwd_tile(int O, int N, int n_sm) {
+  const int chunks = (N + FP - 1) / FP;
+  long best_cost = -1, best_blocks = 0;
+  int best = FP;
+  for (int k = 1; k <= chunks; ++k) {
+    const int tile = k * FP;
+    const long blocks = (long)O * ((N + tile - 1) / tile);
+    const long cost = (blocks + n_sm - 1) / n_sm * tile;
+    if (best_cost < 0 || cost < best_cost || (cost == best_cost && blocks < best_blocks)) {
+      best_cost = cost;
+      best_blocks = blocks;
+      best = tile;
+    }
+  }
+  return best;
+}
+
+template <int H>
+int launch_fwd(const float* pts, const float* w, float* alpha, float* color,
+               float* hclip, int O, int N, int do_clip, cudaStream_t stream) {
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = sizeof(uint32_t) * FwdDims<H>::SMEM_WORDS;
+  err = cudaFuncSetAttribute(ff_fwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tile = fwd_tile(O, N, n_sm);
+  dim3 grid((N + tile - 1) / tile, O);
+  ff_fwd_kernel<H><<<grid, NT, smem, stream>>>(pts, w, alpha, color, hclip, N, do_clip, tile);
+  return (int)cudaGetLastError();
+}
+
 template <int H>
 int launch_bwd(const float* pts, const float* w, const float* da, const float* dc,
                const float* dh, float* part, int O, int N, int do_clip, int tile,
@@ -927,15 +1343,20 @@ int ff_bwd_chunk(int) { return BP; }
 // gradients are written to the tile's slot once).
 int ff_bwd_max_tile(int h) { return h <= 32 ? (1 << 30) : BP; }
 
+// K1 runs on the tensor cores at h = 32 and h = 128 (the widths of every
+// shipped config), and as the SIMT kernel at any other width.
 int ff_forward(const float* pts, const float* w, float* alpha, float* color,
                float* hclip, int O, int N, int h, int do_clip, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (h == 32) return launch_fwd<32>(pts, w, alpha, color, hclip, O, N, do_clip, s);
+  if (h == 128) return launch_fwd<128>(pts, w, alpha, color, hclip, O, N, do_clip, s);
   const size_t smem = fwd_smem(h);
   cudaError_t err = cudaFuncSetAttribute(
-      ff_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ff_fwd_generic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int tp = chunk_points(h);
   dim3 grid((N + tp - 1) / tp, O);
-  ff_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+  ff_fwd_generic_kernel<<<grid, NT, smem, s>>>(
       pts, w, alpha, color, hclip, N, h, do_clip);
   return (int)cudaGetLastError();
 }

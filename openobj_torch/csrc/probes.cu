@@ -16,20 +16,26 @@
 //                             depth 4, q4's compile_case bodies (:281, :286,
 //                             :290) at depth 0 and 1
 //   part_tg_kernel         <- bench_fused_step_probe.py q5 kernel (:342)
-//   part_dw_kernel         <- q5 compile_case body bwd_dw (:422)
+//   part_dw_kernel<NB>     <- q5 compile_case body bwd_dw (:422)
 //   part_quad_kernel       <- q5 compile_case body fwd_quadratic_chained (:426)
 //
-// All arithmetic is FP32 FMA on the SIMT cores, no fast math, no tensor
-// cores: the plain PyTorch versions (openobj_torch/ops/probes.py) run in full
-// FP32 and are the reference. Each kernel's note says what bounds it on an
-// H100 and what its design does about that. A simple kernel that is right
-// comes first here; none of them uses wgmma or TMA yet.
+// All arithmetic is FP32-accurate, no fast math: FP32 FMA on the SIMT cores,
+// except part_dw_kernel, whose product runs on the tensor cores in 3xTF32
+// (hi/lo TF32 split, three mma.sync per tile, f32 sums). The plain PyTorch
+// versions (openobj_torch/ops/probes.py) run in full FP32 and are the
+// reference. Each kernel's note says what bounds it on an H100 and what its
+// design does about that. None of them uses wgmma or TMA yet.
 //
 // The C entry points return cudaGetLastError() after each launch (or a CUDA
 // error code for an argument the kernel cannot take); the Python wrapper
 // raises if it is not cudaSuccess.
 
+// Without nvcc (tests/test_torch_kernel_emulation.py runs part_dw_kernel on
+// the CPU), a header included ahead of this file stands in for the CUDA
+// runtime and the inline-PTX helpers under `#ifdef __CUDACC__` below.
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 #include <stdint.h>
 
 namespace {
@@ -41,8 +47,36 @@ constexpr int RPW = TM / NW;     // rows per warp in a tile
 
 __host__ __device__ inline int round4(int k) { return (k + 3) & ~3; }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// ------------------------------------------------------------ 3xTF32 tiles
+// (the helpers of fused_field.cu, copied: each source builds on its own)
+
+#ifdef __CUDACC__
+__device__ inline uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a . b for one m16n8k8 tile, tf32 operands, f32 accumulation
+__device__ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
+// the 3xTF32 split: x = hi + lo + O(2^-22 |x|), hi and lo both tf32
+__device__ inline void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
 // ---------------------------------------------------------------- cp.async
 
+#ifdef __CUDACC__
 __device__ inline void cp_async4(float* smem, const float* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
@@ -58,6 +92,15 @@ __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\
 template <int N>
 __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+#endif
+
+// wait until at most n (0..3) committed groups are still in flight
+__device__ inline void cp_async_wait_pending(int n) {
+  if (n >= 3) cp_async_wait<3>();
+  else if (n == 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
 }
 
 // Copy `rows` rows of `cols` contiguous floats (row stride `cols` in global
@@ -437,12 +480,12 @@ size_t chain_smem(int DX, int K, int H) {
 //   quad  z = hp (wb wb^T) [R, Hp], the Gram matrix formed in the kernel
 //
 // Bound: bytes (tg 21.4 MB for 0.33 GFLOP, about 16 FLOP per byte; dw and
-// quad less). tg and dw read each operand element from device memory once
+// quad less). tg reads each operand element from device memory once
 // per block that needs it, in coalesced rows, through shared memory (row
 // stride 65 floats, so that the strided reads of the other operand are free
 // of bank conflicts). tg gives every object ceil(R/32) row blocks plus one
-// block for g, so that 64 objects fill the card; dw gives every object one
-// block per 128 columns of C. quad forms g in one block per object and
+// block for g, so that 64 objects fill the card; dw (its own note below)
+// runs on the tensor cores. quad forms g in one block per object and
 // keeps it in shared memory for z; it is the smallest of the three and
 // leaves SMs idle at 64 objects.
 
@@ -450,8 +493,11 @@ constexpr int PT_RT = 32;       // rows of t per block (tg)
 constexpr int PT_CC = 64;       // C per chunk (tg, quad)
 constexpr int PT_LD = PT_CC + 1;
 constexpr int PT_MAXO = 16;     // outputs per thread: nA * nB <= NT * 16
-constexpr int DW_CT = 128;      // columns of C per block (dw)
-constexpr int DW_RC = 32;       // rays per chunk (dw)
+constexpr int DW_CT = 16 * NW;  // columns of C per block (dw): a warp per 16
+constexpr int DW_RC = 128;      // rays staged at once (dw)
+constexpr int DW_G = 32;        // rays per cp.async group (dw)
+constexpr int DW_B = 4;         // dt fragments loaded at once per thread (dw)
+constexpr int DW_LDG = DW_CT + 8;   // gt's shared row stride, 8 mod 32
 
 // acc[j] = sum_c A[a][c] B[b][c] for output j*NT + tid = a*nB + b, with A
 // rows at global stride C; the sum runs over c in order.
@@ -518,45 +564,141 @@ part_tg_kernel(const float* __restrict__ gt, const float* __restrict__ wb,
   }
 }
 
-// dW[o][h][c] = sum_r dt[o][r][h] gt[o][r][c]. Thread t owns column
-// c0 + t % 128 and the rows h = t / 128 + 2j.
-__global__ void __launch_bounds__(NT)
+// dW[o] = dt[o]^T gt[o], computed as its transpose dW[o]^T = gt[o]^T dt[o]
+// (M = the block's DW_CT columns of C, N = Hp padded to 8 NB, K = the rays)
+// on the tensor cores in 3xTF32: each gt element is split once, where its
+// warp reads it, and dt[o] is split once per block, into the order of
+// mma.sync's B fragments (zero past R and Hp), so that a warp reads a B
+// fragment with one 128-bit load.
+//
+// Bound: bytes (21 MB at the probe's shape, 6.3 us at 3.35 TB/s). A block
+// owns (object, 128 columns of C): 256 blocks at the probe's shape, two
+// resident per SM (101 KB of shared memory each), so the whole grid is one
+// wave and every block's copies are in flight from the start. dt's loads go
+// out first (behind the gt stream they would hold up the first products);
+// each thread then stores whole B fragments of it, so the stores meet no
+// bank conflicts. The gt slice (up to DW_RC rays at a time) comes in
+// DW_G-ray cp.async groups, 16 bytes a thread where C allows; the warps
+// multiply each group as it lands, while the later ones are still in flight.
+// Each warp owns 16 columns of the slice and all Hp rows. gt's row stride of
+// 8 mod 32 floats makes its fragment reads hit 32 different banks; columns
+// past C are never stored.
+template <int NB>
+__global__ void __launch_bounds__(NT, 2)
 part_dw_kernel(const float* __restrict__ dt, const float* __restrict__ gt,
-               float* __restrict__ dw, int R, int Hp, int C) {
-  constexpr int MAXJ = 32;           // Hp <= 64
-  __shared__ float ds[DW_RC * 64];
-  __shared__ float gs[DW_RC * DW_CT];
+               float* __restrict__ dw, int R, int Hp, int C, int rc, int vec) {
+  extern __shared__ __align__(16) float sm[];
+  float* gs = sm;                                                // [rc][DW_LDG]
+  uint32_t* ds = reinterpret_cast<uint32_t*>(sm + rc * DW_LDG);  // dt, split B fragments
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int o = blockIdx.y, c0 = blockIdx.x * DW_CT;
   const int cw = min(DW_CT, C - c0);
-  const int col = threadIdx.x % DW_CT, hg = threadIdx.x / DW_CT;
-  const int nj = (Hp - hg + 1) / 2;
-  float acc[MAXJ];
-#pragma unroll
-  for (int j = 0; j < MAXJ; ++j) acc[j] = 0.0f;
+  const int m0 = warp * 16;
   const float* dto = dt + (size_t)o * R * Hp;
   const float* gto = gt + (size_t)o * R * C + c0;
-  for (int r0 = 0; r0 < R; r0 += DW_RC) {
-    const int nr = min(DW_RC, R - r0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nr * Hp; i += NT) ds[i] = dto[(size_t)r0 * Hp + i];
-    for (int i = threadIdx.x; i < nr * DW_CT; i += NT) {
-      const int r = i / DW_CT, c = i - r * DW_CT;
-      gs[i] = c < cw ? gto[(size_t)(r0 + r) * C + c] : 0.0f;
-    }
-    __syncthreads();
-    for (int r = 0; r < nr; ++r) {
-      const float gv = gs[r * DW_CT + col];
-      const float* dr = ds + r * Hp + hg;
+  float c[NB][4];
 #pragma unroll
-      for (int j = 0; j < MAXJ; ++j)
-        if (j < nj) acc[j] = fmaf(dr[2 * j], gv, acc[j]);
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.0f;
+
+  for (int r0 = 0; r0 < R; r0 += rc) {
+    const int nr = min(rc, R - r0), rp = (nr + 7) & ~7;
+    const int groups = (nr + DW_G - 1) / DW_G;
+    if (r0 > 0) __syncthreads();        // the previous rays are consumed
+    // dt into split B fragments: a task is one lane's fragment of one
+    // (k-step, n-tile), b0 = dt[8 ks + t][8 nt + g] and b1 four rays on,
+    // stored as {b0 hi, b1 hi, b0 lo, b1 lo} with one 128-bit store;
+    // DW_B tasks' loads in flight per thread
+    const int ntask = (rp / 8) * NB * 32;
+    for (int i0 = tid; i0 < ntask; i0 += NT * DW_B) {
+      float v[DW_B][2];
+#pragma unroll
+      for (int u = 0; u < DW_B; ++u) {
+        const int i = i0 + u * NT, ln = i & 31, nt = (i >> 5) % NB, ks = (i >> 5) / NB;
+        const int r = 8 * ks + (ln & 3), h = 8 * nt + (ln >> 2);
+        const bool ok = i < ntask && h < Hp;
+        v[u][0] = ok && r < nr ? __ldg(dto + (size_t)(r0 + r) * Hp + h) : 0.0f;
+        v[u][1] = ok && r + 4 < nr ? __ldg(dto + (size_t)(r0 + r + 4) * Hp + h) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < DW_B; ++u) {
+        const int i = i0 + u * NT;
+        if (i >= ntask) break;
+        uint4 f;
+        split(v[u][0], f.x, f.z);
+        split(v[u][1], f.y, f.w);
+        reinterpret_cast<uint4*>(ds)[i] = f;
+      }
+    }
+    for (int gi = 0; gi < groups; ++gi) {
+      const int ra = gi * DW_G, rb = min(nr, ra + DW_G);
+      if (vec) {
+        for (int i = tid; i < (rb - ra) * (DW_CT / 4); i += NT) {
+          const int r = ra + i / (DW_CT / 4), q = (i % (DW_CT / 4)) * 4;
+          float* d = gs + r * DW_LDG + q;
+          if (q < cw) cp_async16(d, gto + (size_t)(r0 + r) * C + q);
+          else d[0] = d[1] = d[2] = d[3] = 0.0f;
+        }
+      } else {
+        for (int i = tid; i < (rb - ra) * DW_CT; i += NT) {
+          const int r = ra + i / DW_CT, q = i % DW_CT;
+          if (q < cw) cp_async4(gs + r * DW_LDG + q, gto + (size_t)(r0 + r) * C + q);
+          else gs[r * DW_LDG + q] = 0.0f;
+        }
+      }
+      cp_async_commit();
+    }
+    for (int i = tid; i < (rp - nr) * DW_LDG; i += NT) gs[nr * DW_LDG + i] = 0.0f;
+    for (int gi = 0; gi < groups; ++gi) {
+      cp_async_wait_pending(groups - 1 - gi);
+      __syncthreads();
+      const int ks1 = min(rp, (gi + 1) * DW_G) / 8;
+      for (int ks = gi * DW_G / 8; ks < ks1; ++ks) {
+        const float* ar = gs + (8 * ks + t) * DW_LDG + m0 + g;
+        uint32_t ah[4], al[4];
+        split(ar[0], ah[0], al[0]);
+        split(ar[8], ah[1], al[1]);
+        split(ar[4 * DW_LDG], ah[2], al[2]);
+        split(ar[4 * DW_LDG + 8], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const uint4 u = reinterpret_cast<const uint4*>(ds + (ks * NB + j) * 128)[lane];
+          const uint32_t bh[2] = {u.x, u.y}, bl[2] = {u.z, u.w};
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(d, al, bh);
+          mma_tf32(d, ah, bl);
+          mma_tf32(d, ah, bh);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[j][i] += d[i];
+        }
+      }
     }
   }
-  if (col >= cw) return;
-  float* out = dw + (size_t)o * Hp * C + c0 + col;
+  // C fragment (m, n) of dW^T is dW[o][n][c0 + m]
+  float* out = dw + (size_t)o * Hp * C + c0;
 #pragma unroll
-  for (int j = 0; j < MAXJ; ++j)
-    if (j < nj) out[(size_t)(hg + 2 * j) * C] = acc[j];
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + g + 8 * (i >> 1), n = 8 * j + 2 * t + (i & 1);
+      if (m < cw && n < Hp) out[(size_t)n * C + m] = c[j][i];
+    }
+}
+
+template <int NB>
+int launch_dw(const float* dt, const float* gt, float* dw, int O, int R, int Hp, int C,
+              cudaStream_t stream) {
+  const int rc = min(DW_RC, (R + 7) & ~7);
+  const size_t smem = sizeof(float) * rc * (DW_LDG + 16 * NB);   // dt: hi and lo
+  cudaError_t err = cudaFuncSetAttribute(
+      part_dw_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = C % 4 == 0 && aligned16(gt);
+  dim3 grid((C + DW_CT - 1) / DW_CT, O);
+  part_dw_kernel<NB><<<grid, NT, smem, stream>>>(dt, gt, dw, R, Hp, C, rc, vec);
+  return (int)cudaGetLastError();
 }
 
 // z[o] = hp[o] g with g = wb[o] wb[o]^T formed first, into shared memory.
@@ -587,8 +729,6 @@ part_quad_kernel(const float* __restrict__ hp, const float* __restrict__ wb,
     zo[idx] = v;
   }
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -675,9 +815,17 @@ int pr_part_tg(const float* gt, const float* wb, float* t, float* g, int O, int 
 int pr_part_dw(const float* dt, const float* gt, float* dw, int O, int R, int Hp,
                int C, void* stream) {
   if (O < 1 || R < 1 || C < 1 || Hp < 1 || Hp > 64) return (int)cudaErrorInvalidValue;
-  dim3 grid((C + DW_CT - 1) / DW_CT, O);
-  part_dw_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(dt, gt, dw, R, Hp, C);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch ((Hp + 7) / 8) {   // the 8-column tiles of Hp
+    case 1: return launch_dw<1>(dt, gt, dw, O, R, Hp, C, s);
+    case 2: return launch_dw<2>(dt, gt, dw, O, R, Hp, C, s);
+    case 3: return launch_dw<3>(dt, gt, dw, O, R, Hp, C, s);
+    case 4: return launch_dw<4>(dt, gt, dw, O, R, Hp, C, s);
+    case 5: return launch_dw<5>(dt, gt, dw, O, R, Hp, C, s);
+    case 6: return launch_dw<6>(dt, gt, dw, O, R, Hp, C, s);
+    case 7: return launch_dw<7>(dt, gt, dw, O, R, Hp, C, s);
+    default: return launch_dw<8>(dt, gt, dw, O, R, Hp, C, s);
+  }
 }
 
 // hp [O, R, Hp], wb [O, Hp, C] -> z [O, R, Hp]

@@ -1,6 +1,7 @@
-"""Time K2, the fused-field backward, of this checkout, alone or against K2
-built from another copy of ``csrc/fused_field.cu`` with the same C entry
-points, in one process on one card.
+"""Time K1 and K2, the fused-field forward and backward, of this checkout,
+alone or against the kernels built from another copy of
+``csrc/fused_field.cu`` with the same C entry points, in one process on one
+card.
 
     python -m openobj_torch.scripts.bench_fused_field
     mkdir -p chip_proof/other && git archive <commit> openobj_torch/csrc/fused_field.cu \\
@@ -10,16 +11,18 @@ points, in one process on one card.
 
 At the main path's two shapes (fg 64 objects x 1200 points, h=32; bg 1 x
 16800, h=128; clip head on; inputs from a seed) it builds both sources with
-the same ``nvcc`` flags and tiles both with ``fused_field.bwd_tiling``. For
-each backward it reports the worst leaf's max|d|/max|ref| (and which leaf
-and object) against the plain FP32 backward, which is the gate of
+the same ``nvcc`` flags and tiles both backwards with
+``fused_field.bwd_tiling``. For each forward it reports the max abs
+difference from ``fused_field_plain`` (the 1e-4 gate of ``chip_smoke.py``).
+For each backward it reports the worst leaf's max|d|/max|ref| (and which
+leaf and object) against the plain FP32 backward, which is the gate of
 ``chip_smoke.py``, and against the plain backward in float64 (``vs_f64``;
 its projection t . dirs^T keeps the FP32 rounding all versions share),
 beside the plain FP32 backward's own distance from float64. It times each
-backward kernel alone (into its own per-tile scratch, without the
-reduction) with CUDA events in turns: this, other, other, this; and the
-plain backward (autograd of ``fused_field_plain``). The last line is one
-JSON object with every number.
+kernel alone (the forward into preallocated outputs, the backward into its
+own per-tile scratch, without the reduction) with CUDA events in turns:
+this, other, other, this; and the plain forward and backward (autograd of
+``fused_field_plain``). The last line is one JSON object with every number.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ SHAPES = (dict(name="fg", o=64, n=1200, h=32), dict(name="bg", o=1, n=16800, h=1
 ITERS = 20      # timed launches per reading, after 3 warm-ups
 
 
-class K2:
-    """One library's backward at one shape: scratch, launch and reduction."""
+class Field:
+    """One library's kernels at one shape: outputs, scratch, launches and
+    reduction."""
 
     def __init__(self, lib, wflat, pts, da, dc, dh, h: int):
         self.lib, self.args = lib, (wflat, pts, da, dc, dh)
@@ -49,7 +53,16 @@ class K2:
         self.tile, self.n_tiles = ff.bwd_tiling(lib, o, n, h, pts.device)
         self.p = lib.ff_param_count(h)
         self.part = torch.empty((o, self.n_tiles, self.p), device=pts.device)
+        self.outs = [torch.empty((o, n, k), device=pts.device) for k in (1, 3, h)]
         self.stream = torch.cuda.current_stream(pts.device).cuda_stream
+
+    def forward(self) -> None:
+        w, pts = self.args[:2]
+        a, c, f = self.outs
+        err = self.lib.ff_forward(pts.data_ptr(), w.data_ptr(), a.data_ptr(), c.data_ptr(),
+                                  f.data_ptr(), self.o, self.n, self.h, 1, self.stream)
+        if err:
+            raise RuntimeError(f"ff_forward: CUDA error {err}")
 
     def backward(self) -> None:
         w, pts, da, dc, dh = self.args
@@ -127,21 +140,29 @@ def run(against: Path | None) -> dict:
         obj, ref, w_req = _plain_grad(wflat, pts, cts, h, torch.float32)
         ref64 = _plain_grad(wflat, pts, cts, h, torch.float64)[1]
 
+        outs_p = ff.fused_field_plain(wflat, pts, h, True)
         row = {"o": o, "n": n, "h": h, "plain_vs_f64": _leaf_rel(ref, ref64, h)[0]}
-        runs = {k: K2(lib, wflat, pts, *cts, h) for k, lib in libs.items()}
+        runs = {k: Field(lib, wflat, pts, *cts, h) for k, lib in libs.items()}
         for k, r in runs.items():
+            r.forward()
+            fwd_err = max(float((x - y).abs().max()) for x, y in zip(r.outs, outs_p))
             g = r.grad()
             rel, where = _leaf_rel(g, ref, h)
-            row[k] = {"tile": r.tile, "tiles": r.n_tiles, "worst_leaf_rel": rel,
-                      "worst_leaf": where, "vs_f64": _leaf_rel(g, ref64, h)[0]}
+            row[k] = {"fwd_max_abs": fwd_err, "tile": r.tile, "tiles": r.n_tiles,
+                      "worst_leaf_rel": rel, "worst_leaf": where,
+                      "vs_f64": _leaf_rel(g, ref64, h)[0], "fwd_ms": [], "ms": []}
         order = ["this", "other", "other", "this"] if against else ["this", "this"]
-        times = {k: [] for k in runs}
         for k in order:
-            times[k].append(_time(runs[k].backward))
-        for k, ts in times.items():
-            row[k]["ms"] = ts
+            row[k]["fwd_ms"].append(_time(runs[k].forward))
+        for k in order:
+            row[k]["ms"].append(_time(runs[k].backward))
+        row["plain_fwd_ms"] = _time(lambda: ff.fused_field_plain(wflat, pts, h, True))
         row["plain_ms"] = _time(lambda: torch.autograd.grad(obj, w_req, retain_graph=True))
         out[shape["name"]] = row
+        print(f"[k1] {shape['name']} O={o} N={n} h={h}: "
+              + "; ".join(f"{k} {['%.4f' % t for t in row[k]['fwd_ms']]} ms "
+                          f"(max abs {row[k]['fwd_max_abs']:.2e})" for k in runs)
+              + f"; plain forward {row['plain_fwd_ms']:.4f} ms", flush=True)
         print(f"[k2] {shape['name']} O={o} N={n} h={h}: "
               + "; ".join(f"{k} {['%.4f' % t for t in row[k]['ms']]} ms (tile {row[k]['tile']}, "
                           f"worst leaf rel {row[k]['worst_leaf_rel']:.2e} at {row[k]['worst_leaf']}, "
@@ -149,7 +170,7 @@ def run(against: Path | None) -> dict:
                           for k in runs)
               + f"; plain backward {row['plain_ms']:.4f} ms (vs f64 {row['plain_vs_f64']:.2e})",
               flush=True)
-        del params, wflat, pts, cts, w_req, obj, ref, ref64, runs
+        del params, wflat, pts, cts, w_req, obj, ref, ref64, runs, outs_p
     return out
 
 
@@ -162,7 +183,7 @@ def main(argv=None) -> int:
         print("bench_fused_field: no CUDA device", file=sys.stderr)
         return 2
     res = run(args.against.resolve() if args.against else None)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "k2": res}), flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "fused_field": res}), flush=True)
     return 0
 
 

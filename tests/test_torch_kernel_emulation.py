@@ -1,16 +1,18 @@
-"""K2, the fused-field backward of openobj_torch/csrc/fused_field.cu, run on
-the CPU against the plain backward.
+"""K1 and K2, the fused-field forward and backward of
+openobj_torch/csrc/fused_field.cu, and the part term's dW kernel of
+openobj_torch/csrc/probes.cu, run on the CPU against their plain versions.
 
-The CUDA source is compiled by the host C++ compiler with ``STUB`` (below)
+Each CUDA source is compiled by the host C++ compiler with ``STUB`` (below)
 included ahead of it: the stub stands in for the CUDA built-ins and the
 inline-PTX helpers that the source builds only under nvcc, runs each
 block's threads as ``std::thread``s and emulates ``mma.sync`` from its
 documented fragment layout. That checks the kernel's indexing: fragments,
 swizzled shared memory, the packed layout and its bias rows, ragged
 chunks, tiles of several chunks, the clip head on and off, at both widths
-the kernel is built for. It says nothing of speed or of the card's own
-rounding; ``tests/test_torch_kernels.py`` holds the real kernel
-to the same plain version on a GPU.
+the tensor-core kernels are built for (and K1's SIMT kernel at another
+width). It says nothing of speed or of the card's own rounding;
+``tests/test_torch_kernels.py`` holds the real kernels to the same plain
+version on a GPU (``tests/test_torch_probe_kernels.py`` for dW).
 """
 
 import ctypes
@@ -25,23 +27,28 @@ import torch
 
 from openobj_torch.models import object_field as tof
 from openobj_torch.ops import fused_field as tff
+from openobj_torch.ops import probes
 
-ROOT = Path(__file__).resolve().parents[1]
-SRC = ROOT / "openobj_torch" / "csrc" / "fused_field.cu"
-GRAD_RTOL = 1e-3     # as tests/test_torch_kernels.py
+CSRC = Path(__file__).resolve().parents[1] / "openobj_torch" / "csrc"
+FWD_ATOL = 1e-4      # as tests/test_torch_kernels.py
+GRAD_RTOL = 1e-3
+GEMM_RTOL = 1e-5     # as tests/test_torch_probe_kernels.py
 
 # What the CUDA source needs from the CUDA runtime and from its inline-PTX
 # helpers, for a host C++20 compiler:
 STUB = r"""
 //  * each block's threads are std::threads, __syncthreads a std::barrier;
-//  * mma.sync m16n8k8 (tf32 operands, f32 accumulator) is a warp-wide
-//    exchange through a std::barrier of 32 threads, computed from the PTX
+//  * mma.sync m16n8k8 (tf32 operands, f32 accumulator) and __shfl_sync are
+//    warp-wide exchanges through a std::barrier of 32 threads, mma computed
+//    from the PTX
 //    fragment layout (g = lane >> 2, t = lane & 3; a0..a3 = A[g][t],
 //    A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g];
 //    c0..c3 = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]);
 //  * cvt.rna.tf32.f32 rounds to 10 mantissa bits, ties away from zero;
 //  * dynamic shared memory is filled with NaN before each block, so that a
-//    read of memory the kernel never wrote shows in its outputs.
+//    read of memory the kernel never wrote shows in its outputs;
+//  * the device has emu_set_sm_count(n) SMs (132 unless set), so that a test
+//    can make K1's tile rule give tiles of several chunks at small sizes.
 // It checks indexing, layouts and synchronisation, not the card's rounding
 // (the tensor cores truncate where this rounds) and not speed.
 #include <barrier>
@@ -60,6 +67,8 @@ STUB = r"""
 #define __launch_bounds__(...)
 #define __restrict__
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct uint4 { uint32_t x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
@@ -69,7 +78,7 @@ inline dim3 gridDim, blockDim;
 inline float* g_smem;
 inline std::barrier<>* g_block_bar;
 inline std::barrier<>* g_warp_bar[32];
-struct WarpRegs { uint32_t a[32][4], b[32][2]; };
+struct WarpRegs { uint32_t a[32][4], b[32][2]; float f[32]; };
 inline WarpRegs g_wr[32];
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
@@ -78,9 +87,14 @@ inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); retu
 template <class T> T min(T a, T b) { return a < b ? a : b; }
 template <class T> T max(T a, T b) { return a > b ? a : b; }
 typedef int cudaError_t; typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaDevAttrMultiProcessorCount = 16 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline int g_sm_count = 132;
+extern "C" void emu_set_sm_count(int n) { g_sm_count = n; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = g_sm_count; return 0; }
 inline size_t g_smem_max = 0;
 
 inline uint32_t to_tf32(float x) {
@@ -110,7 +124,18 @@ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[
   }
   g_warp_bar[w]->arrive_and_wait();
 }
+inline float __shfl_sync(unsigned, float v, int src) {   // through the warp's exchange
+  const int w = threadIdx.x >> 5;
+  g_wr[w].f[threadIdx.x & 31] = v;
+  g_warp_bar[w]->arrive_and_wait();
+  const float r = g_wr[w].f[src & 31];
+  g_warp_bar[w]->arrive_and_wait();
+  return r;
+}
 inline void cp_async4(float* dst, const float* src) { *dst = *src; }
+inline void cp_async16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
+inline void cp_async_commit() {}
+template <int N> void cp_async_wait() {}
 inline void cp_async_wait_all() {}
 
 template <class F>
@@ -136,32 +161,38 @@ void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F fn) {
 """
 
 
-def _host_source() -> str:
-    """fused_field.cu for the host compiler: shared memory is the stub's
-    buffer, and each <<<grid, block, smem, stream>>> launch goes through
-    ``emu_launch``."""
+def _host_source(name: str) -> str:
+    """csrc/<name>.cu for the host compiler: dynamic shared memory is the
+    stub's buffer, and each <<<grid, block, smem, stream>>> launch goes
+    through ``emu_launch``."""
     s = re.sub(r"extern __shared__ (__align__\(16\) )?float sm\[\];", "float* sm = g_smem;",
-               SRC.read_text())
-    return re.sub(r"(\w+(?:<\w+>)?)<<<([^>]*)>>>\((.*?)\);", r"emu_launch(\2, [&] { \1(\3); });",
-                  s, flags=re.S)
+               (CSRC / f"{name}.cu").read_text())
+    return re.sub(r"(\w+(?:<[\w, ]+>)?)<<<([^>]*)>>>\((.*?)\);",
+                  r"emu_launch(\2, [&] { \1(\3); });", s, flags=re.S)
 
 
-@pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
+def _emulated(tmp_path_factory, name: str) -> ctypes.CDLL:
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
-    out = tmp_path_factory.mktemp("k2_emu")
-    cpp, stub, so = (out / "fused_field_emu.cpp", out / "cuda_emu.h",
-                     out / "libfused_field_emu.so")
-    cpp.write_text(_host_source())
+    out = tmp_path_factory.mktemp(f"{name}_emu")
+    cpp, stub, so = out / f"{name}_emu.cpp", out / "cuda_emu.h", out / f"lib{name}_emu.so"
+    cpp.write_text(_host_source(name))
     stub.write_text(STUB)
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     "-Wno-unknown-pragmas", "-include", str(stub), "-o", str(so), str(cpp)],
                    check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory):
+    lib = _emulated(tmp_path_factory, "fused_field")
+    lib.ff_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.ff_forward.restype = ctypes.c_int
     lib.ff_backward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.ff_backward.restype = ctypes.c_int
+    lib.emu_set_sm_count.argtypes = [ctypes.c_int]
     lib.ff_param_count.argtypes = [ctypes.c_int]
     lib.ff_param_count.restype = ctypes.c_int
     return lib
@@ -169,6 +200,42 @@ def emu_lib(tmp_path_factory):
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _field(rng, o, n, h, do_clip):
+    """Packed weights (random biases too) and points of o objects."""
+    gen = torch.Generator().manual_seed(0)
+    params = tof.init_stacked_fields(gen, o, hidden=h, clip_size=16, device="cpu")
+    params = tof.tree_map(lambda x: x + 0.05 * torch.randn(x.shape, generator=gen), params)
+    w = tff._pack_params(params, h, do_clip).contiguous()
+    pts = torch.from_numpy((0.5 * rng.standard_normal((o, n, 3))).astype(np.float32))
+    return w, pts
+
+
+@pytest.mark.parametrize("o,n,h,do_clip,n_sm", [
+    (2, 70, 32, True, 1),        # one block per object: a chunk, then 6 points
+    (2, 37, 32, False, 132),     # clip head off, one ragged chunk
+    (3, 150, 32, True, 4),       # tiles of 3 chunks (64, 64, 22 points)
+    (1, 150, 128, True, 1),      # h=128: one block walks 3 chunks
+    (1, 100, 128, False, 132),   # h=128, clip head off: a chunk per block
+    (2, 40, 64, True, 132),      # another width: the SIMT kernel
+])
+def test_emulated_k1_matches_plain(emu_lib, o, n, h, do_clip, n_sm):
+    lib = emu_lib
+    w, pts = _field(np.random.default_rng(1), o, n, h, do_clip)
+    ref = tff.fused_field_plain(w, pts, h, do_clip)
+    outs = [np.full((o, n, k), np.nan, np.float32) for k in (1, 3, h)]
+    wn, pn = (np.ascontiguousarray(x.numpy()) for x in (w, pts))
+    lib.emu_set_sm_count(n_sm)
+    err = lib.ff_forward(_ptr(pn), _ptr(wn), _ptr(outs[0]), _ptr(outs[1]),
+                         _ptr(outs[2]) if do_clip else None, o, n, h, int(do_clip), None)
+    lib.emu_set_sm_count(132)
+    assert err == 0
+    for got, want in zip(outs, ref):
+        if want is None:
+            assert np.isnan(got).all()
+            continue
+        assert float(np.abs(got - want.numpy()).max()) <= FWD_ATOL
 
 
 @pytest.mark.parametrize("o,n,h,do_clip,tile", [
@@ -181,11 +248,7 @@ def _ptr(a: np.ndarray):
 def test_emulated_k2_matches_plain(emu_lib, o, n, h, do_clip, tile):
     lib = emu_lib
     rng = np.random.default_rng(0)
-    gen = torch.Generator().manual_seed(0)
-    params = tof.init_stacked_fields(gen, o, hidden=h, clip_size=16, device="cpu")
-    params = tof.tree_map(lambda x: x + 0.05 * torch.randn(x.shape, generator=gen), params)
-    w = tff._pack_params(params, h, do_clip).contiguous()
-    pts = torch.from_numpy((0.5 * rng.standard_normal((o, n, 3))).astype(np.float32))
+    w, pts = _field(rng, o, n, h, do_clip)
     cts = [torch.from_numpy(rng.standard_normal((o, n, k)).astype(np.float32)) for k in (1, 3, h)]
 
     wr = w.detach().requires_grad_(True)
@@ -222,3 +285,42 @@ def test_emulated_k2_rejects_bad_tiles(emu_lib):
     assert lib.ff_backward(*args, 1, 40, 32, 1, 48, None) != 0
     assert lib.ff_backward(*args, 1, 40, 128, 1, 64, None) != 0
     assert lib.ff_backward(*args, 1, 40, 64, 1, 32, None) != 0
+
+
+@pytest.fixture(scope="module")
+def emu_probes(tmp_path_factory):
+    lib = _emulated(tmp_path_factory, "probes")
+    lib.pr_part_dw.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pr_part_dw.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("o,r,hp,c", [
+    (2, 120, 33, 512),   # the probe's widths: 8 column slices, 5 tiles of Hp
+    (2, 37, 48, 100),    # ragged slice (16-byte copies), R not a multiple of 8
+    (2, 7, 64, 70),      # Hp = 64, C % 4 != 0 (4-byte copies)
+    (2, 33, 1, 3),
+    (1, 300, 17, 130),   # three chunks of rays
+])
+def test_emulated_part_dw_matches_plain(emu_probes, o, r, hp, c):
+    rng = np.random.default_rng(3)
+    dt = (0.1 * rng.standard_normal((o, r, hp))).astype(np.float32)
+    gt = (0.1 * rng.standard_normal((o, r, c))).astype(np.float32)
+    out = np.full((o, hp, c), np.nan, np.float32)
+    assert emu_probes.pr_part_dw(_ptr(dt), _ptr(gt), _ptr(out), o, r, hp, c, None) == 0
+    ref = probes.part_dw_plain(torch.from_numpy(dt), torch.from_numpy(gt)).numpy()
+    assert float(np.abs(out - ref).max()) <= GEMM_RTOL * float(np.abs(ref).max())
+
+
+def test_k1_phases_stamps_every_barrier(tmp_path, monkeypatch):
+    """openobj_torch.scripts.k1_phases builds a copy of the source in which
+    every barrier books its cycles, with the stamps ahead of the kernels."""
+    from openobj_torch import kernels
+    from openobj_torch.scripts import k1_phases
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    src = CSRC / "fused_field.cu"
+    text = k1_phases.stamped_source(src, 7).read_text()
+    assert text.count("stamped_syncthreads(7);") == src.read_text().count("__syncthreads();")
+    assert text.count("__syncthreads();") == 1          # the barrier inside the stamp
+    assert text.index("void stamped_syncthreads(") < text.index("namespace {")

@@ -52,6 +52,15 @@ def _params(gen, o, h, device):
     # |t| up to 1.5: the top band's phases pass 32 pi
     (2, 300, 32, True, True),
     (1, 300, 128, True, True),
+    # K1 walks 64-point chunks: one chunk - 1 and + 1 at both widths
+    (2, 63, 32, True, False),
+    (2, 65, 32, True, False),
+    (1, 127, 128, True, False),
+    (1, 129, 128, True, False),
+    # K1's tiles on 132 SMs: 2 chunks per block (80 blocks), clip head off;
+    # 4 chunks per block at h=128 (108 blocks), the last tile 40 points
+    (2, 5000, 32, False, False),
+    (3, 9000, 128, True, False),
 ])
 def test_cuda_kernels_match_plain(cuda_device, o, n, h, do_clip, wide):
     gen = torch.Generator(device=cuda_device).manual_seed(0)

@@ -103,6 +103,7 @@ def test_step_chain_matches_plain(cuda_device, depth, s, o, n, dx, k, h):
     (3, 120, 33, 512),            # the probe's widths
     (2, 7, 64, 70),               # Hp = 64, the widest the kernels take
     (2, 33, 1, 3),
+    (2, 37, 48, 100),             # dw: ragged 64-column slice, R not a multiple of 8, Hp = 48
 ])
 def test_part_term_matches_plain(cuda_device, o, r, hp, c):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
