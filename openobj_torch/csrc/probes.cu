@@ -9,7 +9,8 @@
 //   ens_gemm<OBJTILE>      <- bench_ensemble_mm.py tiled_kernel (:79); with
 //                             sin, bench_fused_step_probe.py
 //                             _unrolled_dot_kernel (:82)
-//   ens_gemm<PERSISTENT>   <- bench_ensemble_mm.py loop_kernel (:105)
+//   ens_gemm<PERSISTENT>   <- bench_ensemble_mm.py loop_kernel (:105); the
+//                             kernel ens_gemm_persistent_kernel
 //   launch_nop_kernel      <- bench_ensemble_mm.py nop_kernel (:135)
 //   slab_stream_kernel     <- bench_fused_step_probe.py q2 noop_kernel (:144)
 //   step_chain_kernel      <- bench_fused_step_probe.py q3 kernel (:192) at
@@ -20,19 +21,23 @@
 //   part_quad_kernel       <- q5 compile_case body fwd_quadratic_chained (:426)
 //
 // All arithmetic is FP32-accurate, no fast math: FP32 FMA on the SIMT cores,
-// except part_dw_kernel, whose product runs on the tensor cores in 3xTF32
-// (hi/lo TF32 split, three mma.sync per tile, f32 sums). The plain PyTorch
-// versions (openobj_torch/ops/probes.py) run in full FP32 and are the
-// reference. Each kernel's note says what bounds it on an H100 and what its
-// design does about that. None of them uses wgmma or TMA yet.
+// except part_dw_kernel and ens_gemm_persistent_kernel, whose products run on
+// the tensor cores in 3xTF32 (hi/lo TF32 split, three mma.sync per tile, f32
+// sums). The plain PyTorch versions (openobj_torch/ops/probes.py) run in full
+// FP32 and are the reference. Each kernel's note says what bounds it on an
+// H100 and what its design does about that. ens_gemm_persistent_kernel feeds
+// its tiles with Hopper's one-dimensional bulk copy (TMA without a tensor
+// map) into a ring of mbarrier-tracked stages; none of the kernels uses
+// wgmma yet.
 //
 // The C entry points return cudaGetLastError() after each launch (or a CUDA
 // error code for an argument the kernel cannot take); the Python wrapper
 // raises if it is not cudaSuccess.
 
-// Without nvcc (tests/test_torch_kernel_emulation.py runs part_dw_kernel on
-// the CPU), a header included ahead of this file stands in for the CUDA
-// runtime and the inline-PTX helpers under `#ifdef __CUDACC__` below.
+// Without nvcc (tests/test_torch_kernel_emulation.py runs part_dw_kernel and
+// ens_gemm_persistent_kernel on the CPU), a header included ahead of this
+// file stands in for the CUDA runtime and the inline-PTX helpers under
+// `#ifdef __CUDACC__` below.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -102,6 +107,65 @@ __device__ inline void cp_async_wait_pending(int n) {
   else if (n == 1) cp_async_wait<1>();
   else cp_async_wait<0>();
 }
+
+// ------------------------------------------------- mbarriers and bulk copies
+//
+// An mbarrier in shared memory completes a phase when its expected number of
+// arrivals has been made and the bytes announced with expect_tx have landed;
+// a thread waits for the phase of a given parity to complete.
+
+#ifdef __CUDACC__
+__device__ inline unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ inline void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ inline void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ inline void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// the arrival of the calling thread, made once its earlier cp.asyncs land
+__device__ inline void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// order this thread's earlier shared-memory accesses before later bulk copies
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing that many bytes of `bar`'s transaction count
+__device__ inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+#endif
 
 // Copy `rows` rows of `cols` contiguous floats (row stride `cols` in global
 // memory) into shared memory at row stride `ld`, asynchronously. `vec`: 16-
@@ -173,20 +237,19 @@ __device__ inline void tile_mm(const float* a, int lda, int kp,
 // once (x by exactly one block, w[o] by the few blocks of object o, through
 // L2) and each output written once, coalesced.
 //
-// The three schedules are three placements of the same tile product:
+// The three schedules are three placements of the same function:
 //  GRID       one block per (64-row tile, object): every tile of the whole
 //             ensemble in one launch, the counterpart of the TPU's single
 //             grid step over the whole ensemble;
 //  OBJTILE    one block per (64-row tile, group of `obj_tile` objects),
 //             walking its objects in turn: the TPU's object-tiled grid;
-//  PERSISTENT at most one block per SM, each walking a contiguous run of
-//             (object, tile) items; the next item's rows (and its weights,
-//             when the object changes) are staged with cp.async into the
-//             other half of a double buffer while the current item is
-//             multiplied: the TPU's per-object loop with a DMA into scratch.
+//  PERSISTENT one block per SM, each walking a contiguous run of (object,
+//             tile) items through a ring of asynchronous copies: the TPU's
+//             per-object loop with a DMA into scratch (its own kernel,
+//             ens_gemm_persistent_kernel, below).
 // Which placement fills 132 SMs best at O=16 and O=64 is what the probe
-// measures. Shared memory per stage: x tile [64][round4(K)] and w
-// [round4(K)][H], pad columns zero.
+// measures. GRID and OBJTILE run the SIMT tile product above; shared memory
+// per stage: x tile [64][round4(K)] and w [round4(K)][H], pad columns zero.
 
 enum Schedule { GRID = 0, OBJTILE = 1, PERSISTENT = 2 };
 
@@ -229,77 +292,329 @@ __device__ inline void init_pads(const GemmArgs& g, float* xs, float* ws) {
   zero_cols(ws + g.K * g.H, g.H, g.kp - g.K, 0, g.H);
 }
 
+// GRID and OBJTILE
 template <int SCHED, bool SIN>
 __global__ void __launch_bounds__(NT) ens_gemm_kernel(GemmArgs g) {
+  static_assert(SCHED == GRID || SCHED == OBJTILE, "PERSISTENT has its own kernel");
   extern __shared__ __align__(16) float sm[];
-  const int stage = TM * g.kp + g.kp * g.H;
   float* xs = sm;
   float* ws = sm + TM * g.kp;
   init_pads(g, xs, ws);
 
-  if (SCHED == GRID || SCHED == OBJTILE) {
-    const int r0 = blockIdx.x * TM;
-    const int o0 = SCHED == GRID ? blockIdx.y : blockIdx.y * g.obj_tile;
-    const int o1 = SCHED == GRID ? o0 + 1 : min(g.O, o0 + g.obj_tile);
-    for (int o = o0; o < o1; ++o) {
-      stage_item(g, o, r0, xs, ws, true);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      finish_item<SIN>(g, o, r0, xs, ws);
-      __syncthreads();
-    }
-    return;
-  }
-
-  // PERSISTENT: items are (object, tile) in object-major order; block b
-  // takes the contiguous run [b*items/G, (b+1)*items/G).
-  float* xb[2] = {xs, sm + stage};
-  float* wb[2] = {ws, sm + stage + TM * g.kp};
-  init_pads(g, xb[1], wb[1]);
-  const long items = (long)g.O * g.tiles;
-  const int i0 = (int)(items * blockIdx.x / gridDim.x);
-  const int i1 = (int)(items * (blockIdx.x + 1) / gridDim.x);
-  if (i0 >= i1) return;
-  int wobj[2] = {-1, -1};   // object whose weights each half holds
-  {
-    const int o = i0 / g.tiles;
-    stage_item(g, o, (i0 - o * g.tiles) * TM, xb[0], wb[0], true);
-    wobj[0] = o;
+  const int r0 = blockIdx.x * TM;
+  const int o0 = SCHED == GRID ? blockIdx.y : blockIdx.y * g.obj_tile;
+  const int o1 = SCHED == GRID ? o0 + 1 : min(g.O, o0 + g.obj_tile);
+  for (int o = o0; o < o1; ++o) {
+    stage_item(g, o, r0, xs, ws, true);
     cp_async_commit();
-  }
-  for (int it = i0; it < i1; ++it) {
-    const int s = (it - i0) & 1;
-    if (it + 1 < i1) {
-      const int on = (it + 1) / g.tiles;
-      const bool lw = wobj[s ^ 1] != on;
-      stage_item(g, on, (it + 1 - on * g.tiles) * TM, xb[s ^ 1], wb[s ^ 1], lw);
-      wobj[s ^ 1] = on;
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();
-    const int o = it / g.tiles;
-    finish_item<SIN>(g, o, (it - o * g.tiles) * TM, xb[s], wb[s]);
+    finish_item<SIN>(g, o, r0, xs, ws);
     __syncthreads();
   }
 }
 
 template <int SCHED, bool SIN>
-int launch_ens(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
+int launch_ens(const GemmArgs& g, cudaStream_t stream) {
   const int stage = TM * g.kp + g.kp * g.H;
-  const size_t smem = sizeof(float) * stage * (SCHED == PERSISTENT ? 2 : 1);
+  const size_t smem = sizeof(float) * stage;
   cudaError_t err = cudaFuncSetAttribute(
       ens_gemm_kernel<SCHED, SIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid;
   if (SCHED == GRID) grid = dim3(g.tiles, g.O);
-  else if (SCHED == OBJTILE) grid = dim3(g.tiles, (g.O + g.obj_tile - 1) / g.obj_tile);
-  else grid = dim3(n_blocks);
+  else grid = dim3(g.tiles, (g.O + g.obj_tile - 1) / g.obj_tile);
   ens_gemm_kernel<SCHED, SIN><<<grid, NT, smem, stream>>>(g);
   return (int)cudaGetLastError();
+}
+
+// PERSISTENT, on the tensor cores.
+//
+// Items are (object, 64-row tile) in object-major order; block b of the
+// n_blocks = SM-count blocks takes the contiguous run [b*items/G,
+// (b+1)*items/G) (9 or 10 items at the ensemble probe's shape, 1,216 items).
+//
+// Bound: bytes, as above (11.2 us at the ensemble probe's shape). The block
+// with 10 items moves 10 x 30.5 KB, ~12 us at its SM's 1/132 share of 3.35
+// TB/s, so the design keeps every SM's copies in flight and makes the
+// product cheap enough to hide behind them:
+//  * x tiles come through a ring of RING = 4 stages in dynamic shared
+//    memory, 22.5 KB each at K = 88: while a pair of tiles (below) is
+//    multiplied, the next pair is in flight, 5.9 MB across the card, about
+//    what Little's law asks for at ~1.5 us latency. A tile of x is
+//    one contiguous byte range (rows r0.. of object o, row stride K kept,
+//    no padding), so one thread fills a stage with one bulk copy that
+//    completes the stage's mbarrier's bytes; a range that is not 16-byte
+//    aligned (K = 13, N = 130, a ragged tail) goes through 4-byte
+//    cp.asyncs into the same stage, each thread's arrival made when its
+//    copies land. Every thread arrives on the stage's mbarrier once per
+//    fill (NT arrivals), so both kinds of fill complete a phase alike.
+//  * The block takes its items in pairs of one object: warps 0-3 multiply
+//    the first, warps 4-7 the second (a pair that would cross an object
+//    boundary, or the run's end, is one item, and warps 4-7 wait). After
+//    the __syncthreads that ends a pair, its two stages are refilled with
+//    the items RING on. Each warp owns 16 rows and all of H, so each A
+//    value is loaded, split (and with SIN passed through sinf) once; with
+//    two column halves per row tile instead, every A value was split twice
+//    and the kernel was slower on an H100, the more so with sin.
+//  * w[o] comes the same way, one object ahead, into a staging buffer with
+//    its own mbarrier: when the run enters object o the block splits the
+//    staged w[o] once into hi/lo TF32 B fragments in mma.sync order (as
+//    part_dw_kernel's: one 128-bit load per fragment, zero past K and H;
+//    B's rows in the order of A's columns below) and starts the copy of
+//    w[o + 1]. A second fragment buffer would not fit beside the ring at
+//    K = 128, H = 64 (64 KB each); the staged copy (32 KB at most) does,
+//    and the split from shared memory takes a fraction of an item.
+//  * The product is 3xTF32 mma.sync.m16n8k8 (al.bh + ah.bl + ah.bh per
+//    8-deep step, summed from zero and added to the f32 accumulators):
+//    FP32-accurate. No branch separates the NB column tiles' chains of
+//    three dependent mma.sync (NB is a template parameter): with one, the
+//    compiler ran the chains one after another, and on an H100 the product
+//    was bound by their latency. Within a step, fragment columns t
+//    and t + 4 hold k = 2t and 2t + 1 (B's rows are stored in the same
+//    order), so that with K even a lane reads both with one 64-bit load.
+//    A's hi part is rounded to TF32 with an integer add and mask (cvt.rna
+//    takes seven instructions on sm_90a), and its lo part is passed as it
+//    is (the tensor core reads its top 19 bits): |lo| <= 2^-11 |a|, so the
+//    dropped bits are 2^-21 |a|, as with a rounded lo. k >= K is masked to
+//    0 before sinf and the split in the last step: in the unpadded layout
+//    column K of a row is the next row's column 0, and past the tile's
+//    last row shared memory holds stale or unwritten values (NaN . 0 is
+//    NaN).
+//  * C fragments go straight to global memory as float2 (row g, columns
+//    2t, 2t + 1: whole 32-byte sectors per warp store), rows >= N and
+//    columns >= H masked.
+// TM = 64 keeps the last block's extra item at 8% over the bound and four
+// warps' rows to a tile. mma.sync and not wgmma: the 3xTF32 work, 1.3
+// GFLOP at the probe's shape, is 2.6 us at the dense TF32 rate, under a
+// quarter of the bytes bound. Measured on an H100 (scripts/
+// ens_gemm_parts.py), the product alone still takes more than twice the
+// copies alone: the warps' shared-memory loads, splits and mma.sync rate
+// bound the kernel now, not the bytes (PERF.md).
+// Shared memory: B fragments [ceil(K/8)][ceil(H/8)][32] uint4, staged w
+// [K][H], RING x tiles [TM][K], RING + 1 mbarriers (121.0 KiB at K = 88,
+// H = 32; 224.0 KiB at K = 128, H = 64).
+
+constexpr int RING = 4;   // x-tile stages of the persistent kernel
+
+size_t persistent_smem(int K, int H) {
+  return (size_t)((K + 7) / 8) * ((H + 7) / 8) * 32 * 16 +
+         sizeof(float) * (RING * TM * K + ((K * H + 3) & ~3)) + sizeof(uint64_t) * (RING + 1);
+}
+
+// Every thread: start copying n floats from src to dst, to complete one
+// phase of `bar`.
+__device__ inline void start_copy(float* dst, const float* src, int n, uint64_t* bar) {
+  const unsigned bytes = 4u * n;
+  if (((uintptr_t)src & 15) == 0 && bytes % 16 == 0) {
+    if (threadIdx.x == 0) {
+      fence_proxy_async();
+      mbar_arrive_expect_tx(bar, bytes);
+      bulk_copy_g2s(dst, src, bytes, bar);
+    } else {
+      mbar_arrive(bar);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += NT) cp_async4(dst + i, src + i);
+    cp_async_mbar_arrive(bar);
+  }
+}
+
+__device__ inline void start_tile(const GemmArgs& g, int item, float* dst, uint64_t* bar) {
+  const int o = item / g.tiles, r0 = (item - o * g.tiles) * TM;
+  start_copy(dst, g.x + ((size_t)o * g.N + r0) * g.K, min(TM, g.N - r0) * g.K, bar);
+}
+
+// The staged w[o] ([K][H] at `wr`) into split B fragments: warp by warp, a
+// (k-step, n-tile) pair, each lane b0 = w[8 ks + 2t][8 nt + g] and b1 = the
+// next row, stored as {b0 hi, b1 hi, b0 lo, b1 lo} with one 128-bit store.
+__device__ inline void split_weights(const GemmArgs& g, const float* wr, uint4* wf, int nks,
+                                     int nb) {
+  const int lane = threadIdx.x & 31;
+  const int k = 2 * (lane & 3), h = lane >> 2;
+  for (int p = threadIdx.x >> 5; p < nks * nb; p += NW) {
+    const int ks = p / nb, nt = p - ks * nb;
+    const int kk = 8 * ks + k, hh = 8 * nt + h;
+    const bool ok = hh < g.H;
+    const float v0 = ok && kk < g.K ? wr[kk * g.H + hh] : 0.0f;
+    const float v1 = ok && kk + 1 < g.K ? wr[(kk + 1) * g.H + hh] : 0.0f;
+    uint4 f;
+    split(v0, f.x, f.z);
+    split(v1, f.y, f.w);
+    wf[p * 32 + lane] = f;
+  }
+}
+
+// a = hi + lo, hi rounded to TF32 (to nearest, ties away, for finite a),
+// lo exact in FP32; mma.sync reads lo's top 19 bits
+__device__ inline void split_a(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// One 8-deep step of this warp's NB tiles: a[] = A[g][2t], A[g+8][2t],
+// A[g][2t+1], A[g+8][2t+1]; bf = the step's first fragment. No branch: the
+// NB chains of three dependent mma.sync interleave.
+template <bool SIN, int NB>
+__device__ inline void mma_step(float (&a)[4], const uint4* bf, float (&c)[NB][4]) {
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_a(SIN ? sinf(a[i]) : a[i], ah[i], al[i]);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const uint4 u = bf[j * 32];
+    const uint32_t bh[2] = {u.x, u.y}, bl[2] = {u.z, u.w};
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_tf32(d, al, bh);
+    mma_tf32(d, ah, bl);
+    mma_tf32(d, ah, bh);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += d[i];
+  }
+}
+
+// This warp's 16 rows of out[r0:r0+nv] = f(x tile) . w[o], all NB 8-column
+// tiles of H. PAIR: K is even, so a lane's two values of a row in a step
+// are one aligned 64-bit load.
+template <bool SIN, bool PAIR, int NB>
+__device__ inline void persistent_item(const GemmArgs& g, const float* xs, const uint4* wf,
+                                       int nks, float* out, int nv) {
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int m0 = 16 * ((threadIdx.x >> 5) & 3);
+  const int K = g.K;
+  const float* x0 = xs + (m0 + gq) * K + 2 * t;   // row g, k = 2t; row g + 8 is 8 K on
+  const uint4* bf = wf + lane;
+  float c[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.0f;
+  const int kfull = K >> 3;                // steps with every k < K
+  // unrolled as measured best on an H100 at the probe's shapes (K = 88; with
+  // sin, K = 87): 4 steps interleave their chains; with sin, the sinf calls
+  // leave the chains enough company
+  constexpr int UNROLL = SIN ? 1 : 4;
+#pragma unroll UNROLL
+  for (int ks = 0; ks < kfull; ++ks) {
+    const float* p = x0 + 8 * ks;
+    float a[4];
+    if (PAIR) {
+      const float2 u = *reinterpret_cast<const float2*>(p);
+      const float2 v = *reinterpret_cast<const float2*>(p + 8 * K);
+      a[0] = u.x; a[2] = u.y; a[1] = v.x; a[3] = v.y;
+    } else {
+      a[0] = p[0]; a[2] = p[1]; a[1] = p[8 * K]; a[3] = p[8 * K + 1];
+    }
+    mma_step<SIN, NB>(a, bf + ks * NB * 32, c);
+  }
+  if (kfull < nks) {                       // the last step: k >= K masked to 0
+    const float* p = x0 + 8 * kfull;
+    const int k = 8 * kfull + 2 * t;
+    float a[4] = {k < K ? p[0] : 0.0f, k < K ? p[8 * K] : 0.0f,
+                  k + 1 < K ? p[1] : 0.0f, k + 1 < K ? p[8 * K + 1] : 0.0f};
+    mma_step<SIN, NB>(a, bf + kfull * NB * 32, c);
+  }
+  const int H = g.H;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int n = 8 * j + 2 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = m0 + gq + 8 * hr;
+      if (r >= nv || n >= H) continue;
+      float* q = out + (size_t)r * H + n;
+      if ((H & 1) == 0) {
+        *reinterpret_cast<float2*>(q) = make_float2(c[j][2 * hr], c[j][2 * hr + 1]);
+      } else {
+        q[0] = c[j][2 * hr];
+        if (n + 1 < H) q[1] = c[j][2 * hr + 1];
+      }
+    }
+  }
+}
+
+template <bool SIN, bool PAIR, int NB>
+__global__ void __launch_bounds__(NT, 1) ens_gemm_persistent_kernel(GemmArgs g) {
+  extern __shared__ __align__(16) float sm[];
+  const long items = (long)g.O * g.tiles;
+  const int i0 = (int)(items * blockIdx.x / gridDim.x);
+  const int i1 = (int)(items * (blockIdx.x + 1) / gridDim.x);
+  if (i0 >= i1) return;
+  const int nks = (g.K + 7) / 8;
+  const int stage = TM * g.K, wn = g.K * g.H;            // floats
+  uint4* wf = reinterpret_cast<uint4*>(sm);               // [nks][NB][32]
+  float* wr = sm + nks * NB * 32 * 4;                     // staged w [K][H]
+  float* xs = wr + ((wn + 3) & ~3);                       // RING x [TM][K]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xs + RING * stage);   // RING, then w's
+  uint64_t* wbar = bar + RING;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= RING; ++s) mbar_init(bar + s, NT);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int olast = (i1 - 1) / g.tiles;
+  start_copy(wr, g.w + (size_t)(i0 / g.tiles) * wn, wn, wbar);
+  for (int j = 0; j < RING && i0 + j < i1; ++j) start_tile(g, i0 + j, xs + j * stage, bar + j);
+
+  const int grp = threadIdx.x >> 7;   // warps 0-3 take the first item of a pair, 4-7 the second
+  int wobj = -1, wphase = 0;          // the object whose fragments wf holds
+  for (int it = i0; it < i1;) {
+    const int o = it / g.tiles;
+    if (o != wobj) {                  // wf and wr are free: the last pair ended in a barrier
+      mbar_wait(wbar, wphase);
+      wphase ^= 1;
+      split_weights(g, wr, wf, nks, NB);
+      __syncthreads();
+      if (o < olast) start_copy(wr, g.w + (size_t)(o + 1) * wn, wn, wbar);
+      wobj = o;
+    }
+    // items it and it + 1 when both are of object o, else it alone
+    const int n_it = it + 1 < i1 && (it + 1) / g.tiles == o ? 2 : 1;
+    if (grp < n_it) {
+      const int j = it + grp - i0, r0 = (it + grp - o * g.tiles) * TM;
+      mbar_wait(bar + j % RING, (j / RING) & 1);
+      persistent_item<SIN, PAIR, NB>(g, xs + (j % RING) * stage, wf, nks,
+                                     g.out + ((size_t)o * g.N + r0) * g.H, min(TM, g.N - r0));
+    }
+    __syncthreads();   // every warp is done with the pair's stages (and with wf)
+    for (int q = 0; q < n_it; ++q) {
+      const int j = it + q - i0;
+      if (it + q + RING < i1) start_tile(g, it + q + RING, xs + (j % RING) * stage, bar + j % RING);
+    }
+    it += n_it;
+  }
+}
+
+template <bool SIN, bool PAIR, int NB>
+int launch_persistent_as(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
+  const size_t smem = persistent_smem(g.K, g.H);
+  cudaError_t err = cudaFuncSetAttribute(ens_gemm_persistent_kernel<SIN, PAIR, NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ens_gemm_persistent_kernel<SIN, PAIR, NB><<<n_blocks, NT, smem, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// the instance for K's parity and H's 8-column tiles
+template <bool SIN, bool PAIR>
+int launch_persistent_nb(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
+  switch ((g.H + 7) / 8) {
+    case 1: return launch_persistent_as<SIN, PAIR, 1>(g, n_blocks, stream);
+    case 2: return launch_persistent_as<SIN, PAIR, 2>(g, n_blocks, stream);
+    case 3: return launch_persistent_as<SIN, PAIR, 3>(g, n_blocks, stream);
+    case 4: return launch_persistent_as<SIN, PAIR, 4>(g, n_blocks, stream);
+    case 5: return launch_persistent_as<SIN, PAIR, 5>(g, n_blocks, stream);
+    case 6: return launch_persistent_as<SIN, PAIR, 6>(g, n_blocks, stream);
+    case 7: return launch_persistent_as<SIN, PAIR, 7>(g, n_blocks, stream);
+    default: return launch_persistent_as<SIN, PAIR, 8>(g, n_blocks, stream);
+  }
+}
+
+template <bool SIN>
+int launch_persistent(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
+  return g.K % 2 == 0 ? launch_persistent_nb<SIN, true>(g, n_blocks, stream)
+                      : launch_persistent_nb<SIN, false>(g, n_blocks, stream);
 }
 
 // ------------------------------------------------------------------- P2
@@ -752,12 +1067,12 @@ int pr_ens_gemm(const float* x, const float* w, float* out, int O, int N, int K,
   cudaStream_t st = (cudaStream_t)stream;
   const int key = schedule * 2 + (use_sin ? 1 : 0);
   switch (key) {
-    case 0: return launch_ens<GRID, false>(g, n_blocks, st);
-    case 1: return launch_ens<GRID, true>(g, n_blocks, st);
-    case 2: return launch_ens<OBJTILE, false>(g, n_blocks, st);
-    case 3: return launch_ens<OBJTILE, true>(g, n_blocks, st);
-    case 4: return launch_ens<PERSISTENT, false>(g, n_blocks, st);
-    case 5: return launch_ens<PERSISTENT, true>(g, n_blocks, st);
+    case 0: return launch_ens<GRID, false>(g, st);
+    case 1: return launch_ens<GRID, true>(g, st);
+    case 2: return launch_ens<OBJTILE, false>(g, st);
+    case 3: return launch_ens<OBJTILE, true>(g, st);
+    case 4: return launch_persistent<false>(g, n_blocks, st);
+    case 5: return launch_persistent<true>(g, n_blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

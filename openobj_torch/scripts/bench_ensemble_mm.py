@@ -8,7 +8,8 @@ it measures:
   2-3. the hand-written ensemble GEMM (``csrc/probes.cu`` P1) in its three
      placements: ``grid`` (one block per tile of every object),
      ``objtile`` (8 objects per block) and ``persistent`` (one block per
-     SM walking its objects, cp.async double-buffered);
+     SM walking its objects through a 4-stage ring of bulk copies, 3xTF32
+     tensor-core products);
   4. the launch cost of an empty kernel (P2), launched eagerly from
      Python and inside a CUDA graph.
 

@@ -1,6 +1,7 @@
 """K1 and K2, the fused-field forward and backward of
-openobj_torch/csrc/fused_field.cu, and the part term's dW kernel of
-openobj_torch/csrc/probes.cu, run on the CPU against their plain versions.
+openobj_torch/csrc/fused_field.cu, and the part term's dW kernel and the
+persistent ensemble GEMM of openobj_torch/csrc/probes.cu, run on the CPU
+against their plain versions.
 
 Each CUDA source is compiled by the host C++ compiler with ``STUB`` (below)
 included ahead of it: the stub stands in for the CUDA built-ins and the
@@ -12,7 +13,8 @@ chunks, tiles of several chunks, the clip head on and off, at both widths
 the tensor-core kernels are built for (and K1's SIMT kernel at another
 width). It says nothing of speed or of the card's own rounding;
 ``tests/test_torch_kernels.py`` holds the real kernels to the same plain
-version on a GPU (``tests/test_torch_probe_kernels.py`` for dW).
+version on a GPU (``tests/test_torch_probe_kernels.py`` for dW and the
+ensemble GEMM).
 """
 
 import ctypes
@@ -48,15 +50,26 @@ STUB = r"""
 //  * dynamic shared memory is filled with NaN before each block, so that a
 //    read of memory the kernel never wrote shows in its outputs;
 //  * the device has emu_set_sm_count(n) SMs (132 unless set), so that a test
-//    can make K1's tile rule give tiles of several chunks at small sizes.
+//    can make K1's tile rule give tiles of several chunks at small sizes;
+//  * an mbarrier is 8 bytes of the kernel's shared memory (its transaction
+//    count, pending arrivals, expected arrivals and phase bit), changed
+//    under one lock; a phase completes when no arrival and no byte is
+//    pending, and try_wait.parity blocks the waiting thread until the phase
+//    of that parity has completed. A bulk copy is a memcpy, made when a
+//    thread first waits on its mbarrier (so a read that does not wait sees
+//    the old contents), that then completes its bytes; cp.async is a plain
+//    copy, so the arrival that waits for a thread's cp.asyncs is made at
+//    once.
 // It checks indexing, layouts and synchronisation, not the card's rounding
 // (the tensor cores truncate where this rounds) and not speed.
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __global__
@@ -84,6 +97,7 @@ inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 template <class T> T min(T a, T b) { return a < b ? a : b; }
 template <class T> T max(T a, T b) { return a > b ? a : b; }
 typedef int cudaError_t; typedef void* cudaStream_t;
@@ -138,6 +152,56 @@ inline void cp_async_commit() {}
 template <int N> void cp_async_wait() {}
 inline void cp_async_wait_all() {}
 
+struct EmuBar { int32_t tx; uint16_t pending; uint16_t expected_phase; };   // phase: bit 15
+static_assert(sizeof(EmuBar) == sizeof(uint64_t));
+inline std::mutex g_bar_mu;
+inline std::condition_variable g_bar_cv;
+struct EmuCopy { uint64_t* bar; void* dst; const void* src; unsigned bytes; };
+inline std::vector<EmuCopy> g_copies;   // bulk copies started, not landed yet
+inline EmuBar& emu_bar(uint64_t* bar) { return *reinterpret_cast<EmuBar*>(bar); }
+inline void emu_bar_update(uint64_t* bar, int arrivals, int64_t tx) {   // under the lock
+  EmuBar& m = emu_bar(bar);
+  m.pending -= arrivals;
+  m.tx += (int32_t)tx;
+  if (m.pending == 0 && m.tx == 0) {   // the phase completes
+    m.expected_phase ^= 0x8000;
+    m.pending = m.expected_phase & 0x7fff;
+    g_bar_cv.notify_all();
+  }
+}
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  std::lock_guard<std::mutex> lock(g_bar_mu);
+  emu_bar(bar) = {0, (uint16_t)count, (uint16_t)count};
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(g_bar_mu);
+  emu_bar_update(bar, 1, 0);
+}
+inline void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> lock(g_bar_mu);
+  emu_bar_update(bar, 1, bytes);
+}
+// A bulk copy lands when a thread first waits on its mbarrier, no earlier:
+// a read of the stage that does not wait for it sees the old contents.
+inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  std::lock_guard<std::mutex> lock(g_bar_mu);
+  g_copies.push_back({bar, dst, src, bytes});
+}
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  std::unique_lock<std::mutex> lock(g_bar_mu);
+  for (size_t i = 0; i < g_copies.size();) {
+    const EmuCopy c = g_copies[i];
+    if (c.bar != bar) { ++i; continue; }
+    g_copies.erase(g_copies.begin() + i);
+    std::memcpy(c.dst, c.src, c.bytes);
+    emu_bar_update(bar, 0, -(int64_t)c.bytes);
+  }
+  g_bar_cv.wait(lock, [&] { return (unsigned)(emu_bar(bar).expected_phase >> 15) != parity; });
+}
+inline void cp_async_mbar_arrive(uint64_t* bar) { mbar_arrive(bar); }
+inline void fence_proxy_async() {}
+
 template <class F>
 void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F fn) {
   std::vector<float> mem(smem / 4 + 16, std::nanf(""));   // NaN-filled: catches reads of unset memory
@@ -155,6 +219,7 @@ void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F fn) {
       std::vector<std::thread> th;
       for (int i = 0; i < nt; ++i) th.emplace_back([&, i] { threadIdx = {(unsigned)i, 0, 0}; fn(); });
       for (auto& t : th) t.join();
+      g_copies.clear();   // a copy no thread waited for never lands
     }
   for (auto* b : wb) delete b;
 }
@@ -292,7 +357,31 @@ def emu_probes(tmp_path_factory):
     lib = _emulated(tmp_path_factory, "probes")
     lib.pr_part_dw.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.pr_part_dw.restype = ctypes.c_int
+    lib.pr_ens_gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.pr_ens_gemm.restype = ctypes.c_int
     return lib
+
+
+@pytest.mark.parametrize("sin", [False, True])
+@pytest.mark.parametrize("o,n,k,h,n_blocks", [
+    (4, 200, 16, 8, 1),      # one block walks 16 items: the ring wraps 4 times,
+                             # crosses 3 object boundaries, ragged last tiles
+    (3, 100, 87, 32, 1),     # K = 87 (k >= K masked), every tile 16-byte aligned
+    (3, 130, 13, 48, 2),     # K = 13, H = 48: tiles of odd objects and the 2-row
+                             # tails are unaligned (cp.async), the rest bulk copies
+    (5, 64, 8, 16, 2),       # one tile per object: a new object at every item
+    (2, 1, 4, 1, 5),         # fewer items than blocks; H = 1 (odd: scalar stores)
+])
+def test_emulated_ens_gemm_persistent_matches_plain(emu_probes, sin, o, n, k, h, n_blocks):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((o, n, k)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((o, k, h))).astype(np.float32)
+    out = np.full((o, n, h), np.nan, np.float32)
+    persistent = probes.SCHEDULES.index("persistent")
+    assert emu_probes.pr_ens_gemm(_ptr(x), _ptr(w), _ptr(out), o, n, k, h, persistent,
+                                  int(sin), 1, n_blocks, None) == 0
+    ref = probes.ens_gemm_plain(torch.from_numpy(x), torch.from_numpy(w), sin).numpy()
+    assert float(np.abs(out - ref).max()) <= GEMM_RTOL * float(np.abs(ref).max())
 
 
 @pytest.mark.parametrize("o,r,hp,c", [
@@ -324,3 +413,25 @@ def test_k1_phases_stamps_every_barrier(tmp_path, monkeypatch):
     assert text.count("stamped_syncthreads(7);") == src.read_text().count("__syncthreads();")
     assert text.count("__syncthreads();") == 1          # the barrier inside the stamp
     assert text.index("void stamped_syncthreads(") < text.index("namespace {")
+
+
+def test_ens_gemm_parts_edits_the_persistent_kernel(tmp_path, monkeypatch):
+    """openobj_torch.scripts.ens_gemm_parts builds copies of probes.cu
+    without the persistent kernel's product, without its bulk copies, and
+    without those and two of its three mma.sync."""
+    from openobj_torch import kernels
+    from openobj_torch.scripts import ens_gemm_parts
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    srcs = ens_gemm_parts.part_sources()
+    whole = srcs["whole"].read_text()
+    copies, product = srcs["copies"].read_text(), srcs["product"].read_text()
+    assert srcs["whole"] == CSRC / "probes.cu"
+    assert "persistent_item<SIN, PAIR, NB>(g" in whole
+    assert "persistent_item<SIN, PAIR, NB>(g" not in copies
+    assert whole.count("bulk_copy_g2s(dst, src, bytes, bar);") == 1
+    assert "bulk_copy_g2s(dst, src, bytes, bar);" not in product
+    one = srcs["product_1mma"].read_text()
+    assert one.count("mma_tf32(d, ") == product.count("mma_tf32(d, ") - 2
+    assert "bulk_copy_g2s(dst, src, bytes, bar);" not in one
+    assert all(p.parent == tmp_path / "parts" for k, p in srcs.items() if k != "whole")

@@ -47,7 +47,10 @@ def _randn(gen, shape, device, scale=1.0):
     (3, 64, 13, 48, 4),           # H > 32 (two column passes), odd K
     (2, 1, 4, 1, 1),              # one row, one column, fewer items than blocks
     (3, 9000, 87, 32, 2),         # 423 items: persistent blocks walk 3-4 items
-                                  # across object boundaries, double-buffered
+                                  # across object boundaries
+    (8, 9000, 88, 32, 8),         # 1,128 items: each persistent block walks 8-9,
+                                  # more than its ring's 4 stages
+    (16, 1200, 87, 32, 16),       # the fused-step probe's q1 shape
 ])
 def test_ens_gemm_matches_plain(cuda_device, schedule, sin, o, n, k, h, obj_tile):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
