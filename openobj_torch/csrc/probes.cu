@@ -5,10 +5,12 @@
 //   ens_gemm<GRID>         <- scripts/bench_ensemble_mm.py batched_kernel (:52)
 //                             and, with the sin prologue,
 //                             scripts/bench_fused_step_probe.py
-//                             _batched_dot_kernel (:74)
+//                             _batched_dot_kernel (:74); the kernel
+//                             ens_gemm_tiled_kernel, one object per block
 //   ens_gemm<OBJTILE>      <- bench_ensemble_mm.py tiled_kernel (:79); with
 //                             sin, bench_fused_step_probe.py
-//                             _unrolled_dot_kernel (:82)
+//                             _unrolled_dot_kernel (:82); the same kernel,
+//                             obj_tile objects per block
 //   ens_gemm<PERSISTENT>   <- bench_ensemble_mm.py loop_kernel (:105); the
 //                             kernel ens_gemm_persistent_kernel
 //   launch_nop_kernel      <- bench_ensemble_mm.py nop_kernel (:135)
@@ -21,21 +23,22 @@
 //   part_quad_kernel       <- q5 compile_case body fwd_quadratic_chained (:426)
 //
 // All arithmetic is FP32-accurate, no fast math: FP32 FMA on the SIMT cores,
-// except part_dw_kernel and ens_gemm_persistent_kernel, whose products run on
+// except part_dw_kernel and the ensemble GEMM's two kernels
+// (ens_gemm_persistent_kernel, ens_gemm_tiled_kernel), whose products run on
 // the tensor cores in 3xTF32 (hi/lo TF32 split, three mma.sync per tile, f32
 // sums). The plain PyTorch versions (openobj_torch/ops/probes.py) run in full
 // FP32 and are the reference. Each kernel's note says what bounds it on an
-// H100 and what its design does about that. ens_gemm_persistent_kernel feeds
-// its tiles with Hopper's one-dimensional bulk copy (TMA without a tensor
-// map) into a ring of mbarrier-tracked stages; none of the kernels uses
-// wgmma yet.
+// H100 and what its design does about that. The ensemble GEMM's kernels get
+// their x tiles and weights by Hopper's one-dimensional bulk copy (TMA
+// without a tensor map) into mbarrier-tracked stages; none of the kernels
+// uses wgmma yet.
 //
 // The C entry points return cudaGetLastError() after each launch (or a CUDA
 // error code for an argument the kernel cannot take); the Python wrapper
 // raises if it is not cudaSuccess.
 
 // Without nvcc (tests/test_torch_kernel_emulation.py runs part_dw_kernel and
-// ens_gemm_persistent_kernel on the CPU), a header included ahead of this
+// the ensemble GEMM's kernels on the CPU), a header included ahead of this
 // file stands in for the CUDA runtime and the inline-PTX helpers under
 // `#ifdef __CUDACC__` below.
 #ifdef __CUDACC__
@@ -165,26 +168,12 @@ __device__ inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
-#endif
 
-// Copy `rows` rows of `cols` contiguous floats (row stride `cols` in global
-// memory) into shared memory at row stride `ld`, asynchronously. `vec`: 16-
-// byte copies (cols % 4 == 0, src 16-byte aligned, ld % 4 == 0).
-__device__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
-                           int rows, int cols, bool vec) {
-  if (vec) {
-    const int c4 = cols >> 2;
-    for (int i = threadIdx.x; i < rows * c4; i += NT) {
-      const int r = i / c4, c = (i - r * c4) << 2;
-      cp_async16(dst + r * ld + c, src + (size_t)r * cols + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * cols; i += NT) {
-      const int r = i / cols, c = i - r * cols;
-      cp_async4(dst + r * ld + c, src + (size_t)r * cols + c);
-    }
-  }
+// named barrier `id` (1..15; 0 is __syncthreads') for n threads, whole warps
+__device__ inline void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+#endif
 
 __device__ void zero_cols(float* buf, int ld, int rows, int c0, int c1) {
   const int w = c1 - c0;
@@ -195,7 +184,7 @@ __device__ void zero_cols(float* buf, int ld, int rows, int c0, int c1) {
   }
 }
 
-// Tile product shared by P1 and P4: for the TM rows of `a` (row stride lda,
+// Tile product of P4: for the TM rows of `a` (row stride lda,
 // lda % 4 == 0, columns past the contraction zero-padded up to kp) and the
 // [kp][H] matrix `b` (row stride H), each lane owns column c (then c + 32)
 // and each warp the rows warp, warp + NW, ...; the sum runs over k in order,
@@ -233,9 +222,10 @@ __device__ inline void tile_mm(const float* a, int lda, int kp,
 //
 // Bound: bytes. At the ensemble probe's shape (O=64, N=1200, K=88, H=32)
 // the product is 0.43 GFLOP against 37.6 MB moved: 11 FLOP per byte, under
-// the card's FP32 ratio (20). Each input element is read from device memory
-// once (x by exactly one block, w[o] by the few blocks of object o, through
-// L2) and each output written once, coalesced.
+// the card's FP32 ratio (20); its 3xTF32 work, 1.3 GFLOP, is 2.6 us at the
+// dense TF32 rate, under a quarter of the 11.2 us bytes bound. Each input
+// element is read from device memory once (x by exactly one block, w[o] by
+// the blocks of object o, through L2) and each output written once.
 //
 // The three schedules are three placements of the same function:
 //  GRID       one block per (64-row tile, object): every tile of the whole
@@ -245,11 +235,15 @@ __device__ inline void tile_mm(const float* a, int lda, int kp,
 //             walking its objects in turn: the TPU's object-tiled grid;
 //  PERSISTENT one block per SM, each walking a contiguous run of (object,
 //             tile) items through a ring of asynchronous copies: the TPU's
-//             per-object loop with a DMA into scratch (its own kernel,
-//             ens_gemm_persistent_kernel, below).
+//             per-object loop with a DMA into scratch.
 // Which placement fills 132 SMs best at O=16 and O=64 is what the probe
-// measures. GRID and OBJTILE run the SIMT tile product above; shared memory
-// per stage: x tile [64][round4(K)] and w [round4(K)][H], pad columns zero.
+// measures. PERSISTENT is ens_gemm_persistent_kernel; GRID and OBJTILE are
+// ens_gemm_tiled_kernel, launched on their own grids (its note below). All
+// three share their building blocks: a range of x or w comes by one bulk
+// copy on an mbarrier (start_copy), w[o] is split once into hi/lo TF32 B
+// fragments in shared memory (split_weights), and each warp multiplies 16
+// rows of a tile by all of H in 3xTF32 mma.sync and stores C as float2
+// (gemm_item).
 
 enum Schedule { GRID = 0, OBJTILE = 1, PERSISTENT = 2 };
 
@@ -257,76 +251,10 @@ struct GemmArgs {
   const float* x;
   const float* w;
   float* out;
-  int O, N, K, H, kp, tiles, obj_tile;
-  bool vec_x, vec_w;
+  int O, N, K, H, obj_tile;
+  int tiles;        // PERSISTENT: 64-row tiles per object
+  int tiled_rows;   // GRID, OBJTILE: rows per tile of the tiled kernel
 };
-
-__device__ inline void stage_item(const GemmArgs& g, int o, int r0, float* xs,
-                                  float* ws, bool load_w) {
-  const int nv = min(TM, g.N - r0);
-  stage_rows(xs, g.kp, g.x + ((size_t)o * g.N + r0) * g.K, nv, g.K, g.vec_x);
-  if (load_w) stage_rows(ws, g.H, g.w + (size_t)o * g.K * g.H, 1, g.K * g.H, g.vec_w);
-}
-
-template <bool SIN>
-__device__ inline void finish_item(const GemmArgs& g, int o, int r0, float* xs,
-                                   const float* ws) {
-  const int nv = min(TM, g.N - r0);
-  if (SIN) {
-    for (int i = threadIdx.x; i < nv * g.K; i += NT) {
-      const int r = i / g.K;
-      float* p = xs + r * g.kp + (i - r * g.K);
-      *p = sinf(*p);
-    }
-    __syncthreads();
-  }
-  float* out = g.out + ((size_t)o * g.N + r0) * g.H;
-  const int H = g.H;
-  tile_mm(xs, g.kp, g.kp, ws, H, [&](int r, int c, float v) {
-    if (r < nv) out[r * H + c] = v;
-  });
-}
-
-__device__ inline void init_pads(const GemmArgs& g, float* xs, float* ws) {
-  zero_cols(xs, g.kp, TM, g.K, g.kp);
-  zero_cols(ws + g.K * g.H, g.H, g.kp - g.K, 0, g.H);
-}
-
-// GRID and OBJTILE
-template <int SCHED, bool SIN>
-__global__ void __launch_bounds__(NT) ens_gemm_kernel(GemmArgs g) {
-  static_assert(SCHED == GRID || SCHED == OBJTILE, "PERSISTENT has its own kernel");
-  extern __shared__ __align__(16) float sm[];
-  float* xs = sm;
-  float* ws = sm + TM * g.kp;
-  init_pads(g, xs, ws);
-
-  const int r0 = blockIdx.x * TM;
-  const int o0 = SCHED == GRID ? blockIdx.y : blockIdx.y * g.obj_tile;
-  const int o1 = SCHED == GRID ? o0 + 1 : min(g.O, o0 + g.obj_tile);
-  for (int o = o0; o < o1; ++o) {
-    stage_item(g, o, r0, xs, ws, true);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    finish_item<SIN>(g, o, r0, xs, ws);
-    __syncthreads();
-  }
-}
-
-template <int SCHED, bool SIN>
-int launch_ens(const GemmArgs& g, cudaStream_t stream) {
-  const int stage = TM * g.kp + g.kp * g.H;
-  const size_t smem = sizeof(float) * stage;
-  cudaError_t err = cudaFuncSetAttribute(
-      ens_gemm_kernel<SCHED, SIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid;
-  if (SCHED == GRID) grid = dim3(g.tiles, g.O);
-  else grid = dim3(g.tiles, (g.O + g.obj_tile - 1) / g.obj_tile);
-  ens_gemm_kernel<SCHED, SIN><<<grid, NT, smem, stream>>>(g);
-  return (int)cudaGetLastError();
-}
 
 // PERSISTENT, on the tensor cores.
 //
@@ -366,21 +294,24 @@ int launch_ens(const GemmArgs& g, cudaStream_t stream) {
 //    K = 128, H = 64 (64 KB each); the staged copy (32 KB at most) does,
 //    and the split from shared memory takes a fraction of an item.
 //  * The product is 3xTF32 mma.sync.m16n8k8 (al.bh + ah.bl + ah.bh per
-//    8-deep step, summed from zero and added to the f32 accumulators):
-//    FP32-accurate. No branch separates the NB column tiles' chains of
-//    three dependent mma.sync (NB is a template parameter): with one, the
-//    compiler ran the chains one after another, and on an H100 the product
-//    was bound by their latency. Within a step, fragment columns t
+//    8-deep step; the small products in accumulators of their own, added
+//    to the large one's after the last step, so that no add stands between
+//    the mma.sync): FP32-accurate. No branch separates the NB column tiles'
+//    chains of three dependent mma.sync (NB is a template parameter): with
+//    one, the compiler ran the chains one after another, and on an H100 the
+//    product was bound by their latency. The k-loop is unrolled by 4 (by 1
+//    with sin, whose sinf calls leave the chains company enough), the best
+//    on an H100 at the probe's shapes. Within a step, fragment columns t
 //    and t + 4 hold k = 2t and 2t + 1 (B's rows are stored in the same
 //    order), so that with K even a lane reads both with one 64-bit load.
-//    A's hi part is rounded to TF32 with an integer add and mask (cvt.rna
-//    takes seven instructions on sm_90a), and its lo part is passed as it
-//    is (the tensor core reads its top 19 bits): |lo| <= 2^-11 |a|, so the
-//    dropped bits are 2^-21 |a|, as with a rounded lo. k >= K is masked to
-//    0 before sinf and the split in the last step: in the unpadded layout
-//    column K of a row is the next row's column 0, and past the tile's
-//    last row shared memory holds stale or unwritten values (NaN . 0 is
-//    NaN).
+//    The hi parts of A and w are rounded to TF32 with an integer add and
+//    mask (cvt.rna takes seven instructions on sm_90a), and their lo parts
+//    are passed as they are (the tensor core reads their top 19 bits):
+//    |lo| <= 2^-11 |a|, so the dropped bits are 2^-21 |a|, as with a
+//    rounded lo. k >= K is masked to 0 before sinf and the split in the
+//    last step: in the unpadded layout column K of a row is the next row's
+//    column 0, and past the tile's last row shared memory holds stale or
+//    unwritten values (NaN . 0 is NaN).
 //  * C fragments go straight to global memory as float2 (row g, columns
 //    2t, 2t + 1: whole 32-byte sectors per warp store), rows >= N and
 //    columns >= H masked.
@@ -402,12 +333,13 @@ size_t persistent_smem(int K, int H) {
          sizeof(float) * (RING * TM * K + ((K * H + 3) & ~3)) + sizeof(uint64_t) * (RING + 1);
 }
 
-// Every thread: start copying n floats from src to dst, to complete one
-// phase of `bar`.
-__device__ inline void start_copy(float* dst, const float* src, int n, uint64_t* bar) {
+// Each of the nth threads that share `bar` (tid = 0 .. nth - 1): start
+// copying n floats from src to dst, one arrival on `bar` each.
+__device__ inline void start_copy(float* dst, const float* src, int n, uint64_t* bar, int tid,
+                                  int nth) {
   const unsigned bytes = 4u * n;
   if (((uintptr_t)src & 15) == 0 && bytes % 16 == 0) {
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
       fence_proxy_async();
       mbar_arrive_expect_tx(bar, bytes);
       bulk_copy_g2s(dst, src, bytes, bar);
@@ -415,34 +347,15 @@ __device__ inline void start_copy(float* dst, const float* src, int n, uint64_t*
       mbar_arrive(bar);
     }
   } else {
-    for (int i = threadIdx.x; i < n; i += NT) cp_async4(dst + i, src + i);
+    for (int i = tid; i < n; i += nth) cp_async4(dst + i, src + i);
     cp_async_mbar_arrive(bar);
   }
 }
 
 __device__ inline void start_tile(const GemmArgs& g, int item, float* dst, uint64_t* bar) {
   const int o = item / g.tiles, r0 = (item - o * g.tiles) * TM;
-  start_copy(dst, g.x + ((size_t)o * g.N + r0) * g.K, min(TM, g.N - r0) * g.K, bar);
-}
-
-// The staged w[o] ([K][H] at `wr`) into split B fragments: warp by warp, a
-// (k-step, n-tile) pair, each lane b0 = w[8 ks + 2t][8 nt + g] and b1 = the
-// next row, stored as {b0 hi, b1 hi, b0 lo, b1 lo} with one 128-bit store.
-__device__ inline void split_weights(const GemmArgs& g, const float* wr, uint4* wf, int nks,
-                                     int nb) {
-  const int lane = threadIdx.x & 31;
-  const int k = 2 * (lane & 3), h = lane >> 2;
-  for (int p = threadIdx.x >> 5; p < nks * nb; p += NW) {
-    const int ks = p / nb, nt = p - ks * nb;
-    const int kk = 8 * ks + k, hh = 8 * nt + h;
-    const bool ok = hh < g.H;
-    const float v0 = ok && kk < g.K ? wr[kk * g.H + hh] : 0.0f;
-    const float v1 = ok && kk + 1 < g.K ? wr[(kk + 1) * g.H + hh] : 0.0f;
-    uint4 f;
-    split(v0, f.x, f.z);
-    split(v1, f.y, f.w);
-    wf[p * 32 + lane] = f;
-  }
+  start_copy(dst, g.x + ((size_t)o * g.N + r0) * g.K, min(TM, g.N - r0) * g.K, bar,
+             threadIdx.x, NT);
 }
 
 // a = hi + lo, hi rounded to TF32 (to nearest, ties away, for finite a),
@@ -452,11 +365,35 @@ __device__ inline void split_a(float a, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(a - __uint_as_float(hi));
 }
 
+// The staged w[o] ([K][H] at `wr`) into split B fragments, by nth threads
+// (tid = 0 .. nth - 1): warp by warp, a (k-step, n-tile) pair, each lane
+// b0 = w[8 ks + 2t][8 nt + g] and b1 = the next row, stored as
+// {b0 hi, b1 hi, b0 lo, b1 lo} with one 128-bit store, split as A is
+// (split_a); zero past K and H.
+__device__ inline void split_weights(const GemmArgs& g, const float* wr, uint4* wf, int nks,
+                                     int nb, int tid, int nth) {
+  const int lane = tid & 31;
+  const int k = 2 * (lane & 3), h = lane >> 2;
+  for (int p = tid >> 5; p < nks * nb; p += nth >> 5) {
+    const int ks = p / nb, nt = p - ks * nb;
+    const int kk = 8 * ks + k, hh = 8 * nt + h;
+    const bool ok = hh < g.H;
+    const float v0 = ok && kk < g.K ? wr[kk * g.H + hh] : 0.0f;
+    const float v1 = ok && kk + 1 < g.K ? wr[(kk + 1) * g.H + hh] : 0.0f;
+    uint4 f;
+    split_a(v0, f.x, f.z);
+    split_a(v1, f.y, f.w);
+    wf[p * 32 + lane] = f;
+  }
+}
+
 // One 8-deep step of this warp's NB tiles: a[] = A[g][2t], A[g+8][2t],
 // A[g][2t+1], A[g+8][2t+1]; bf = the step's first fragment. No branch: the
-// NB chains of three dependent mma.sync interleave.
+// NB chains of three dependent mma.sync interleave. The small products
+// (al.bh, ah.bl) accumulate in c[NB + j] and the large (ah.bh) in c[j], with
+// no sums between the mma.sync.
 template <bool SIN, int NB>
-__device__ inline void mma_step(float (&a)[4], const uint4* bf, float (&c)[NB][4]) {
+__device__ inline void mma_step(float (&a)[4], const uint4* bf, float (&c)[2 * NB][4]) {
   uint32_t ah[4], al[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) split_a(SIN ? sinf(a[i]) : a[i], ah[i], al[i]);
@@ -464,37 +401,29 @@ __device__ inline void mma_step(float (&a)[4], const uint4* bf, float (&c)[NB][4
   for (int j = 0; j < NB; ++j) {
     const uint4 u = bf[j * 32];
     const uint32_t bh[2] = {u.x, u.y}, bl[2] = {u.z, u.w};
-    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    mma_tf32(d, al, bh);
-    mma_tf32(d, ah, bl);
-    mma_tf32(d, ah, bh);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] += d[i];
+    mma_tf32(c[NB + j], al, bh);
+    mma_tf32(c[NB + j], ah, bl);
+    mma_tf32(c[j], ah, bh);
   }
 }
 
-// This warp's 16 rows of out[r0:r0+nv] = f(x tile) . w[o], all NB 8-column
-// tiles of H. PAIR: K is even, so a lane's two values of a row in a step
-// are one aligned 64-bit load.
-template <bool SIN, bool PAIR, int NB>
-__device__ inline void persistent_item(const GemmArgs& g, const float* xs, const uint4* wf,
-                                       int nks, float* out, int nv) {
+// This warp's 16 rows m0 .. m0 + 15 of out[r0:r0+nv] = f(x tile) . w[o],
+// all NB 8-column tiles of H. PAIR: K is even, so a lane's two values of a
+// row in a step are one aligned 64-bit load. UNROLL k-steps unrolled.
+template <bool SIN, bool PAIR, int NB, int UNROLL>
+__device__ inline void gemm_item(const GemmArgs& g, const float* xs, const uint4* wf, int nks,
+                                 float* out, int nv, int m0) {
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, t = lane & 3;
-  const int m0 = 16 * ((threadIdx.x >> 5) & 3);
   const int K = g.K;
   const float* x0 = xs + (m0 + gq) * K + 2 * t;   // row g, k = 2t; row g + 8 is 8 K on
   const uint4* bf = wf + lane;
-  float c[NB][4];
+  float c[2 * NB][4];
 #pragma unroll
-  for (int j = 0; j < NB; ++j)
+  for (int j = 0; j < 2 * NB; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[j][i] = 0.0f;
   const int kfull = K >> 3;                // steps with every k < K
-  // unrolled as measured best on an H100 at the probe's shapes (K = 88; with
-  // sin, K = 87): 4 steps interleave their chains; with sin, the sinf calls
-  // leave the chains enough company
-  constexpr int UNROLL = SIN ? 1 : 4;
 #pragma unroll UNROLL
   for (int ks = 0; ks < kfull; ++ks) {
     const float* p = x0 + 8 * ks;
@@ -515,6 +444,10 @@ __device__ inline void persistent_item(const GemmArgs& g, const float* xs, const
                   k + 1 < K ? p[1] : 0.0f, k + 1 < K ? p[8 * K + 1] : 0.0f};
     mma_step<SIN, NB>(a, bf + kfull * NB * 32, c);
   }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] += c[NB + j][i];
   const int H = g.H;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
@@ -554,7 +487,7 @@ __global__ void __launch_bounds__(NT, 1) ens_gemm_persistent_kernel(GemmArgs g) 
   }
   __syncthreads();
   const int olast = (i1 - 1) / g.tiles;
-  start_copy(wr, g.w + (size_t)(i0 / g.tiles) * wn, wn, wbar);
+  start_copy(wr, g.w + (size_t)(i0 / g.tiles) * wn, wn, wbar, threadIdx.x, NT);
   for (int j = 0; j < RING && i0 + j < i1; ++j) start_tile(g, i0 + j, xs + j * stage, bar + j);
 
   const int grp = threadIdx.x >> 7;   // warps 0-3 take the first item of a pair, 4-7 the second
@@ -564,9 +497,9 @@ __global__ void __launch_bounds__(NT, 1) ens_gemm_persistent_kernel(GemmArgs g) 
     if (o != wobj) {                  // wf and wr are free: the last pair ended in a barrier
       mbar_wait(wbar, wphase);
       wphase ^= 1;
-      split_weights(g, wr, wf, nks, NB);
+      split_weights(g, wr, wf, nks, NB, threadIdx.x, NT);
       __syncthreads();
-      if (o < olast) start_copy(wr, g.w + (size_t)(o + 1) * wn, wn, wbar);
+      if (o < olast) start_copy(wr, g.w + (size_t)(o + 1) * wn, wn, wbar, threadIdx.x, NT);
       wobj = o;
     }
     // items it and it + 1 when both are of object o, else it alone
@@ -574,8 +507,9 @@ __global__ void __launch_bounds__(NT, 1) ens_gemm_persistent_kernel(GemmArgs g) 
     if (grp < n_it) {
       const int j = it + grp - i0, r0 = (it + grp - o * g.tiles) * TM;
       mbar_wait(bar + j % RING, (j / RING) & 1);
-      persistent_item<SIN, PAIR, NB>(g, xs + (j % RING) * stage, wf, nks,
-                                     g.out + ((size_t)o * g.N + r0) * g.H, min(TM, g.N - r0));
+      gemm_item<SIN, PAIR, NB, SIN ? 1 : 4>(g, xs + (j % RING) * stage, wf, nks,
+                                            g.out + ((size_t)o * g.N + r0) * g.H,
+                                            min(TM, g.N - r0), 16 * ((threadIdx.x >> 5) & 3));
     }
     __syncthreads();   // every warp is done with the pair's stages (and with wf)
     for (int q = 0; q < n_it; ++q) {
@@ -586,35 +520,182 @@ __global__ void __launch_bounds__(NT, 1) ens_gemm_persistent_kernel(GemmArgs g) 
   }
 }
 
-template <bool SIN, bool PAIR, int NB>
-int launch_persistent_as(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
-  const size_t smem = persistent_smem(g.K, g.H);
-  cudaError_t err = cudaFuncSetAttribute(ens_gemm_persistent_kernel<SIN, PAIR, NB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ens_gemm_persistent_kernel<SIN, PAIR, NB><<<n_blocks, NT, smem, stream>>>(g);
-  return (int)cudaGetLastError();
+// GRID and OBJTILE, on the tensor cores: ens_gemm_tiled_kernel.
+//
+// Block (i, j) takes row tile i of objects j*ot .. j*ot + ot - 1, with
+// ot = 1 for GRID and ot = obj_tile for OBJTILE. A tile is 64 or 128 rows
+// (choose_tiled_rows, below) and a warp group a warp per 16 of them. Each group
+// owns one stage in shared memory (x tile [rows][K] and w[o] [K][H],
+// unpadded, each one contiguous range with its own mbarrier) and one buffer
+// of w[o]'s split B fragments; with two groups, the first takes the block's
+// objects 0, 2, 4, ... and the second 1, 3, 5, ..., so the block's ring of
+// two stages is filled two objects ahead. Per object a group waits for
+// w[o], splits it once into B fragments (split_weights; in K1, splitting
+// per use cost as much as the product) while x's tile may still be landing,
+// starts the copy of its next object's w (it lands behind the product),
+// waits for x, multiplies (gemm_item), and once its warps are done with the
+// stage (a named barrier of the group's threads) starts its next x tile.
+// Every copy is start_copy's: one bulk copy, or 4-byte cp.asyncs where a
+// range is not 16-byte aligned. The groups never wait for each other.
+//
+// Bound: bytes at the probe's shapes, as above; measured on an H100
+// (scripts/ens_gemm_parts.py), the product side (the weight splits,
+// mma.sync, stores), not the copies, takes the time, and the splits are a
+// fifth to a quarter of it (PERF.md). So a 128-row tile, which splits each w[o] once for
+// twice the rows, is taken wherever it puts no more rows on the busiest SM
+// than 64-row tiles would: at the ensemble probe's shape, GRID's 640 blocks
+// (5 a SM, against 10 of 64 rows) and OBJTILE's 80 (one a SM, against 2 of
+// 64 rows on 20 SMs, the same rows with half the splits). With O = 16
+// (q1) it takes 64 rows. Copy latency hides behind other resident warps,
+// not behind a deeper ring: one group's shared memory at K = 88, H = 32 is
+// 77.0 KB at 128 rows (x 44.0, w 11.0, fragments 22.0) and 55.0 KB at 64,
+// so GRID keeps 2 or 4 blocks, 16 warps, on an SM (twice the persistent
+// kernel's 8), and OBJTILE with two groups 1 or 2 blocks, all its blocks
+// resident. Every block needs at most 128 registers a thread: the
+// two-group launch has 512 threads, and the one-group launches' resident
+// blocks (2 of 256 threads, 4 of 128) need the same cap. So the kernel is
+// built with __launch_bounds__(512, 1), and gemm_item runs with the k-loop
+// unrolled by 2 (by 1 with sin), the best on an H100 under that cap. At
+// H = 64 without sin (NB = 8, a width no probe times) ptxas spills 20
+// bytes under it; a looser bound would need a second instance kept from
+// the two-group launch. OBJTILE takes one group per block where two do
+// not fit in a block's 227 KB (K = 128, H = 64: 160.0 KB a group at 128
+// rows), GRID always one; every shape that pr_ens_gemm accepts fits one
+// group.
+
+constexpr size_t SMEM_MAX = 232448;    // dynamic shared memory a block may opt into (sm_90a)
+
+// floats of one warp group's stage (rows of x, w) and fragment buffer
+__host__ __device__ inline int group_floats(int rows, int K, int H) {
+  return rows * K + round4(K * H) + (K + 7) / 8 * ((H + 7) / 8) * 32 * 4;
 }
 
-// the instance for K's parity and H's 8-column tiles
-template <bool SIN, bool PAIR>
-int launch_persistent_nb(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
-  switch ((g.H + 7) / 8) {
-    case 1: return launch_persistent_as<SIN, PAIR, 1>(g, n_blocks, stream);
-    case 2: return launch_persistent_as<SIN, PAIR, 2>(g, n_blocks, stream);
-    case 3: return launch_persistent_as<SIN, PAIR, 3>(g, n_blocks, stream);
-    case 4: return launch_persistent_as<SIN, PAIR, 4>(g, n_blocks, stream);
-    case 5: return launch_persistent_as<SIN, PAIR, 5>(g, n_blocks, stream);
-    case 6: return launch_persistent_as<SIN, PAIR, 6>(g, n_blocks, stream);
-    case 7: return launch_persistent_as<SIN, PAIR, 7>(g, n_blocks, stream);
-    default: return launch_persistent_as<SIN, PAIR, 8>(g, n_blocks, stream);
+size_t tiled_smem(int rows, int K, int H, int groups) {
+  return sizeof(float) * groups * group_floats(rows, K, H) + 2 * sizeof(uint64_t) * groups;
+}
+
+template <bool SIN, bool PAIR, int NB>
+__global__ void __launch_bounds__(512, 1) ens_gemm_tiled_kernel(GemmArgs g) {
+  extern __shared__ __align__(16) float sm[];
+  const int rows = g.tiled_rows, gt = 2 * rows;                // a warp per 16 rows
+  const int groups = blockDim.x / gt, grp = threadIdx.x / gt, tid = threadIdx.x % gt;
+  const int nks = (g.K + 7) / 8, wn = g.K * g.H;
+  const int gf = group_floats(rows, g.K, g.H);
+  float* xs = sm + grp * gf;                                    // x tile [rows][K]
+  float* ws = xs + rows * g.K;                                  // w [K][H]
+  uint4* wf = reinterpret_cast<uint4*>(ws + round4(wn));        // [nks][NB][32]
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(sm + groups * gf) + 2 * grp;
+  uint64_t* wbar = xbar + 1;
+  if (tid == 0) {
+    mbar_init(xbar, gt);
+    mbar_init(wbar, gt);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int r0 = blockIdx.x * rows, nv = min(rows, g.N - r0);
+  const int o1 = min(g.O, (int)(blockIdx.y + 1) * g.obj_tile);
+  const float* x = g.x + (size_t)r0 * g.K;                      // x[o] at x + o N K
+  int o = blockIdx.y * g.obj_tile + grp;
+  if (o < o1) {
+    start_copy(ws, g.w + (size_t)o * wn, wn, wbar, tid, gt);
+    start_copy(xs, x + (size_t)o * g.N * g.K, nv * g.K, xbar, tid, gt);
+  }
+  for (unsigned phase = 0; o < o1; o += groups, phase ^= 1) {
+    const bool more = o + groups < o1;
+    mbar_wait(wbar, phase);
+    split_weights(g, ws, wf, nks, NB, tid, gt);
+    named_sync(1 + grp, gt);   // wf is whole, and ws free for the next object's w
+    if (more) start_copy(ws, g.w + (size_t)(o + groups) * wn, wn, wbar, tid, gt);
+    mbar_wait(xbar, phase);
+    gemm_item<SIN, PAIR, NB, SIN ? 1 : 2>(g, xs, wf, nks, g.out + ((size_t)o * g.N + r0) * g.H,
+                                          nv, 16 * (tid >> 5));
+    if (more) {
+      named_sync(1 + grp, gt);   // the group's warps are done with xs and wf
+      start_copy(xs, x + (size_t)(o + groups) * g.N * g.K, nv * g.K, xbar, tid, gt);
+    }
   }
 }
 
-template <bool SIN>
-int launch_persistent(const GemmArgs& g, int n_blocks, cudaStream_t stream) {
-  return g.K % 2 == 0 ? launch_persistent_nb<SIN, true>(g, n_blocks, stream)
-                      : launch_persistent_nb<SIN, false>(g, n_blocks, stream);
+// ------------------------------------------------------- P1's launches
+
+using GemmKernel = void (*)(GemmArgs);
+
+template <bool SIN, bool PAIR, int NB>
+GemmKernel instance(int schedule) {
+  return schedule == PERSISTENT ? ens_gemm_persistent_kernel<SIN, PAIR, NB>
+                                : ens_gemm_tiled_kernel<SIN, PAIR, NB>;
+}
+
+// the instance for a schedule, K's parity and H's 8-column tiles
+template <bool SIN, bool PAIR>
+GemmKernel instance_nb(int schedule, int H) {
+  switch ((H + 7) / 8) {
+    case 1: return instance<SIN, PAIR, 1>(schedule);
+    case 2: return instance<SIN, PAIR, 2>(schedule);
+    case 3: return instance<SIN, PAIR, 3>(schedule);
+    case 4: return instance<SIN, PAIR, 4>(schedule);
+    case 5: return instance<SIN, PAIR, 5>(schedule);
+    case 6: return instance<SIN, PAIR, 6>(schedule);
+    case 7: return instance<SIN, PAIR, 7>(schedule);
+    default: return instance<SIN, PAIR, 8>(schedule);
+  }
+}
+
+struct GemmLaunch {
+  GemmKernel kernel;
+  dim3 grid;
+  int threads;
+  size_t smem;   // dynamic shared memory, bytes
+};
+
+// The tiled kernel's rows per tile: 128 (8 warps a group) unless that puts
+// more rows of x on the busiest SM than 64 (4 warps a group) would; a 128-row
+// tile splits each w[o] once for twice the rows.
+int choose_tiled_rows(int N, int O, int ot) {
+  int dev = 0, n_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const long groups = (O + ot - 1) / ot, per_block = min(ot, O);
+  auto busiest = [&](int rows) {
+    const long blocks = (N + rows - 1) / rows * groups;
+    return (blocks + n_sm - 1) / n_sm * per_block * rows;
+  };
+  return busiest(128) <= busiest(64) ? 128 : 64;
+}
+
+// P1's arguments checked, GemmArgs filled (obj_tile 1 for GRID), the launch
+// pr_ens_gemm makes for them chosen and its dynamic shared memory opted
+// into: cudaSuccess, or the CUDA error code with which pr_ens_gemm refuses
+// them (cudaErrorInvalidValue where the layout does not fit).
+int gemm_setup(GemmArgs& g, GemmLaunch& l, const float* x, const float* w, float* out, int O,
+               int N, int K, int H, int schedule, bool sin, int obj_tile, int n_blocks) {
+  if (O < 1 || N < 1 || K < 1 || K > 128 || H < 1 || H > 64 || obj_tile < 1 ||
+      n_blocks < 1 || schedule < GRID || schedule > PERSISTENT)
+    return (int)cudaErrorInvalidValue;
+  g.x = x; g.w = w; g.out = out;
+  g.O = O; g.N = N; g.K = K; g.H = H;
+  g.obj_tile = schedule == GRID ? 1 : obj_tile;
+  g.tiles = g.tiled_rows = 0;
+  const bool pair = K % 2 == 0;
+  l.kernel = sin ? (pair ? instance_nb<true, true>(schedule, H)
+                         : instance_nb<true, false>(schedule, H))
+                 : (pair ? instance_nb<false, true>(schedule, H)
+                         : instance_nb<false, false>(schedule, H));
+  if (schedule == PERSISTENT) {
+    g.tiles = (N + TM - 1) / TM;
+    l.grid = dim3(n_blocks);
+    l.threads = NT;
+    l.smem = persistent_smem(K, H);
+  } else {
+    const int rows = g.tiled_rows = choose_tiled_rows(N, O, g.obj_tile);
+    const int groups = g.obj_tile >= 2 && tiled_smem(rows, K, H, 2) <= SMEM_MAX ? 2 : 1;
+    l.grid = dim3((N + rows - 1) / rows, (O + g.obj_tile - 1) / g.obj_tile);
+    l.threads = groups * 2 * rows;
+    l.smem = tiled_smem(rows, K, H, groups);
+  }
+  if (l.smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)l.smem);
 }
 
 // ------------------------------------------------------------------- P2
@@ -1053,28 +1134,30 @@ extern "C" {
 int pr_ens_gemm(const float* x, const float* w, float* out, int O, int N, int K,
                 int H, int schedule, int use_sin, int obj_tile, int n_blocks,
                 void* stream) {
-  if (O < 1 || N < 1 || K < 1 || K > 128 || H < 1 || H > 64 || obj_tile < 1 ||
-      n_blocks < 1)
-    return (int)cudaErrorInvalidValue;
   GemmArgs g;
-  g.x = x; g.w = w; g.out = out;
-  g.O = O; g.N = N; g.K = K; g.H = H;
-  g.kp = round4(K);
-  g.tiles = (N + TM - 1) / TM;
-  g.obj_tile = obj_tile;
-  g.vec_x = K % 4 == 0 && aligned16(x);
-  g.vec_w = (K * H) % 4 == 0 && aligned16(w);
-  cudaStream_t st = (cudaStream_t)stream;
-  const int key = schedule * 2 + (use_sin ? 1 : 0);
-  switch (key) {
-    case 0: return launch_ens<GRID, false>(g, st);
-    case 1: return launch_ens<GRID, true>(g, st);
-    case 2: return launch_ens<OBJTILE, false>(g, st);
-    case 3: return launch_ens<OBJTILE, true>(g, st);
-    case 4: return launch_persistent<false>(g, n_blocks, st);
-    case 5: return launch_persistent<true>(g, n_blocks, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  GemmLaunch l;
+  const int err = gemm_setup(g, l, x, w, out, O, N, K, H, schedule, use_sin != 0, obj_tile,
+                             n_blocks);
+  if (err != cudaSuccess) return err;
+  const GemmKernel kernel = l.kernel;
+  kernel<<<l.grid, l.threads, l.smem, (cudaStream_t)stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// The launch pr_ens_gemm makes for these arguments, without making it:
+// out[0..3] = its blocks resident per SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), threads per block, dynamic shared memory in bytes, blocks.
+int pr_ens_gemm_occupancy(int O, int N, int K, int H, int schedule, int use_sin,
+                          int obj_tile, int n_blocks, int* out) {
+  GemmArgs g;
+  GemmLaunch l;
+  const int err = gemm_setup(g, l, nullptr, nullptr, nullptr, O, N, K, H, schedule,
+                             use_sin != 0, obj_tile, n_blocks);
+  if (err != cudaSuccess) return err;
+  out[1] = l.threads;
+  out[2] = (int)l.smem;
+  out[3] = (int)(l.grid.x * l.grid.y);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, l.kernel, l.threads, l.smem);
 }
 
 int pr_launch_nop(const float* x, float* y, int n, void* stream) {

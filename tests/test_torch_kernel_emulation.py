@@ -1,6 +1,6 @@
 """K1 and K2, the fused-field forward and backward of
 openobj_torch/csrc/fused_field.cu, and the part term's dW kernel and the
-persistent ensemble GEMM of openobj_torch/csrc/probes.cu, run on the CPU
+ensemble GEMM's kernels of openobj_torch/csrc/probes.cu, run on the CPU
 against their plain versions.
 
 Each CUDA source is compiled by the host C++ compiler with ``STUB`` (below)
@@ -39,7 +39,9 @@ GEMM_RTOL = 1e-5     # as tests/test_torch_probe_kernels.py
 # What the CUDA source needs from the CUDA runtime and from its inline-PTX
 # helpers, for a host C++20 compiler:
 STUB = r"""
-//  * each block's threads are std::threads, __syncthreads a std::barrier;
+//  * each block's threads are std::threads, __syncthreads a std::barrier,
+//    and each named barrier (bar.sync id, n) a std::barrier of n made at
+//    its first use in a block;
 //  * mma.sync m16n8k8 (tf32 operands, f32 accumulator) and __shfl_sync are
 //    warp-wide exchanges through a std::barrier of 32 threads, mma computed
 //    from the PTX
@@ -91,9 +93,20 @@ inline dim3 gridDim, blockDim;
 inline float* g_smem;
 inline std::barrier<>* g_block_bar;
 inline std::barrier<>* g_warp_bar[32];
+inline std::mutex g_named_mu;
+inline std::barrier<>* g_named_bar[16];
 struct WarpRegs { uint32_t a[32][4], b[32][2]; float f[32]; };
 inline WarpRegs g_wr[32];
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+inline void named_sync(int id, int n) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(g_named_mu);
+    if (!g_named_bar[id]) g_named_bar[id] = new std::barrier<>(n);
+    b = g_named_bar[id];
+  }
+  b->arrive_and_wait();
+}
 inline float __ldg(const float* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
@@ -104,6 +117,10 @@ typedef int cudaError_t; typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
        cudaDevAttrMultiProcessorCount = 16 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 0;   // not known without the card
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 inline int g_sm_count = 132;
 extern "C" void emu_set_sm_count(int n) { g_sm_count = n; }
@@ -219,6 +236,7 @@ void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F fn) {
       std::vector<std::thread> th;
       for (int i = 0; i < nt; ++i) th.emplace_back([&, i] { threadIdx = {(unsigned)i, 0, 0}; fn(); });
       for (auto& t : th) t.join();
+      for (auto*& b : g_named_bar) { delete b; b = nullptr; }
       g_copies.clear();   // a copy no thread waited for never lands
     }
   for (auto* b : wb) delete b;
@@ -359,29 +377,80 @@ def emu_probes(tmp_path_factory):
     lib.pr_part_dw.restype = ctypes.c_int
     lib.pr_ens_gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.pr_ens_gemm.restype = ctypes.c_int
+    lib.pr_ens_gemm_occupancy.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.pr_ens_gemm_occupancy.restype = ctypes.c_int
+    lib.emu_set_sm_count.argtypes = [ctypes.c_int]
     return lib
 
 
+@pytest.mark.parametrize("schedule", probes.SCHEDULES)
 @pytest.mark.parametrize("sin", [False, True])
-@pytest.mark.parametrize("o,n,k,h,n_blocks", [
-    (4, 200, 16, 8, 1),      # one block walks 16 items: the ring wraps 4 times,
-                             # crosses 3 object boundaries, ragged last tiles
-    (3, 100, 87, 32, 1),     # K = 87 (k >= K masked), every tile 16-byte aligned
-    (3, 130, 13, 48, 2),     # K = 13, H = 48: tiles of odd objects and the 2-row
-                             # tails are unaligned (cp.async), the rest bulk copies
-    (5, 64, 8, 16, 2),       # one tile per object: a new object at every item
-    (2, 1, 4, 1, 5),         # fewer items than blocks; H = 1 (odd: scalar stores)
+@pytest.mark.parametrize("o,n,k,h,obj_tile,n_blocks,n_sm", [
+    (4, 200, 16, 8, 3, 1, 1),     # persistent: one block walks 16 items, the ring
+                                  # wraps 4 times, crosses 3 object boundaries,
+                                  # ragged last tiles; objtile: groups of 3 and 1
+                                  # objects; one SM: 128-row tiles (128 + 72)
+    (3, 100, 87, 32, 2, 1, 132),  # K = 87 (k >= K masked), every tile 16-byte
+                                  # aligned; 64-row tiles
+    (3, 130, 13, 48, 2, 2, 132),  # K = 13, H = 48: tiles of odd objects and the
+                                  # 2-row tails are unaligned (cp.async), the rest
+    (3, 130, 13, 48, 2, 2, 1),    # bulk copies; 64-row, then 128-row tiles
+    (5, 64, 8, 16, 5, 2, 132),    # one tile per object: a new object at every item;
+                                  # objtile: 5 objects on a ring of 2 stages (3 and
+                                  # 2 per warp group)
+    (2, 1, 4, 1, 1, 5, 132),      # one row; fewer items than blocks; H = 1 (odd:
+                                  # scalar stores)
+    (2, 40, 8, 7, 2, 3, 1),       # H = 7
+    (2, 20, 128, 64, 2, 1, 132),  # the entry's largest K and H: objtile takes one
+    (2, 20, 128, 64, 2, 1, 1),    # warp group, which walks both objects
 ])
-def test_emulated_ens_gemm_persistent_matches_plain(emu_probes, sin, o, n, k, h, n_blocks):
+def test_emulated_ens_gemm_persistent_matches_plain(emu_probes, schedule, sin, o, n, k, h,
+                                                    obj_tile, n_blocks, n_sm):
+    """Each schedule's kernel (the persistent one, and the tiled one on GRID's
+    and OBJTILE's grids, with 64- or 128-row tiles as the SM count makes it
+    choose) against the plain einsum."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal((o, n, k)).astype(np.float32)
     w = (0.1 * rng.standard_normal((o, k, h))).astype(np.float32)
     out = np.full((o, n, h), np.nan, np.float32)
-    persistent = probes.SCHEDULES.index("persistent")
-    assert emu_probes.pr_ens_gemm(_ptr(x), _ptr(w), _ptr(out), o, n, k, h, persistent,
-                                  int(sin), 1, n_blocks, None) == 0
+    emu_probes.emu_set_sm_count(n_sm)
+    err = emu_probes.pr_ens_gemm(_ptr(x), _ptr(w), _ptr(out), o, n, k, h,
+                                 probes.SCHEDULES.index(schedule), int(sin), obj_tile,
+                                 n_blocks, None)
+    emu_probes.emu_set_sm_count(132)
+    assert err == 0
     ref = probes.ens_gemm_plain(torch.from_numpy(x), torch.from_numpy(w), sin).numpy()
     assert float(np.abs(out - ref).max()) <= GEMM_RTOL * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("schedule,o,k,h,obj_tile,threads,smem,blocks", [
+    ("grid", 64, 88, 32, 8, 256, 78_864, 10 * 64),       # 128-row tiles: 5 per SM
+                                                          # against 10 of 64 rows
+    ("objtile", 64, 88, 32, 8, 512, 157_728, 10 * 8),    # two groups of 8 warps
+    ("objtile", 64, 88, 32, 1, 256, 78_864, 10 * 64),    # one object per block: GRID's
+    ("objtile", 64, 128, 64, 8, 256, 163_856, 10 * 8),   # two groups would not fit
+    ("grid", 16, 87, 32, 16, 128, 55_952, 19 * 16),      # q1: 64-row tiles (3 per SM
+                                                          # against 2 of 128 rows)
+    ("objtile", 16, 87, 32, 16, 256, 111_904, 19),       # q1: 64-row tiles
+    ("persistent", 64, 88, 32, 8, 256, 123_944, 132),
+])
+def test_emulated_ens_gemm_launch_layout(emu_probes, schedule, o, k, h, obj_tile, threads, smem,
+                                         blocks):
+    """pr_ens_gemm_occupancy reports the launch pr_ens_gemm makes on 132 SMs
+    at N = 1200: threads per block, dynamic shared memory and blocks."""
+    res = (ctypes.c_int * 4)()
+    assert emu_probes.pr_ens_gemm_occupancy(o, 1200, k, h, probes.SCHEDULES.index(schedule), 0,
+                                            obj_tile, 132, res) == 0
+    assert list(res)[1:] == [threads, smem, blocks]
+
+
+def test_emulated_ens_gemm_rejects_bad_arguments(emu_probes):
+    """K > 128, H > 64, obj_tile < 1 and an unknown schedule are refused."""
+    buf = np.zeros(1, np.float32)
+    for o, k, h, schedule, ot in ((1, 129, 8, 0, 1), (1, 8, 65, 1, 1), (1, 8, 8, 1, 0),
+                                  (1, 8, 8, 3, 1)):
+        assert emu_probes.pr_ens_gemm(_ptr(buf), _ptr(buf), _ptr(buf), o, 1, k, h, schedule, 0,
+                                      ot, 1, None) != 0
 
 
 @pytest.mark.parametrize("o,r,hp,c", [
@@ -417,8 +486,9 @@ def test_k1_phases_stamps_every_barrier(tmp_path, monkeypatch):
 
 def test_ens_gemm_parts_edits_the_persistent_kernel(tmp_path, monkeypatch):
     """openobj_torch.scripts.ens_gemm_parts builds copies of probes.cu
-    without the persistent kernel's product, without its bulk copies, and
-    without those and two of its three mma.sync."""
+    without the persistent and tiled kernels' products, without their bulk
+    copies, without those and two of their three mma.sync, and without the
+    bulk copies and the weight splits."""
     from openobj_torch import kernels
     from openobj_torch.scripts import ens_gemm_parts
 
@@ -427,11 +497,23 @@ def test_ens_gemm_parts_edits_the_persistent_kernel(tmp_path, monkeypatch):
     whole = srcs["whole"].read_text()
     copies, product = srcs["copies"].read_text(), srcs["product"].read_text()
     assert srcs["whole"] == CSRC / "probes.cu"
-    assert "persistent_item<SIN, PAIR, NB>(g" in whole
-    assert "persistent_item<SIN, PAIR, NB>(g" not in copies
+    for unroll in (4, 2):   # the persistent kernel's k-loop unroll, then the tiled one's
+        item = f"gemm_item<SIN, PAIR, NB, SIN ? 1 : {unroll}>(g"
+        assert whole.count(item) == 1 and product.count(item) == 1
+        assert item not in copies
+    for kernel in ("ens_gemm_persistent_kernel(GemmArgs g)", "ens_gemm_tiled_kernel(GemmArgs g)"):
+        assert kernel in copies
+        body = copies[copies.index(kernel):]
+        body = body[:body.index("\n}\n")]
+        assert "start_" in body and "mbar_wait(" in body and "split_weights(g" in body
     assert whole.count("bulk_copy_g2s(dst, src, bytes, bar);") == 1
     assert "bulk_copy_g2s(dst, src, bytes, bar);" not in product
     one = srcs["product_1mma"].read_text()
-    assert one.count("mma_tf32(d, ") == product.count("mma_tf32(d, ") - 2
+    assert one.count("mma_tf32(") == product.count("mma_tf32(") - 2   # two of mma_step's
     assert "bulk_copy_g2s(dst, src, bytes, bar);" not in one
+    nosplit = srcs["product_nosplit"].read_text()
+    assert whole.count("split_weights(g") == 2 and nosplit.count("split_weights(g") == 2
+    body = nosplit[nosplit.index("void split_weights("):]
+    assert body[body.index("{"):].startswith("{\n  return;\n")   # returns before any split
+    assert "bulk_copy_g2s(dst, src, bytes, bar);" not in nosplit
     assert all(p.parent == tmp_path / "parts" for k, p in srcs.items() if k != "whole")

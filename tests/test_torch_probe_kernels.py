@@ -51,6 +51,8 @@ def _randn(gen, shape, device, scale=1.0):
     (8, 9000, 88, 32, 8),         # 1,128 items: each persistent block walks 8-9,
                                   # more than its ring's 4 stages
     (16, 1200, 87, 32, 16),       # the fused-step probe's q1 shape
+    (3, 200, 128, 64, 2),         # the entry's largest K and H (objtile: one
+                                  # warp group per block)
 ])
 def test_ens_gemm_matches_plain(cuda_device, schedule, sin, o, n, k, h, obj_tile):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
