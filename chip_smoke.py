@@ -507,19 +507,21 @@ def run_probe_path(device) -> list[dict]:
         if (tol is None and not exact) or (tol is not None and not rel <= tol):
             raise AssertionError(f"{case.name}: max|d| {err:.3e}, max|d|/max|ref| "
                                  f"{rel:.3e} (limit {'exact' if tol is None else tol})")
-        b = bound_ms(case.flops, case.nbytes)
+        b = bound_ms(case.flops, case.nbytes, case.mm_flops)
+        simt = bound_ms(case.flops, case.nbytes)[0]
         lib = case.library_us
         rows.append({
             "name": case.name, "route": "cuda", "source": "openobj_torch/csrc/probes.cu",
             "replaces": case.site, "launches": case.launches, "max_abs_err": err,
             "ms": case.us / 1e3, "plain_ms": case.plain_us / 1e3, "bound_ms": b[0],
-            "bound_by": b[1], "library_ms": lib / 1e3 if lib is not None else None,
-            "path": "probe scripts",
+            "bound_by": b[1], "bound_simt_ms": simt,
+            "library_ms": lib / 1e3 if lib is not None else None, "path": "probe scripts",
         })
         log(f"[probe] {case.name}: max|d| {err:.2e} rel {rel:.2e} "
             f"(limit {'exact' if tol is None else tol}); {case.us:.3f} us "
             f"(plain {case.plain_us:.3f}, library "
-            f"{f'{lib:.3f}' if lib is not None else 'none'}, bound {1e3 * b[0]:.3f} {b[1]}); "
+            f"{f'{lib:.3f}' if lib is not None else 'none'}, bound {1e3 * b[0]:.3f} {b[1]}, "
+            f"SIMT-only {1e3 * simt:.3f}); "
             f"{case.launches} launches")
     log(f"[probes] phase 5 took {time.perf_counter() - t0:.1f} s")
     return rows

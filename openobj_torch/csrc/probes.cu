@@ -23,22 +23,26 @@
 //   part_quad_kernel       <- q5 compile_case body fwd_quadratic_chained (:426)
 //
 // All arithmetic is FP32-accurate, no fast math: FP32 FMA on the SIMT cores,
-// except part_dw_kernel and the ensemble GEMM's two kernels
-// (ens_gemm_persistent_kernel, ens_gemm_tiled_kernel), whose products run on
-// the tensor cores in 3xTF32 (hi/lo TF32 split, three mma.sync per tile, f32
-// sums). The plain PyTorch versions (openobj_torch/ops/probes.py) run in full
-// FP32 and are the reference. Each kernel's note says what bounds it on an
-// H100 and what its design does about that. The ensemble GEMM's kernels get
-// their x tiles and weights by Hopper's one-dimensional bulk copy (TMA
-// without a tensor map) into mbarrier-tracked stages; none of the kernels
-// uses wgmma yet.
+// except part_dw_kernel, the ensemble GEMM's two kernels
+// (ens_gemm_persistent_kernel, ens_gemm_tiled_kernel) and step_chain_kernel,
+// whose products run on the tensor cores in 3xTF32 (hi/lo TF32 split, three
+// mma.sync per tile, f32 sums). The plain PyTorch versions
+// (openobj_torch/ops/probes.py) run in full FP32 and are the reference. Each
+// kernel's note says what bounds it on an H100 and what its design does about
+// that. The ensemble GEMM's kernels and step_chain_kernel get their x tiles
+// and weights by Hopper's one-dimensional bulk copy (TMA without a tensor
+// map) into mbarrier-tracked stages; step_chain_kernel
+// splits a pair's rays across a thread-block cluster and sums the blocks'
+// partials through distributed shared memory. None of the kernels uses wgmma
+// yet.
 //
 // The C entry points return cudaGetLastError() after each launch (or a CUDA
 // error code for an argument the kernel cannot take); the Python wrapper
 // raises if it is not cudaSuccess.
 
-// Without nvcc (tests/test_torch_kernel_emulation.py runs part_dw_kernel and
-// the ensemble GEMM's kernels on the CPU), a header included ahead of this
+// Without nvcc (tests/test_torch_kernel_emulation.py runs launch_nop_kernel,
+// step_chain_kernel, part_dw_kernel and the ensemble GEMM's kernels on the
+// CPU), a header included ahead of this
 // file stands in for the CUDA runtime and the inline-PTX helpers under
 // `#ifdef __CUDACC__` below.
 #ifdef __CUDACC__
@@ -50,8 +54,7 @@ namespace {
 
 constexpr int NT = 256;          // threads per block
 constexpr int NW = NT / 32;      // warps per block
-constexpr int TM = 64;           // rows per tile (P1, P4)
-constexpr int RPW = TM / NW;     // rows per warp in a tile
+constexpr int TM = 64;           // rows per tile of the persistent kernel (P1)
 
 __host__ __device__ inline int round4(int k) { return (k + 3) & ~3; }
 
@@ -173,48 +176,25 @@ __device__ inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
 __device__ inline void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+
+// ------------------------------------------------------------ clusters
+
+// every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before it are visible to the cluster's reads after
+__device__ inline void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at `p`'s offset in the shared memory of the cluster's block `rank`
+__device__ inline float ld_cluster(const float* p, unsigned rank) {
+  unsigned addr;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
 #endif
-
-__device__ void zero_cols(float* buf, int ld, int rows, int c0, int c1) {
-  const int w = c1 - c0;
-  if (w <= 0) return;
-  for (int i = threadIdx.x; i < rows * w; i += NT) {
-    const int r = i / w;
-    buf[r * ld + c0 + (i - r * w)] = 0.0f;
-  }
-}
-
-// Tile product of P4: for the TM rows of `a` (row stride lda,
-// lda % 4 == 0, columns past the contraction zero-padded up to kp) and the
-// [kp][H] matrix `b` (row stride H), each lane owns column c (then c + 32)
-// and each warp the rows warp, warp + NW, ...; the sum runs over k in order,
-// one FMA chain per output. Rows of `a` read as float4 are the same for all
-// lanes of a warp (a broadcast); rows of `b` are read by consecutive lanes
-// at consecutive addresses. The result goes to `emit(row, col, value)`.
-template <typename Emit>
-__device__ inline void tile_mm(const float* a, int lda, int kp,
-                               const float* b, int H, Emit emit) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = lane; c < H; c += 32) {
-    float acc[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i] = 0.0f;
-    for (int k = 0; k < kp; k += 4) {
-      const float b0 = b[(k + 0) * H + c], b1 = b[(k + 1) * H + c];
-      const float b2 = b[(k + 2) * H + c], b3 = b[(k + 3) * H + c];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 x = *reinterpret_cast<const float4*>(a + (warp + NW * i) * lda + k);
-        acc[i] = fmaf(x.x, b0, acc[i]);
-        acc[i] = fmaf(x.y, b1, acc[i]);
-        acc[i] = fmaf(x.z, b2, acc[i]);
-        acc[i] = fmaf(x.w, b3, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) emit(warp + NW * i, c, acc[i]);
-  }
-}
 
 // ------------------------------------------------------------------- P1
 //
@@ -365,21 +345,21 @@ __device__ inline void split_a(float a, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(a - __uint_as_float(hi));
 }
 
-// The staged w[o] ([K][H] at `wr`) into split B fragments, by nth threads
-// (tid = 0 .. nth - 1): warp by warp, a (k-step, n-tile) pair, each lane
-// b0 = w[8 ks + 2t][8 nt + g] and b1 = the next row, stored as
-// {b0 hi, b1 hi, b0 lo, b1 lo} with one 128-bit store, split as A is
-// (split_a); zero past K and H.
-__device__ inline void split_weights(const GemmArgs& g, const float* wr, uint4* wf, int nks,
+// A [K][H] matrix `wr` (staged in shared memory, or in device memory) into
+// split B fragments, by nth threads (tid = 0 .. nth - 1): warp by warp, a
+// (k-step, n-tile) pair, each lane b0 = w[8 ks + 2t][8 nt + g] and b1 = the
+// next row, stored as {b0 hi, b1 hi, b0 lo, b1 lo} with one 128-bit store,
+// split as A is (split_a); zero past K and H.
+__device__ inline void split_weights(int K, int H, const float* wr, uint4* wf, int nks,
                                      int nb, int tid, int nth) {
   const int lane = tid & 31;
   const int k = 2 * (lane & 3), h = lane >> 2;
   for (int p = tid >> 5; p < nks * nb; p += nth >> 5) {
     const int ks = p / nb, nt = p - ks * nb;
     const int kk = 8 * ks + k, hh = 8 * nt + h;
-    const bool ok = hh < g.H;
-    const float v0 = ok && kk < g.K ? wr[kk * g.H + hh] : 0.0f;
-    const float v1 = ok && kk + 1 < g.K ? wr[(kk + 1) * g.H + hh] : 0.0f;
+    const bool ok = hh < H;
+    const float v0 = ok && kk < K ? wr[kk * H + hh] : 0.0f;
+    const float v1 = ok && kk + 1 < K ? wr[(kk + 1) * H + hh] : 0.0f;
     uint4 f;
     split_a(v0, f.x, f.z);
     split_a(v1, f.y, f.w);
@@ -497,7 +477,7 @@ __global__ void __launch_bounds__(NT, 1) ens_gemm_persistent_kernel(GemmArgs g) 
     if (o != wobj) {                  // wf and wr are free: the last pair ended in a barrier
       mbar_wait(wbar, wphase);
       wphase ^= 1;
-      split_weights(g, wr, wf, nks, NB, threadIdx.x, NT);
+      split_weights(g.K, g.H, wr, wf, nks, NB, threadIdx.x, NT);
       __syncthreads();
       if (o < olast) start_copy(wr, g.w + (size_t)(o + 1) * wn, wn, wbar, threadIdx.x, NT);
       wobj = o;
@@ -603,7 +583,7 @@ __global__ void __launch_bounds__(512, 1) ens_gemm_tiled_kernel(GemmArgs g) {
   for (unsigned phase = 0; o < o1; o += groups, phase ^= 1) {
     const bool more = o + groups < o1;
     mbar_wait(wbar, phase);
-    split_weights(g, ws, wf, nks, NB, tid, gt);
+    split_weights(g.K, g.H, ws, wf, nks, NB, tid, gt);
     named_sync(1 + grp, gt);   // wf is whole, and ws free for the next object's w
     if (more) start_copy(ws, g.w + (size_t)(o + groups) * wn, wn, wbar, tid, gt);
     mbar_wait(xbar, phase);
@@ -700,11 +680,54 @@ int gemm_setup(GemmArgs& g, GemmLaunch& l, const float* x, const float* w, float
 
 // ------------------------------------------------------------------- P2
 //
-// y = x for a few hundred floats: the empty kernel whose cost is the launch.
+// y = x for a few hundred floats: the kernel whose cost is the launch.
+//
+// Bound: the launch. The bytes ([8, 88] floats, 5.6 KB read and written) take
+// 1.7 ns at 3.35 TB/s; what is left is the launch and one round trip to
+// memory. So each thread issues every load it has before any store: up to
+// NOP_V float4 loads (4 NOP_V single floats where x and y are not 16-byte
+// aligned alike), then the stores, so that one round of loads is in flight
+// and no load waits behind a store. A grid-stride loop instead made each
+// thread wait on one load per round (the compiler does not hoist loads out of
+// a loop whose trip count it does not know). The head and tail that are not
+// 16-byte aligned (at most 3 floats each) go by single floats, by threads
+// 0-2. The block is ceil(n/4) threads rounded up to a warp, at most NT; larger
+// n takes more blocks. No launch attribute: the probe measures an ordinary
+// launch.
 
-__global__ void launch_nop_kernel(const float* __restrict__ x, float* __restrict__ y, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
-    y[i] = x[i];
+constexpr int NOP_V = 4;   // float4 loads per thread
+
+// head >= 0: x + head and y + head are both 16-byte aligned (head <= 3);
+// head < 0: they are not aligned alike, and every float goes singly
+__global__ void __launch_bounds__(NT)
+launch_nop_kernel(const float* __restrict__ x, float* __restrict__ y, int n, int head) {
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x, nth = gridDim.x * blockDim.x;
+  if (head >= 0) {
+    const int nv = (n - head) / 4, tail = head + 4 * nv;
+    const float4* xv = reinterpret_cast<const float4*>(x + head);
+    float4* yv = reinterpret_cast<float4*>(y + head);
+    const bool h = i0 < head, t = i0 < n - tail;
+    float4 v[NOP_V];
+    float hv = 0.0f, tv = 0.0f;
+#pragma unroll
+    for (int u = 0; u < NOP_V; ++u)
+      if (i0 + u * nth < nv) v[u] = xv[i0 + u * nth];
+    if (h) hv = x[i0];
+    if (t) tv = x[tail + i0];
+#pragma unroll
+    for (int u = 0; u < NOP_V; ++u)
+      if (i0 + u * nth < nv) yv[i0 + u * nth] = v[u];
+    if (h) y[i0] = hv;
+    if (t) y[tail + i0] = tv;
+  } else {
+    float v[4 * NOP_V];
+#pragma unroll
+    for (int u = 0; u < 4 * NOP_V; ++u)
+      if (i0 + u * nth < n) v[u] = x[i0 + u * nth];
+#pragma unroll
+    for (int u = 0; u < 4 * NOP_V; ++u)
+      if (i0 + u * nth < n) y[i0 + u * nth] = v[u];
+  }
 }
 
 
@@ -750,24 +773,69 @@ slab_stream_kernel(const float* __restrict__ xs, const float* __restrict__ w0,
 
 // ------------------------------------------------------------------- P4
 //
-// One block per (object o, step s), walking the object's N rays in tiles of
-// 64 rows:
+// Per (step s, object o), over the object's N rays:
 //   e = sin(x w0)              x [N, DX], w0 [DX, K]
 //   h = relu(e w1)             w1 [K, H]             (depth >= 1)
 //   h = relu(h w2), depth-1 times                    w2 [H, H]
 //   out[s, o, :] = sum over rows of h   (depth 0: of e[:, :H])
-// The block keeps the three weight matrices and every activation of its
-// tile in shared memory and the row sums in registers: nothing but the
-// [H] result per (step, object) is written to device memory. That is the
+// Nothing but the [H] result per pair is written to device memory: the
 // fused-step kernel's forward in miniature.
 //
-// Bound: operations. At q3's shape a ray costs 8*87 + 87*32 + 3*32*32 =
-// 6,552 multiply-adds (plus 87 sines) against 32 bytes of input, so the
-// chain is ~400 FLOP per byte. The layers run as the tile product above
-// (float4 broadcast reads of the activation row, conflict-free weight
-// reads, 8 independent FMA chains per thread). The row sum is taken in a
-// fixed order (rows of a warp in tile order, then warps in order), so the
-// result does not depend on scheduling.
+// Bound: operations. At q3's shape a ray costs 8 * 87 projection FMAs and 87
+// sines (the encode, on the SIMT cores) and 87 * 32 + 3 * 32 * 32 = 5,856
+// multiply-adds of products (89% of the multiply-adds) against 32 bytes of
+// input. The products run on the tensor cores in 3xTF32, so the encode's
+// FMAs and sines take as long as the products at the card's peak rates; the
+// design keeps both units fed and keeps everything else off the path:
+//  * A warp owns 16 rows and all of H, and the layers are chained in
+//    registers: mma_step's fragment order holds k = 2t, 2t + 1 of a step in
+//    fragment columns t, t + 4 (and B's rows in the same order), so a
+//    layer's C tile j (c0, c1 = row g, columns 8j + 2t, 8j + 2t + 1; c2, c3
+//    = row g + 8) is the next layer's A fragment of k-step j as {c0, c2, c1,
+//    c3}. relu(C) feeds the next mma_step with no shuffle and no shared
+//    memory. Each product is mma_step's 3xTF32 mma.sync with separate small
+//    and large accumulators, as the ensemble GEMM's.
+//  * w0, w1 and w2 come by bulk copy (start_copy) into a staging area on an
+//    mbarrier of their own, in flight together with the first two x tiles;
+//    then w1 and w2 are split once per block into B fragments in shared
+//    memory (split_weights) and w0 is laid out zero-padded. Read straight
+//    from device memory, each of a thread's weight loads waited a round trip
+//    of its own, and at q4 that prologue weighed as much as the tiles.
+//  * The encode runs on FMAs straight into A fragment positions: each lane
+//    projects its rows g and g + 8 at k = 8 ks + 2t, 2t + 1 from x in
+//    registers and w0 in shared memory ([DXP][8 ceil(K/8)], zero past DX and
+//    K, so k >= K gives sin(0) = 0), an FMA chain over d in order; rows past
+//    the tile's last are set to 0 before the sine (their stage holds stale
+//    rows, or NaN), so they add relu(0 w) = 0. mma_step<true> takes the
+//    sines and the split, as for K4a.
+//  * x tiles of 128 rows (16 a warp) come by one bulk copy each (start_copy:
+//    a pair's rows are one contiguous range; 4-byte cp.asyncs where it is
+//    not 16-byte aligned) into CSTAGES = 2 stages on mbarriers: the next
+//    tile lands while this one is computed, and one __syncthreads per tile
+//    frees a stage for the tile after next. (Three stages, which put all of
+//    a rank's tiles at q4 in flight from the start, measured no faster on
+//    an H100.)
+//  * The row sum is taken in registers (each lane its columns over its two
+//    rows, tile after tile), then over the warp's 16 rows by shuffles, then
+//    over warps in order through shared memory: a fixed order, so the result
+//    does not depend on scheduling.
+//  * When the (step, object) pairs do not fill the card (q4: 32 or 64 pairs
+//    on 132 SMs), the pair's rays are split evenly across a cluster of c
+//    blocks (choose_cluster: the largest c in {1, 2, 4, 8} with which all
+//    the pairs' clusters are resident at once, by
+//    cudaOccupancyMaxActiveClusters: a cluster's blocks share a GPC, and
+//    on an H100 at two blocks an SM 132 clusters of 2 fit but only 62 of
+//    4; q3's 6,400 pairs take c = 1, q4's 32 pairs c = 4 and 64 pairs
+//    c = 2. Clusters that did not all fit ran as a second wave and took
+//    1.4 times as long.) After a cluster barrier, rank
+//    0 adds the ranks' partial sums in rank order from their shared memory
+//    (mapa / ld.shared::cluster) and writes the result; a second barrier
+//    keeps the other ranks' shared memory alive until then. One launch, no
+//    workspace, and the same order every run. A rank with no rows adds 0.
+// Shared memory: w1's and w2's B fragments, w0 padded, two x stages, the
+// warps' sums, the block's partial, the staged weights and three mbarriers
+// (60.9 KB at q3's DX = 8, K = 87, H = 32; 182.6 KB at DX = 16, K = 128,
+// H = 64).
 
 struct ChainArgs {
   const float* xs;
@@ -775,97 +843,270 @@ struct ChainArgs {
   const float* w1;
   const float* w2;
   float* out;
-  int S, O, N, DX, K, H, depth, kp;
+  int S, O, N, DX, K, H, depth;
+  int cluster;   // blocks per (step, object) pair, each a share of its rays
 };
 
-__global__ void __launch_bounds__(NT) step_chain_kernel(ChainArgs a) {
-  extern __shared__ __align__(16) float sm[];
-  const int H = a.H, K = a.K, kp = a.kp, DX = a.DX;
-  const int o = blockIdx.x, s = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* w1s = sm;                  // [kp][H], rows >= K zero
-  float* w2s = w1s + kp * H;        // [H][H]
-  float* ha = w2s + H * H;          // [TM][H]
-  float* hb = ha + TM * H;          // [TM][H]
-  float* e = hb + TM * H;           // [TM][kp], columns >= K zero
-  float* red = e + TM * kp;         // [NW][H]
-  float* w0s = red + NW * H;        // [DX][K]
-  float* xt = w0s + DX * K;         // [TM][DX]
+constexpr int CT = 16 * NW;   // rows per x tile of the chain: a warp per 16
+constexpr int CSTAGES = 2;    // x stages of the chain
 
-  const float* w0g = a.w0 + (size_t)o * DX * K;
-  for (int i = threadIdx.x; i < DX * K; i += NT) w0s[i] = w0g[i];
-  if (a.depth >= 1) {
-    const float* w1g = a.w1 + (size_t)o * K * H;
-    for (int i = threadIdx.x; i < kp * H; i += NT) w1s[i] = i < K * H ? w1g[i] : 0.0f;
+// One warp's 16 rows of the chain, added to the lane's row sums rs[j][e]
+// (column 8j + 2t + e over rows g and g + 8). x0, x1: rows g and g + 8 (0
+// past DX); ok0, ok1: those rows exist; w0t: w0's shared copy at column 2t,
+// row stride kp; w1f, w2f: the lane's B fragments.
+template <int NB, int DXP>
+__device__ inline void chain_rows(int depth, const float (&x0)[DXP], const float (&x1)[DXP],
+                                  bool ok0, bool ok1, const float* w0t, int kp, int nks,
+                                  const uint4* w1f, const uint4* w2f, float (&rs)[NB][2]) {
+  // p = x w0 at {(g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)} of k-step ks
+  auto encode = [&](int ks, float (&p)[4]) {
+    float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+    const float* w = w0t + 8 * ks;
+#pragma unroll
+    for (int d = 0; d < DXP; ++d) {
+      const float2 u = *reinterpret_cast<const float2*>(w + d * kp);
+      p0 = fmaf(x0[d], u.x, p0);
+      p1 = fmaf(x1[d], u.x, p1);
+      p2 = fmaf(x0[d], u.y, p2);
+      p3 = fmaf(x1[d], u.y, p3);
+    }
+    p[0] = ok0 ? p0 : 0.0f;
+    p[1] = ok1 ? p1 : 0.0f;
+    p[2] = ok0 ? p2 : 0.0f;
+    p[3] = ok1 ? p3 : 0.0f;
+  };
+  if (depth == 0) {   // e's first 8 NB columns (the caller keeps those < H)
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float p[4];
+      encode(j, p);
+      rs[j][0] += sinf(p[0]) + sinf(p[1]);
+      rs[j][1] += sinf(p[2]) + sinf(p[3]);
+    }
+    return;
   }
-  if (a.depth >= 2) {
-    const float* w2g = a.w2 + (size_t)o * H * H;
-    for (int i = threadIdx.x; i < H * H; i += NT) w2s[i] = w2g[i];
-  }
-  zero_cols(e, kp, TM, K, kp);
-  // depth 0 needs only the first H columns of e
-  const int ne = a.depth == 0 ? min(H, K) : K;
-
-  float part[2] = {0.0f, 0.0f};     // this thread's row sums, columns lane, lane + 32
-  const float* xg = a.xs + ((size_t)s * a.O + o) * a.N * DX;
-  for (int r0 = 0; r0 < a.N; r0 += TM) {
-    const int nv = min(TM, a.N - r0);
-    __syncthreads();                // the previous tile is done with xt, e, ha, hb
-    for (int i = threadIdx.x; i < nv * DX; i += NT) xt[i] = xg[(size_t)r0 * DX + i];
-    __syncthreads();
-    for (int i = threadIdx.x; i < TM * ne; i += NT) {
-      const int r = i / ne, c = i - r * ne;
-      float v = 0.0f;
-      if (r < nv) {
-        for (int d = 0; d < DX; ++d) v = fmaf(xt[r * DX + d], w0s[d * K + c], v);
-        v = sinf(v);
+  float c[2 * NB][4], h[NB][4];
+  auto relu_of = [&]() {   // h = relu(large + small), c zeroed for the next layer
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = c[j][i] + c[NB + j][i];
+        h[j][i] = v > 0.0f ? v : 0.0f;
+        c[j][i] = c[NB + j][i] = 0.0f;
       }
-      e[r * kp + c] = v;            // rows past the ragged edge stay zero
-    }
-    __syncthreads();
-    const float* f = e;             // the activation whose rows are summed
-    int ldf = kp;
-    if (a.depth >= 1) {
-      tile_mm(e, kp, kp, w1s, H, [&](int r, int c, float v) {
-        ha[r * H + c] = v > 0.0f ? v : 0.0f;
-      });
-      float* cur = ha;
-      float* nxt = hb;
-      for (int l = 1; l < a.depth; ++l) {
-        __syncthreads();
-        tile_mm(cur, H, H, w2s, H, [&](int r, int c, float v) {
-          nxt[r * H + c] = v > 0.0f ? v : 0.0f;
-        });
-        float* t = cur; cur = nxt; nxt = t;
-      }
-      f = cur;
-      ldf = H;
-    }
-    __syncthreads();
-    // rows past nv hold relu(0 . w) = 0 (no biases), so they add nothing;
-    // they are skipped all the same
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + NW * i;
-      if (r >= nv) break;
-      if (lane < H) part[0] += f[r * ldf + lane];
-      if (lane + 32 < H) part[1] += f[r * ldf + lane + 32];
-    }
+  };
+#pragma unroll
+  for (int j = 0; j < 2 * NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.0f;
+  for (int ks = 0; ks < nks; ++ks) {
+    float p[4];
+    encode(ks, p);
+    mma_step<true, NB>(p, w1f + ks * NB * 32, c);
   }
-  if (lane < H) red[warp * H + lane] = part[0];
-  if (lane + 32 < H) red[warp * H + lane + 32] = part[1];
-  __syncthreads();
-  float* og = a.out + ((size_t)s * a.O + o) * H;
-  for (int c = threadIdx.x; c < H; c += NT) {
-    float t = 0.0f;
-    for (int w = 0; w < NW; ++w) t += red[w * H + c];
-    og[c] = t;
+  relu_of();
+  for (int l = 1; l < depth; ++l) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float a[4] = {h[j][0], h[j][2], h[j][1], h[j][3]};
+      mma_step<false, NB>(a, w2f + j * NB * 32, c);
+    }
+    relu_of();
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    rs[j][0] += h[j][0] + h[j][2];
+    rs[j][1] += h[j][1] + h[j][3];
   }
 }
 
-size_t chain_smem(int DX, int K, int H) {
-  const int kp = round4(K);
-  return sizeof(float) * ((size_t)kp * H + H * H + 2 * TM * H + TM * kp + NW * H +
-                          DX * K + TM * DX);
+template <int NB, int DXP>
+__global__ void __launch_bounds__(NT, 1) step_chain_kernel(ChainArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int K = a.K, H = a.H, DX = a.DX, nks = (K + 7) / 8, kp = 8 * nks;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nc = a.cluster, o = blockIdx.x / nc, rank = blockIdx.x - o * nc, s = blockIdx.y;
+  uint4* w1f = reinterpret_cast<uint4*>(sm);                   // [nks][NB][32]
+  uint4* w2f = w1f + nks * NB * 32;                            // [NB][NB][32]
+  float* w0s = reinterpret_cast<float*>(w2f + NB * NB * 32);   // [DXP][kp]
+  float* xt = w0s + DXP * kp;                                  // CSTAGES x [CT][DX]
+  float* red = xt + CSTAGES * CT * DX;                         // [NW][8 NB]
+  float* part = red + NW * 8 * NB;                             // [8 NB]
+  float* w0r = part + 8 * NB;                                  // staged w0 [DX][K]
+  float* w1r = w0r + round4(DX * K);                           // staged w1 [K][H]
+  float* w2r = w1r + round4(K * H);                            // staged w2 [H][H]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(w2r + round4(H * H));   // x stages, then w's
+  uint64_t* wbar = bar + CSTAGES;
+  // this rank's rows rb .. re - 1 of the pair
+  const int rb = (int)((long)a.N * rank / nc), re = (int)((long)a.N * (rank + 1) / nc);
+  const int nrows = re - rb, ntiles = (nrows + CT - 1) / CT;
+  const float* xg = a.xs + (((size_t)s * a.O + o) * a.N + rb) * DX;
+  const int nw = 1 + (a.depth >= 1) + (a.depth >= 2);          // weight matrices read
+  if (tid == 0) {
+    for (int i = 0; i < CSTAGES; ++i) mbar_init(bar + i, NT);
+    mbar_init(wbar, NT * nw);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  start_copy(w0r, a.w0 + (size_t)o * DX * K, DX * K, wbar, tid, NT);
+  if (a.depth >= 1) start_copy(w1r, a.w1 + (size_t)o * K * H, K * H, wbar, tid, NT);
+  if (a.depth >= 2) start_copy(w2r, a.w2 + (size_t)o * H * H, H * H, wbar, tid, NT);
+  for (int i = 0; i < CSTAGES && i < ntiles; ++i)
+    start_copy(xt + i * CT * DX, xg + (size_t)i * CT * DX, min(CT, nrows - i * CT) * DX, bar + i,
+               tid, NT);
+  mbar_wait(wbar, 0);
+  for (int i = tid; i < DXP * kp; i += NT) {
+    const int d = i / kp, k = i - d * kp;
+    w0s[i] = d < DX && k < K ? w0r[d * K + k] : 0.0f;
+  }
+  if (a.depth >= 1) split_weights(K, H, w1r, w1f, nks, NB, tid, NT);
+  if (a.depth >= 2) split_weights(H, H, w2r, w2f, NB, NB, tid, NT);
+  __syncthreads();
+
+  float rs[NB][2];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) rs[j][0] = rs[j][1] = 0.0f;
+  const int m0 = 16 * warp;
+  for (int i = 0; i < ntiles; ++i) {
+    const int nv = min(CT, nrows - i * CT);
+    const int st = i % CSTAGES;
+    const float* x = xt + st * CT * DX;
+    mbar_wait(bar + st, (i / CSTAGES) & 1);
+    if (m0 < nv) {   // the whole warp: mma.sync wants every lane
+      float x0[DXP], x1[DXP];
+#pragma unroll
+      for (int d = 0; d < DXP; ++d) {
+        x0[d] = d < DX ? x[(m0 + g) * DX + d] : 0.0f;
+        x1[d] = d < DX ? x[(m0 + g + 8) * DX + d] : 0.0f;
+      }
+      chain_rows<NB, DXP>(a.depth, x0, x1, m0 + g < nv, m0 + g + 8 < nv, w0s + 2 * t, kp, nks,
+                          w1f + lane, w2f + lane, rs);
+    }
+    if (i + CSTAGES < ntiles) {
+      __syncthreads();   // every warp is done with the stage
+      start_copy(xt + st * CT * DX, xg + (size_t)(i + CSTAGES) * CT * DX,
+                 min(CT, nrows - (i + CSTAGES) * CT) * DX, bar + st, tid, NT);
+    }
+  }
+  // over the warp's 16 rows (the 8 lanes of each t), then over warps in order
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = rs[j][e];
+      v += __shfl_sync(0xffffffffu, v, lane ^ 4);
+      v += __shfl_sync(0xffffffffu, v, lane ^ 8);
+      v += __shfl_sync(0xffffffffu, v, lane ^ 16);
+      if (g == 0) red[warp * 8 * NB + 8 * j + 2 * t + e] = v;
+    }
+  __syncthreads();
+  float* og = a.out + ((size_t)s * a.O + o) * H;
+  for (int col = tid; col < H; col += NT) {
+    float v = 0.0f;
+    for (int w = 0; w < NW; ++w) v += red[w * 8 * NB + col];
+    if (nc == 1) og[col] = v;
+    else part[col] = v;
+  }
+  if (nc > 1) {
+    cluster_sync();   // every rank's partial is in its shared memory
+    if (rank == 0) {
+      for (int col = tid; col < H; col += NT) {
+        float v = 0.0f;
+        for (int r = 0; r < nc; ++r) v += ld_cluster(part + col, r);
+        og[col] = v;
+      }
+    }
+    cluster_sync();   // rank 0 has read them: the ranks may exit
+  }
+}
+
+using ChainKernel = void (*)(ChainArgs);
+
+template <int DXP>
+ChainKernel chain_instance(int H) {
+  switch ((H + 7) / 8) {
+    case 1: return step_chain_kernel<1, DXP>;
+    case 2: return step_chain_kernel<2, DXP>;
+    case 3: return step_chain_kernel<3, DXP>;
+    case 4: return step_chain_kernel<4, DXP>;
+    case 5: return step_chain_kernel<5, DXP>;
+    case 6: return step_chain_kernel<6, DXP>;
+    case 7: return step_chain_kernel<7, DXP>;
+    default: return step_chain_kernel<8, DXP>;
+  }
+}
+
+struct ChainLaunch {
+  ChainKernel kernel;
+  dim3 grid;
+  size_t smem;   // dynamic shared memory, bytes
+  int per_sm;    // blocks resident per SM
+  int active;    // clusters resident at once
+};
+
+size_t chain_smem(int DXP, int DX, int K, int H) {
+  const int nks = (K + 7) / 8, nb = (H + 7) / 8;
+  return 16 * (size_t)(nks * nb + nb * nb) * 32 +
+         sizeof(float) * (size_t)(DXP * 8 * nks + CSTAGES * CT * DX + NW * 8 * nb + 8 * nb +
+                                  round4(DX * K) + round4(K * H) + round4(H * H)) +
+         (CSTAGES + 1) * sizeof(uint64_t);
+}
+
+// The launch of l with clusters of c blocks, for `grid` blocks
+cudaLaunchConfig_t chain_config(const ChainLaunch& l, dim3 grid, unsigned c,
+                                cudaLaunchAttribute& attr, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = l.smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Blocks per (step, object) pair: the largest c in {1, 2, 4, 8} with which
+// every pair's cluster is resident at once (cudaOccupancyMaxActiveClusters:
+// a cluster's blocks share one GPC, so this is less than the SM count times
+// the blocks per SM over c), else 1. l.active = the clusters of c resident.
+int choose_cluster(long pairs, ChainLaunch& l, int& c) {
+  for (c = 8; c >= 1; c /= 2) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = chain_config(l, dim3(c), c, attr, nullptr);
+    const int err = (int)cudaOccupancyMaxActiveClusters(&l.active, l.kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (pairs <= l.active || c == 1) break;
+  }
+  return cudaSuccess;
+}
+
+// P4's arguments checked, ChainArgs filled, the launch pr_step_chain makes
+// for them chosen and its shared memory opted into: cudaSuccess, or the CUDA
+// error code with which pr_step_chain refuses them.
+int chain_setup(ChainArgs& a, ChainLaunch& l, const float* xs, const float* w0, const float* w1,
+                const float* w2, float* out, int S, int O, int N, int DX, int K, int H,
+                int depth) {
+  if (S < 1 || S > 65535 || O < 1 || N < 1 || DX < 1 || DX > 16 || K < 1 || K > 128 || H < 4 ||
+      H > 64 || H % 4 != 0 || depth < 0 || (depth == 0 && H > K))
+    return (int)cudaErrorInvalidValue;
+  a.xs = xs; a.w0 = w0; a.w1 = w1; a.w2 = w2; a.out = out;
+  a.S = S; a.O = O; a.N = N; a.DX = DX; a.K = K; a.H = H; a.depth = depth;
+  const int dxp = DX <= 8 ? 8 : 16;
+  l.kernel = dxp == 8 ? chain_instance<8>(H) : chain_instance<16>(H);
+  l.smem = chain_smem(dxp, DX, K, H);
+  int err = (int)cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)l.smem);
+  if (err == cudaSuccess)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&l.per_sm, l.kernel, NT, l.smem);
+  if (err == cudaSuccess) err = choose_cluster((long)S * O, l, a.cluster);
+  l.grid = dim3(O * a.cluster, S);
+  return err;
 }
 
 // ------------------------------------------------------------------- P5
@@ -1161,8 +1402,14 @@ int pr_ens_gemm_occupancy(int O, int N, int K, int H, int schedule, int use_sin,
 }
 
 int pr_launch_nop(const float* x, float* y, int n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  launch_nop_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(x, y, n);
+  if (n < 1 || ((uintptr_t)x & 3) || ((uintptr_t)y & 3)) return (int)cudaErrorInvalidValue;
+  const int hx = (int)((16 - ((uintptr_t)x & 15)) & 15) / 4;
+  const int hy = (int)((16 - ((uintptr_t)y & 15)) & 15) / 4;
+  // a thread per float4, whole warps, at most NT a block, NOP_V float4s each
+  const int units = (n + 3) / 4, threads = min(NT, (units + 31) / 32 * 32);
+  const int blocks = (units + NOP_V * threads - 1) / (NOP_V * threads);
+  launch_nop_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(x, y, n,
+                                                                 hx == hy ? min(hx, n) : -1);
   return (int)cudaGetLastError();
 }
 
@@ -1177,23 +1424,39 @@ int pr_slab_stream(const float* xs, const float* w0, float* out, int S, int O,
   return (int)cudaGetLastError();
 }
 
-// xs [S, O, N, DX], w0 [O, DX, K], w1 [O, K, H], w2 [O, H, H], out [S, O, H]
+// xs [S, O, N, DX], w0 [O, DX, K], w1 [O, K, H], w2 [O, H, H], out [S, O, H];
+// one launch, a cluster of blocks per (step, object) pair (choose_cluster)
 int pr_step_chain(const float* xs, const float* w0, const float* w1, const float* w2,
                   float* out, int S, int O, int N, int DX, int K, int H, int depth,
                   void* stream) {
-  if (S < 1 || O < 1 || N < 1 || DX < 1 || DX > 16 || K < 1 || K > 128 || H < 4 ||
-      H > 64 || H % 4 != 0 || depth < 0)
-    return (int)cudaErrorInvalidValue;
   ChainArgs a;
-  a.xs = xs; a.w0 = w0; a.w1 = w1; a.w2 = w2; a.out = out;
-  a.S = S; a.O = O; a.N = N; a.DX = DX; a.K = K; a.H = H; a.depth = depth;
-  a.kp = round4(K);
-  const size_t smem = chain_smem(DX, K, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      step_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  step_chain_kernel<<<dim3(O, S), NT, smem, (cudaStream_t)stream>>>(a);
+  ChainLaunch l;
+  int err = chain_setup(a, l, xs, w0, w1, w2, out, S, O, N, DX, K, H, depth);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = chain_config(l, l.grid, a.cluster, attr, stream);
+  err = (int)cudaLaunchKernelEx(&cfg, l.kernel, a);
+  if (err != cudaSuccess) return err;
   return (int)cudaGetLastError();
+}
+
+// The launch pr_step_chain makes for these arguments, without making it:
+// out[0..5] = its blocks resident per SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), threads per block, dynamic shared memory in bytes, blocks,
+// blocks per cluster, clusters resident at once.
+int pr_step_chain_launch(int S, int O, int N, int DX, int K, int H, int depth, int* out) {
+  ChainArgs a;
+  ChainLaunch l;
+  const int err = chain_setup(a, l, nullptr, nullptr, nullptr, nullptr, nullptr, S, O, N, DX, K,
+                              H, depth);
+  if (err != cudaSuccess) return err;
+  out[0] = l.per_sm;
+  out[1] = NT;
+  out[2] = (int)l.smem;
+  out[3] = (int)(l.grid.x * l.grid.y);
+  out[4] = a.cluster;
+  out[5] = l.active;
+  return cudaSuccess;
 }
 
 // gt [O, R, C], wb [O, Hp, C] -> t [O, R, Hp], g [O, Hp, Hp]

@@ -217,7 +217,10 @@ def slab_stream_cuda(xs: torch.Tensor, w0: torch.Tensor, h: int,
 
 
 def step_chain_cuda(xs, w0, w1, w2, depth: int) -> torch.Tensor:
-    """Launch P4, one block per (object, step). Returns [S,O,1,H]."""
+    """Launch P4: a cluster of 1-8 blocks per (step, object) pair, the
+    largest with which every pair's cluster is resident at once, splitting
+    the pair's rays. One launch; a refused cluster launch raises. Returns
+    [S,O,1,H]."""
     s, o, n, dx = xs.shape
     k = w0.shape[-1]
     h = w1.shape[-1]

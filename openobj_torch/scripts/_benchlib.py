@@ -100,7 +100,9 @@ class Case:
     ``openobj_torch.ops.probes.COUNTS``; ``site`` the Pallas kernel it ports
     (``scripts/<file>.py:<line>``); ``tol`` the limit on max|d|/max|ref|
     against ``plain`` (None: exact); ``flops`` and ``nbytes`` the work of
-    one call. The other fields are filled by ``measure``."""
+    one call, ``mm_flops`` the part of ``flops`` that is matrix products the
+    kernel runs on the tensor cores (in 3xTF32). The fields after ``iters``
+    but ``mm_flops`` are filled by ``measure``."""
 
     name: str
     site: str
@@ -117,6 +119,7 @@ class Case:
     plain_us: float = 0.0
     library_us: float | None = None
     launches: int = 0
+    mm_flops: float = 0.0
 
 
 @contextlib.contextmanager

@@ -48,6 +48,12 @@ H = 32
 STEPS = 100
 
 CHAIN_RTOL = 1e-4     # max|d| / max|ref|: five layers amplify rounding and relu kinks
+# operations charged per sinf in the chain's bound: the 24 SASS instructions
+# of sinf's path for |x| < 105615 on sm_90a (8 to the range check's branch,
+# 16 after it, not counting the convergence barrier's two; the SASS that
+# ``step_chain_parts`` writes), each one issue slot of the 67 TFLOP/s of FMAs
+# (2 FLOP)
+SINF_OPS = 2 * 24
 GEMM_RTOL = 1e-5      # max|d| / max|ref|: FP32 sums over 87-512 products in another order
 
 SCRIPT = "scripts/bench_fused_step_probe.py"
@@ -131,17 +137,26 @@ def q2(device, seed: int = 0, n_tiles: int = 8, o_tile: int = 8) -> tuple[dict, 
 
 
 def _chain_case(name, site, xs, w0, w1, w2, depth, iters):
+    """The chain's case. Its work per ray: the encode on the SIMT cores (the
+    projection's DX * K multiply-adds and K sines, each sine SINF_OPS
+    operations; at depth 0 only the H columns kept) and, at depth >= 1, the
+    products K * H + (depth - 1) * H * H, which the kernel runs on the tensor
+    cores (``mm_flops``)."""
     from openobj_torch.ops import probes
     from openobj_torch.scripts._benchlib import Case
 
-    s, o, n, _ = xs.shape
+    s, o, n, dx = xs.shape
     k, h = w0.shape[-1], w1.shape[-1]
-    macs = xs.shape[-1] * h if depth == 0 else xs.shape[-1] * k + k * h + (depth - 1) * h * h
+    cols = h if depth == 0 else k                  # encoded columns
+    mm = 0 if depth == 0 else k * h + (depth - 1) * h * h
+    rays = s * o * n
     weights = w0.numel() + (w1.numel() if depth else 0) + (w2.numel() if depth > 1 else 0)
     return Case(name, site, f"step_chain_d{depth}",
                 lambda: probes.step_chain(xs, w0, w1, w2, depth),
                 lambda: probes.step_chain_plain(xs, w0, w1, w2, depth), None,
-                2 * s * o * n * macs, 4 * (xs.numel() + weights + s * o * h), CHAIN_RTOL, iters)
+                rays * (2 * dx * cols + SINF_OPS * cols + 2 * mm),
+                4 * (xs.numel() + weights + s * o * h), CHAIN_RTOL, iters,
+                mm_flops=2 * rays * mm)
 
 
 def q3(device, seed: int = 0, n_tiles: int = 8, o_tile: int = 8) -> tuple[dict, list]:

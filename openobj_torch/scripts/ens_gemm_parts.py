@@ -73,12 +73,14 @@ PARTS = {"copies": _PRODUCTS, "product": [_NO_BULK], "product_1mma": [_NO_BULK, 
          "product_nosplit": [_NO_BULK, _SPLIT]}
 
 
-def part_sources(src: Path | None = None) -> dict[str, Path]:
-    """{"whole": the source, part: its edited copy under build/kernels/}."""
+def part_sources(src: Path | None = None, parts: dict | None = None) -> dict[str, Path]:
+    """{"whole": the source, part: its edited copy under build/kernels/}, for
+    each part of ``parts`` (default PARTS): a list of (old, new) texts, each
+    old text found exactly once."""
     src = src or kernels.CSRC / "probes.cu"
     text = src.read_text()
     out = {"whole": src}
-    for part, edits in PARTS.items():
+    for part, edits in (parts or PARTS).items():
         edited = text
         for old, new in edits:
             if edited.count(old) != 1:

@@ -35,6 +35,7 @@ CSRC = Path(__file__).resolve().parents[1] / "openobj_torch" / "csrc"
 FWD_ATOL = 1e-4      # as tests/test_torch_kernels.py
 GRAD_RTOL = 1e-3
 GEMM_RTOL = 1e-5     # as tests/test_torch_probe_kernels.py
+CHAIN_RTOL = 1e-4    # as tests/test_torch_probe_kernels.py
 
 # What the CUDA source needs from the CUDA runtime and from its inline-PTX
 # helpers, for a host C++20 compiler:
@@ -42,6 +43,11 @@ STUB = r"""
 //  * each block's threads are std::threads, __syncthreads a std::barrier,
 //    and each named barrier (bar.sync id, n) a std::barrier of n made at
 //    its first use in a block;
+//  * the blocks of a thread-block cluster (cudaLaunchKernelEx with a cluster
+//    dimension) run their threads together, and a cluster's blocks are
+//    consecutive in x; barrier.cluster is a std::barrier over all of the
+//    cluster's threads, and ld_cluster (mapa + ld.shared::cluster) reads the
+//    same offset in the peer block's shared buffer;
 //  * mma.sync m16n8k8 (tf32 operands, f32 accumulator) and __shfl_sync are
 //    warp-wide exchanges through a std::barrier of 32 threads, mma computed
 //    from the PTX
@@ -70,7 +76,9 @@ STUB = r"""
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <algorithm>
 #include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -87,25 +95,39 @@ struct uint4 { uint32_t x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-inline thread_local uint3 threadIdx;
-inline uint3 blockIdx;
+inline thread_local uint3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
-inline float* g_smem;
-inline std::barrier<>* g_block_bar;
-inline std::barrier<>* g_warp_bar[32];
-inline std::mutex g_named_mu;
-inline std::barrier<>* g_named_bar[16];
 struct WarpRegs { uint32_t a[32][4], b[32][2]; float f[32]; };
-inline WarpRegs g_wr[32];
-inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+struct EmuBlock {   // one running block: its shared memory, barriers and warp exchanges
+  float* smem = nullptr;
+  std::barrier<>* bar = nullptr;
+  std::barrier<>* warp_bar[32] = {};
+  WarpRegs wr[32];
+  std::mutex named_mu;
+  std::barrier<>* named_bar[16] = {};
+  ~EmuBlock() {
+    delete bar;
+    for (auto* b : warp_bar) delete b;
+    for (auto* b : named_bar) delete b;
+  }
+};
+struct EmuCluster { std::barrier<>* bar; std::vector<EmuBlock*> blocks; };
+inline thread_local EmuBlock* t_blk;
+inline thread_local EmuCluster* t_clu;
+inline float* emu_smem() { return t_blk->smem; }
+inline void __syncthreads() { t_blk->bar->arrive_and_wait(); }
 inline void named_sync(int id, int n) {
   std::barrier<>* b;
   {
-    std::lock_guard<std::mutex> lock(g_named_mu);
-    if (!g_named_bar[id]) g_named_bar[id] = new std::barrier<>(n);
-    b = g_named_bar[id];
+    std::lock_guard<std::mutex> lock(t_blk->named_mu);
+    if (!t_blk->named_bar[id]) t_blk->named_bar[id] = new std::barrier<>(n);
+    b = t_blk->named_bar[id];
   }
   b->arrive_and_wait();
+}
+inline void cluster_sync() { t_clu->bar->arrive_and_wait(); }
+inline float ld_cluster(const float* p, unsigned rank) {
+  return t_clu->blocks[rank]->smem[p - t_blk->smem];
 }
 inline float __ldg(const float* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -117,8 +139,11 @@ typedef int cudaError_t; typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
        cudaDevAttrMultiProcessorCount = 16 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
-template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
-  *n = 0;   // not known without the card
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int threads, size_t smem) {
+  // by threads (2,048 an SM) and shared memory (227 KB) alone: the
+  // registers are not known without the card
+  *n = (int)std::min<size_t>(2048 / threads, smem ? 232448 / smem : 32);
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
@@ -135,10 +160,10 @@ inline uint32_t to_tf32(float x) {
 }
 inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   const int w = threadIdx.x >> 5, L = threadIdx.x & 31;
-  WarpRegs& R = g_wr[w];
+  WarpRegs& R = t_blk->wr[w];
   for (int i = 0; i < 4; ++i) R.a[L][i] = a[i];
   R.b[L][0] = b[0]; R.b[L][1] = b[1];
-  g_warp_bar[w]->arrive_and_wait();
+  t_blk->warp_bar[w]->arrive_and_wait();
   float A[16][8], B[8][8];
   for (int l = 0; l < 32; ++l) {
     const int g = l >> 2, t = l & 3;
@@ -153,14 +178,14 @@ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[
     for (int k = 0; k < 8; ++k) s += A[rows[i]][k] * B[k][cols[i]];
     c[i] = s;
   }
-  g_warp_bar[w]->arrive_and_wait();
+  t_blk->warp_bar[w]->arrive_and_wait();
 }
 inline float __shfl_sync(unsigned, float v, int src) {   // through the warp's exchange
   const int w = threadIdx.x >> 5;
-  g_wr[w].f[threadIdx.x & 31] = v;
-  g_warp_bar[w]->arrive_and_wait();
-  const float r = g_wr[w].f[src & 31];
-  g_warp_bar[w]->arrive_and_wait();
+  t_blk->wr[w].f[threadIdx.x & 31] = v;
+  t_blk->warp_bar[w]->arrive_and_wait();
+  const float r = t_blk->wr[w].f[src & 31];
+  t_blk->warp_bar[w]->arrive_and_wait();
   return r;
 }
 inline void cp_async4(float* dst, const float* src) { *dst = *src; }
@@ -219,27 +244,75 @@ inline void mbar_wait(uint64_t* bar, unsigned parity) {
 inline void cp_async_mbar_arrive(uint64_t* bar) { mbar_arrive(bar); }
 inline void fence_proxy_async() {}
 
+// Blocks in clusters of nc (consecutive in x), one cluster at a time, each
+// block's shared memory NaN-filled: catches reads of unset memory.
 template <class F>
-void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F fn) {
-  std::vector<float> mem(smem / 4 + 16, std::nanf(""));   // NaN-filled: catches reads of unset memory
+void emu_launch_cluster(dim3 grid, int nt, size_t smem, unsigned nc, F fn) {
   if (smem > g_smem_max) g_smem_max = smem;
-  g_smem = mem.data();
   gridDim = grid; blockDim = dim3(nt);
-  std::barrier<> bb(nt);
-  std::vector<std::barrier<>*> wb;
-  for (int w = 0; w < nt / 32; ++w) { wb.push_back(new std::barrier<>(32)); g_warp_bar[w] = wb.back(); }
-  g_block_bar = &bb;
   for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned x = 0; x < grid.x; ++x) {
-      blockIdx = {x, y, 0};
-      std::fill(mem.begin(), mem.end(), std::nanf(""));
+    for (unsigned x0 = 0; x0 < grid.x; x0 += nc) {
+      std::vector<std::vector<float>> mem(nc, std::vector<float>(smem / 4 + 16, std::nanf("")));
+      std::vector<std::unique_ptr<EmuBlock>> blocks;
+      std::barrier<> cb(nc * nt);
+      EmuCluster clu{&cb, {}};
+      for (unsigned r = 0; r < nc; ++r) {
+        blocks.push_back(std::make_unique<EmuBlock>());
+        EmuBlock* b = blocks.back().get();
+        b->smem = mem[r].data();
+        b->bar = new std::barrier<>(nt);
+        for (int w = 0; w < nt / 32; ++w) b->warp_bar[w] = new std::barrier<>(32);
+        clu.blocks.push_back(b);
+      }
       std::vector<std::thread> th;
-      for (int i = 0; i < nt; ++i) th.emplace_back([&, i] { threadIdx = {(unsigned)i, 0, 0}; fn(); });
+      for (unsigned r = 0; r < nc; ++r)
+        for (int i = 0; i < nt; ++i)
+          th.emplace_back([&, r, i] {
+            threadIdx = {(unsigned)i, 0, 0};
+            blockIdx = {x0 + r, y, 0};
+            t_blk = clu.blocks[r];
+            t_clu = &clu;
+            fn();
+          });
       for (auto& t : th) t.join();
-      for (auto*& b : g_named_bar) { delete b; b = nullptr; }
       g_copies.clear();   // a copy no thread waited for never lands
     }
-  for (auto* b : wb) delete b;
+}
+
+template <class F>
+void emu_launch(dim3 grid, int nt, size_t smem, cudaStream_t, F fn) {
+  emu_launch_cluster(grid, nt, smem, 1, fn);
+}
+
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { int id; cudaLaunchAttributeValue val; };
+enum { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(P...), A&&... args) {
+  unsigned nc = 1;
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeClusterDimension) nc = c->attrs[i].val.clusterDim.x;
+  if (nc < 1 || nc > 8 || c->gridDim.x % nc) return cudaErrorInvalidValue;
+  emu_launch_cluster(c->gridDim, c->blockDim.x, c->dynamicSmemBytes, nc, [&] { k(args...); });
+  return 0;
+}
+// every SM's resident blocks in whole clusters, as if one GPC held them all
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, F k, const cudaLaunchConfig_t* c) {
+  unsigned nc = 1;
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeClusterDimension) nc = c->attrs[i].val.clusterDim.x;
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, c->blockDim.x, c->dynamicSmemBytes);
+  *n = per_sm * g_sm_count / (int)nc;
+  return 0;
 }
 """
 
@@ -248,7 +321,7 @@ def _host_source(name: str) -> str:
     """csrc/<name>.cu for the host compiler: dynamic shared memory is the
     stub's buffer, and each <<<grid, block, smem, stream>>> launch goes
     through ``emu_launch``."""
-    s = re.sub(r"extern __shared__ (__align__\(16\) )?float sm\[\];", "float* sm = g_smem;",
+    s = re.sub(r"extern __shared__ (__align__\(16\) )?float sm\[\];", "float* sm = emu_smem();",
                (CSRC / f"{name}.cu").read_text())
     return re.sub(r"(\w+(?:<[\w, ]+>)?)<<<([^>]*)>>>\((.*?)\);",
                   r"emu_launch(\2, [&] { \1(\3); });", s, flags=re.S)
@@ -379,8 +452,102 @@ def emu_probes(tmp_path_factory):
     lib.pr_ens_gemm.restype = ctypes.c_int
     lib.pr_ens_gemm_occupancy.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.pr_ens_gemm_occupancy.restype = ctypes.c_int
+    lib.pr_step_chain.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.pr_step_chain.restype = ctypes.c_int
+    lib.pr_step_chain_launch.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.pr_step_chain_launch.restype = ctypes.c_int
+    lib.pr_launch_nop.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    lib.pr_launch_nop.restype = ctypes.c_int
     lib.emu_set_sm_count.argtypes = [ctypes.c_int]
     return lib
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 4])
+@pytest.mark.parametrize("s,o,n,dx,k,h,n_sm,cluster", [
+    (2, 1, 70, 8, 87, 32, 1, 1),      # one object, one ragged tile (warp 4 partly, 5-7 idle)
+    (3, 3, 129, 8, 87, 32, 1, 1),     # two tiles: 128 rows, then 1
+    (1, 2, 600, 8, 87, 32, 1, 1),     # five tiles: each stage is refilled
+    (1, 2, 5, 3, 20, 16, 132, 8),     # DX = 3 (4-byte copies), small widths; 8 ranks for
+                                      # 5 rays: three ranks have no rows
+    (1, 1, 64, 8, 87, 64, 2, 2),      # H = 64; two ranks of 32 rays
+    (1, 1, 300, 8, 87, 32, 2, 4),     # four ranks of 75 rays, more ranks than tiles
+])
+def test_emulated_step_chain_matches_plain(emu_probes, depth, s, o, n, dx, k, h, n_sm, cluster):
+    """step_chain_kernel against step_chain_plain, in clusters of 1, 2, 4
+    and 8 blocks (the SM count and the stub's residency by shared memory
+    decide; pr_step_chain_launch reports it)."""
+    rng = np.random.default_rng(2)
+    xs = (0.1 * rng.standard_normal((s, o, n, dx))).astype(np.float32)
+    w0 = rng.standard_normal((o, dx, k)).astype(np.float32)
+    w1 = rng.standard_normal((o, k, h)).astype(np.float32)
+    w2 = (0.3 * rng.standard_normal((o, h, h))).astype(np.float32)
+    out = np.full((s, o, 1, h), np.nan, np.float32)
+    res = (ctypes.c_int * 6)()
+    emu_probes.emu_set_sm_count(n_sm)
+    try:
+        assert emu_probes.pr_step_chain_launch(s, o, n, dx, k, h, depth, res) == 0
+        err = emu_probes.pr_step_chain(_ptr(xs), _ptr(w0), _ptr(w1), _ptr(w2), _ptr(out),
+                                       s, o, n, dx, k, h, depth, None)
+    finally:
+        emu_probes.emu_set_sm_count(132)
+    assert err == 0
+    assert res[4] == cluster and res[3] == s * o * cluster
+    ref = probes.step_chain_plain(*(torch.from_numpy(a) for a in (xs, w0, w1, w2)), depth).numpy()
+    assert float(np.abs(out - ref).max()) <= CHAIN_RTOL * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("s,o,n,dx,k,h,depth,cluster,blocks,smem", [
+    (100, 64, 1200, 8, 87, 32, 4, 1, 6400, 60_920),   # q3: a block per pair
+    (4, 16, 1200, 8, 87, 32, 0, 4, 256, 60_920),      # q4: 4 ranks of 300 rays (8 would
+                                                      # not all be resident at 3 a SM)
+    (4, 8, 1200, 8, 87, 32, 1, 8, 256, 60_920),       # 8 ranks of 150 rays
+    (1, 1, 10, 16, 128, 64, 2, 8, 8, 182_552),        # the largest widths
+])
+def test_emulated_step_chain_launch_layout(emu_probes, s, o, n, dx, k, h, depth, cluster, blocks,
+                                           smem):
+    """pr_step_chain_launch reports the launch pr_step_chain makes on 132
+    SMs: threads, dynamic shared memory, blocks and blocks per cluster (the
+    largest cluster whose blocks are all resident at once)."""
+    res = (ctypes.c_int * 6)()
+    assert emu_probes.pr_step_chain_launch(s, o, n, dx, k, h, depth, res) == 0
+    assert list(res)[1:5] == [256, smem, blocks, cluster]
+    assert res[5] >= s * o or cluster == 1   # every pair's cluster resident at once
+
+
+def test_emulated_step_chain_rejects_bad_arguments(emu_probes):
+    """DX > 16, K > 128, H not a multiple of 4 or over 64, depth < 0 and
+    depth 0 with H > K are refused."""
+    buf = np.zeros(1, np.float32)
+    for dx, k, h, depth in ((17, 8, 8, 1), (8, 129, 8, 1), (8, 8, 6, 1), (8, 87, 68, 1),
+                            (8, 8, 8, -1), (8, 8, 12, 0)):
+        assert emu_probes.pr_step_chain(*[_ptr(buf)] * 5, 1, 1, 4, dx, k, h, depth, None) != 0
+
+
+def _at(n: int, ofs: int):
+    """A NaN-filled float32 buffer and the view of n floats in it that starts
+    ofs floats past a 16-byte boundary."""
+    buf = np.full(n + 8, np.nan, np.float32)
+    start = (-(buf.ctypes.data // 4)) % 4 + ofs
+    return buf, buf[start:start + n]
+
+
+@pytest.mark.parametrize("n,x_ofs,y_ofs", [
+    (704, 0, 0),       # the probe's [8, 88]: 176 float4s, one block of 192 threads
+    (704, 1, 1),       # aligned alike: 3 head floats, 175 float4s, 1 tail float
+    (7, 3, 3),         # 1 head float, 1 float4, 2 tail floats
+    (2, 1, 1),         # shorter than the head
+    (705, 1, 2),       # not aligned alike: every float singly
+    (100_003, 0, 0),   # 25 blocks of 256 threads, 4 float4s each
+    (100_003, 2, 3),   # the same grid, singly
+])
+def test_emulated_launch_nop_is_a_copy(emu_probes, n, x_ofs, y_ofs):
+    """launch_nop_kernel copies exactly, and writes nothing around y."""
+    _, x = _at(n, x_ofs)
+    x[:] = np.random.default_rng(5).standard_normal(n).astype(np.float32)
+    ybuf, y = _at(n, y_ofs)
+    assert emu_probes.pr_launch_nop(_ptr(x), _ptr(y), n, None) == 0
+    assert np.array_equal(x, y)
+    assert np.isnan(ybuf).sum() == ybuf.size - n
 
 
 @pytest.mark.parametrize("schedule", probes.SCHEDULES)
@@ -517,3 +684,27 @@ def test_ens_gemm_parts_edits_the_persistent_kernel(tmp_path, monkeypatch):
     assert body[body.index("{"):].startswith("{\n  return;\n")   # returns before any split
     assert "bulk_copy_g2s(dst, src, bytes, bar);" not in nosplit
     assert all(p.parent == tmp_path / "parts" for k, p in srcs.items() if k != "whole")
+
+
+def test_step_chain_parts_edits_the_chain(tmp_path, monkeypatch):
+    """openobj_torch.scripts.step_chain_parts builds copies of probes.cu
+    whose chain kernel has no mma_step (noproduct) or no sinf (nosine), and
+    leaves the ensemble GEMM's products and sines as they are."""
+    from openobj_torch import kernels
+    from openobj_torch.scripts import step_chain_parts
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    srcs = step_chain_parts.part_sources(parts=step_chain_parts.PARTS)
+    assert srcs["whole"] == CSRC / "probes.cu" and set(srcs) == {"whole", "noproduct", "nosine"}
+    whole = srcs["whole"].read_text()
+
+    def chain(text):   # chain_rows, where the edits fall
+        body = text[text.index("__device__ inline void chain_rows("):]
+        return body[:body.index("\n}\n")]
+
+    noproduct, nosine = srcs["noproduct"].read_text(), srcs["nosine"].read_text()
+    assert chain(whole).count("mma_step<") == 2 and "mma_step<" not in chain(noproduct)
+    assert chain(whole).count("sinf(") == 4 and "sinf(" not in chain(nosine)
+    assert chain(nosine).count("mma_step<false, NB>") == 2
+    for text in (noproduct, nosine):   # the rest of the source is untouched
+        assert text.replace(chain(text), "") == whole.replace(chain(whole), "")

@@ -1,7 +1,8 @@
 """The probe kernels (openobj_torch/csrc/probes.cu) against their plain
 PyTorch versions, on a GPU, at ragged shapes: N not a multiple of the tile,
 one object, object counts not a multiple of the object tile, chain depths
-0, 1, 2 and 4.
+0, 1, 2 and 4 in clusters of 1, 4 and 8 blocks, the no-op on views that
+are not 16-byte aligned.
 
 Every test here needs an NVIDIA GPU (sm_90a) and nvcc: the kernels have no
 CPU mode, so without a card they skip. The file imports neither jax nor
@@ -63,9 +64,19 @@ def test_ens_gemm_matches_plain(cuda_device, schedule, sin, o, n, k, h, obj_tile
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 88), (3, 5), (1,)])
+@pytest.mark.parametrize("shape", [(8, 88), (3, 5), (1,), (100_003,)])
 def test_launch_nop_is_a_copy(cuda_device, shape):
     x = torch.randn(shape, device=cuda_device)
+    assert torch.equal(probes.launch_nop_cuda(x), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ofs", [(704, 1), (100_003, 1), (5, 3), (2, 1)])
+def test_launch_nop_copies_offset_views(cuda_device, n, ofs):
+    """x starts ofs floats past its buffer's (16-byte aligned) start, y at a
+    fresh allocation's: not aligned alike, every float goes singly."""
+    x = torch.randn(n + ofs, device=cuda_device)[ofs:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * ofs
     assert torch.equal(probes.launch_nop_cuda(x), x)
 
 
@@ -90,6 +101,9 @@ def test_slab_stream_matches_plain(cuda_device, s, o, r, dx, k, h, ot):
     (3, 3, 129, 8, 87, 32),
     (1, 2, 5, 3, 20, 16),         # fewer rays than a tile, small widths
     (1, 1, 64, 8, 87, 64),        # H = 64: two columns per lane
+    (4, 8, 1200, 8, 87, 32),      # q4's shape: 32 pairs, clusters of 4 blocks on an H100
+    (1, 1, 70, 8, 87, 32),        # one pair, 8 ranks of 8-9 rays each
+    (5, 64, 130, 8, 87, 32),      # 320 pairs: a block per pair (clusters of 1)
 ])
 def test_step_chain_matches_plain(cuda_device, depth, s, o, n, dx, k, h):
     gen = torch.Generator(device=cuda_device).manual_seed(2)
