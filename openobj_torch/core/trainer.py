@@ -10,9 +10,14 @@ Workload shape at the Replica room_0 envelope: per object and step 120 rays
 (win 5 x 24 pixels) x 10 samples; background 1200 rays x 14 samples with its
 own 128-wide field; one AdamW over everything, lr 1e-3, wd 0.013.
 
-The field forward/backward goes through ``ops.fused_field``: on a CUDA
-device that is always the hand-written kernel pair, whatever
-``field_impl`` says; on the CPU it is the kernels' plain version. Knobs that
+The field forward/backward goes through ``ops.fused_field.field_evaluator``,
+whatever ``field_impl`` says. Where the kernels cover the field's shape
+(``fused_field.kernels_cover``: ``max_deg`` 5, f32, a hidden width K2 is
+built for) that is the hand-written kernel pair on a CUDA device and the
+kernels' plain version on the CPU; any other shape runs the eager
+``object_field`` field on either device, as the reference's default
+``field_impl="xla"`` does. The pick is made on the shape before anything is
+launched, separately for the object stack and the background. Knobs that
 only shape the JAX program's layout (``scan_unroll``, ``remat``,
 ``gemm_impl``, ``optim_impl``, and the JAX package's ray-minor batch
 storage) are accepted so that configs load, and ignored.
@@ -62,7 +67,7 @@ class TrainConfig:
     bg_scale: float = 5.0
     do_bg: bool = True
     # accepted for config compatibility; the field runs through the fused
-    # kernels on a CUDA device and their plain version on the CPU
+    # kernels wherever they cover its shape (module docstring)
     field_impl: str = "xla"
     compute_dtype: str = "f32"             # "bf16" is not ported yet
     # JAX program layout knobs: accepted, ignored
@@ -290,9 +295,11 @@ def _loss_for_slice(params, batch, active, cfg: TrainConfig, is_bg: bool):
     """Field forward + step_batch_loss on one step's ray slice."""
     pts = sampling.rays_to_points(batch["origins"], batch["dirs_w"], batch["z"])
     gt_pf = batch.get("partfeat")
+    field = fused_field.field_evaluator(
+        params, stacked=not is_bg, max_deg=cfg.max_deg, do_clip=cfg.part_mode,
+        compute_dtype=cfg.compute_dtype, grad=True)
+    a, c, f = field(pts)
     if is_bg:
-        a, c, f = fused_field.field_apply_fused(
-            params, pts, max_deg=cfg.max_deg, do_clip=cfg.part_mode)
         a, c = a[None], c[None]
         f = f[None] if f is not None else None
         gt_rgb, gt_d = batch["rgb"][None], batch["depth"][None]
@@ -300,8 +307,6 @@ def _loss_for_slice(params, batch, active, cfg: TrainConfig, is_bg: bool):
         gt_pf = gt_pf[None] if gt_pf is not None else None
         act = None
     else:
-        a, c, f = fused_field.field_apply_stacked_fused(
-            params, pts, max_deg=cfg.max_deg, do_clip=cfg.part_mode)
         gt_rgb, gt_d = batch["rgb"], batch["depth"]
         state, z = batch["state"], batch["z"]
         act = active

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from openobj_torch.models import object_field
 from openobj_torch.models.object_field import tree_map
 from openobj_torch.ops import embedding
 from openobj_torch.ops.mlp import ALPHA_SCALE
@@ -33,9 +34,11 @@ _F32 = torch.float32
 _E1, _E2, _ND, _NF = 87, 42, 21, 6
 BWD_WIDTHS = (32, 128)   # hidden widths K2 is built for (every shipped config)
 
-# launches of each kernel (and calls of the plain version), as plain ints
+# launches of each kernel, calls of the plain version, and calls that took
+# the eager field because the kernels do not cover them, as plain ints
 COUNTS = {"fused_field_fwd": 0, "fused_field_bwd": 0,
-          "fused_field_bwd_reduce": 0, "fused_field_plain": 0}
+          "fused_field_bwd_reduce": 0, "fused_field_plain": 0,
+          "field_eager": 0}
 
 
 def reset_counts() -> None:
@@ -284,6 +287,24 @@ def fused_field_apply(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
     return fused_field_plain(wflat, pts_scaled, h, do_clip)
 
 
+def kernels_cover(max_deg: int, compute_dtype: str, h: int, grad: bool) -> bool:
+    """Whether the kernels compute a field call of this shape: the reference
+    PE layout (``max_deg`` 5, the 87/42 split the packed layout hard-codes),
+    f32, and, when a gradient is wanted, a width K2 is built for
+    (``BWD_WIDTHS``). K1 takes any width."""
+    return max_deg == 5 and compute_dtype == "f32" and (not grad or h in BWD_WIDTHS)
+
+
+def _apply_packed(wflat, scale, points, h: int, do_clip: bool):
+    """Packed params [O, P] and per-object PE scale [O] at points [O, ..., 3]."""
+    o = points.shape[0]
+    lead = points.shape[1:-1]
+    pts_scaled = (points.reshape(o, -1, 3) / scale[:, None, None]).detach()
+    alpha, color, hclip = fused_field_apply(wflat, pts_scaled, h, do_clip)
+    return (alpha.reshape(o, *lead, 1), color.reshape(o, *lead, 3),
+            hclip.reshape(o, *lead, h) if do_clip else None)
+
+
 def field_apply_stacked_fused(
     stacked_params: dict,
     points: torch.Tensor,     # [O, ..., 3]
@@ -307,19 +328,9 @@ def field_apply_stacked_fused(
         raise NotImplementedError(
             f"compute_dtype={compute_dtype!r}: the fused field is f32 only so far")
     h = stacked_params["mlp"]["in_layer"]["w"].shape[-1]
-    o = points.shape[0]
-    lead = points.shape[1:-1]
-    pts = points.reshape(o, -1, 3)
-    scale = stacked_params["pe"]["scale"].detach()
-    pts_scaled = (pts / scale[:, None, None]).detach()
-
     do_clip = do_clip and "clip_linear" in stacked_params["mlp"]
     wflat = _pack_params(stacked_params, h, do_clip)
-    alpha, color, hclip = fused_field_apply(wflat, pts_scaled, h, do_clip)
-    alpha = alpha.reshape(o, *lead, 1)
-    color = color.reshape(o, *lead, 3)
-    hclip = hclip.reshape(o, *lead, h) if do_clip else None
-    return alpha, color, hclip
+    return _apply_packed(wflat, stacked_params["pe"]["scale"].detach(), points, h, do_clip)
 
 
 def field_apply_fused(params: dict, points: torch.Tensor, max_deg: int = 5,
@@ -331,3 +342,40 @@ def field_apply_fused(params: dict, points: torch.Tensor, max_deg: int = 5,
         compute_dtype=compute_dtype,
     )
     return a[0], c[0], (f[0] if f is not None else None)
+
+
+def field_evaluator(params: dict, stacked: bool, max_deg: int = 5,
+                    do_clip: bool = True, compute_dtype: str = "f32",
+                    grad: bool = False):
+    """A function ``points -> (alpha, color, clip_hidden | None)`` for one
+    field (``stacked=False``: points [..., 3]) or a stack (points
+    [O, ..., 3]), the counterpart of ``object_field.field_apply(_stacked)(...,
+    clip_hidden_only=True)``.
+
+    Where the kernels cover the call (``kernels_cover``; ``grad`` says
+    whether a backward will follow), the params are packed once, here, and
+    every call runs K1 (its plain version on a CPU tensor). Otherwise every
+    call runs the eager field and counts one ``field_eager``. The choice is
+    made on the shape alone, before anything is launched."""
+    h = params["mlp"]["in_layer"]["w"].shape[-1]
+    if not kernels_cover(max_deg, compute_dtype, h, grad):
+        apply = object_field.field_apply_stacked if stacked else object_field.field_apply
+
+        def eager(points):
+            COUNTS["field_eager"] += 1
+            return apply(params, points, max_deg=max_deg, do_clip=do_clip,
+                         clip_hidden_only=True, compute_dtype=compute_dtype)
+        return eager
+
+    sp = params if stacked else tree_map(lambda x: x.unsqueeze(0), params)
+    do_clip = do_clip and "clip_linear" in sp["mlp"]
+    wflat = _pack_params(sp, h, do_clip)
+    scale = sp["pe"]["scale"].detach()
+
+    def fused(points):
+        a, c, f = _apply_packed(wflat, scale, points if stacked else points[None],
+                                h, do_clip)
+        if stacked:
+            return a, c, f
+        return a[0], c[0], (f[0] if f is not None else None)
+    return fused

@@ -163,3 +163,56 @@ def test_unbuilt_width_raises_before_the_forward(cuda_device):
         alpha, _, _ = tff.fused_field_apply(w, pts, 64, True)
     assert tff.COUNTS["fused_field_fwd"] == before + 1
     assert alpha.shape == (2, 8, 1)
+
+
+@pytest.mark.cuda
+def test_uncovered_widths_train_on_the_card(cuda_device):
+    """hidden 8 / hidden_bg 16 (widths K2 is not built for) train on the card
+    through the eager field instead of raising, and the card's per-step
+    losses agree with the CPU's from the same state and batches (rel 1e-4)."""
+    import numpy as np
+
+    from openobj_torch import convert
+    from openobj_torch.core import trainer
+    from openobj_torch.core.frame_store import append_frame, init_frame_store
+    from openobj_torch.core.scene import Camera
+
+    cfg = trainer.TrainConfig(
+        n_iters_per_frame=3, win_size=2, n_samples_per_frame=8, win_size_bg=2,
+        n_samples_per_frame_bg=16, hidden=8, hidden_bg=16, clip_size=16,
+        part_mode=True, part_down=4)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    state_cpu = trainer.init_train_state(gen, cfg, n_slots=2, device="cpu")
+    store = init_frame_store(1, 16, 20, part_feat_dim=16, part_down=4, device="cpu")
+    store, _ = append_frame(
+        store, rng.integers(0, 255, (16, 20, 3)).astype(np.uint8),
+        rng.uniform(0.5, 3.0, (16, 20)).astype(np.float32),
+        rng.integers(-1, 3, (16, 20)).astype(np.int32), np.eye(4, dtype=np.float32),
+        partfeat=rng.normal(size=(4, 5, 16)).astype(np.float32))
+    fg = {"kf_frames": torch.zeros((2, 2), dtype=torch.int32),
+          "kf_bbox": torch.tensor([0, 16, 0, 20], dtype=torch.float32).repeat(2, 2, 1),
+          "n_kf": torch.ones(2, dtype=torch.int32),
+          "latest2": torch.zeros((2, 2), dtype=torch.int32),
+          "active": torch.tensor([True, True]),
+          "obj_inst": torch.arange(1, 3, dtype=torch.int32),
+          "obj_center": torch.zeros((2, 3))}
+    bg = {"kf_frames": fg["kf_frames"][0], "kf_bbox": fg["kf_bbox"][0],
+          "n_kf": torch.tensor(1, dtype=torch.int32), "latest2": fg["latest2"][0]}
+    dirs = Camera(20, 16, 12.0, 12.0, 10.0, 8.0).ray_dirs("cpu")
+    fg_b = trainer.sample_fg_batch(gen, store, dirs, fg, cfg, scan_order=True)
+    bg_b = trainer.sample_bg_batch(gen, store, dirs, bg, cfg, scan_order=True)
+    state_gpu = convert.train_state_from_numpy(convert.to_numpy(state_cpu), cuda_device)
+    tff.reset_counts()
+    for i in range(cfg.n_iters_per_frame):
+        fsl = {k: x[i] for k, x in fg_b.items()}
+        bsl = {k: x[i] for k, x in bg_b.items()}
+        state_cpu, l_cpu = trainer.run_step(state_cpu, fsl, bsl, fg["active"], cfg,
+                                            store.partfeat)
+        state_gpu, l_gpu = trainer.run_step(
+            state_gpu, {k: x.to(cuda_device) for k, x in fsl.items()},
+            {k: x.to(cuda_device) for k, x in bsl.items()},
+            fg["active"].to(cuda_device), cfg, store.partfeat.to(cuda_device))
+        assert abs(float(l_gpu) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
+    assert tff.COUNTS["field_eager"] == 4 * cfg.n_iters_per_frame   # fg + bg, both devices
+    assert tff.COUNTS["fused_field_fwd"] == tff.COUNTS["fused_field_bwd"] == 0

@@ -78,10 +78,8 @@ def _scene_inputs():
     return cam, store, fg, bg
 
 
-@pytest.mark.parametrize("field_impl", ["xla", "pallas"])
-def test_step_losses_match_jax_train_frame(field_impl, monkeypatch):
-    jcfg = jtrainer.TrainConfig(field_impl=field_impl, **CFG_KW)
-    tcfg = ttrainer.TrainConfig(field_impl=field_impl, **CFG_KW)
+def _step_losses(monkeypatch, jcfg, tcfg):
+    """(port's per-step losses on injected batches, JAX train_frame's)."""
     cam, store, fg, bg = _scene_inputs()
     key = jax.random.PRNGKey(3)
     state = _JIT_INIT(jax.random.PRNGKey(0), jcfg, n_slots=4)
@@ -99,8 +97,44 @@ def test_step_losses_match_jax_train_frame(field_impl, monkeypatch):
             ts, {k: torch.from_numpy(np.array(v)) for k, v in fsl.items()},
             {k: torch.from_numpy(np.array(v)) for k, v in bsl.items()}, active, tcfg)
         tlosses.append(float(loss))
-    np.testing.assert_allclose(np.array(tlosses), jlosses, rtol=1e-4)
+    return np.array(tlosses), jlosses
+
+
+@pytest.mark.parametrize("field_impl", ["xla", "pallas"])
+def test_step_losses_match_jax_train_frame(field_impl, monkeypatch):
+    jcfg = jtrainer.TrainConfig(field_impl=field_impl, **CFG_KW)
+    tcfg = ttrainer.TrainConfig(field_impl=field_impl, **CFG_KW)
+    tlosses, jlosses = _step_losses(monkeypatch, jcfg, tcfg)
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
     assert len(set(tlosses)) == len(tlosses)   # every step moved the params
+
+
+# (config overrides, fg steps through the kernels' plain version, bg steps
+# through it); every other field call takes the eager field
+_C1_CASES = {
+    "max_deg4": (dict(max_deg=4, hidden=32, hidden_bg=128), 0, 0),
+    "h32_bg16": (dict(hidden=32), 1, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(_C1_CASES))
+def test_field_dispatch_by_shape(case, monkeypatch):
+    """Shapes the kernels do not cover (another PE band count, hidden widths
+    K2 is not built for) train through the eager field and match JAX's
+    default XLA field, rel 1e-4; covered shapes keep the kernels' path. The
+    pick is per field: a covered fg stack beside an uncovered bg. (CFG_KW's
+    own widths, 8 and 16, are the eager case of the test above.)"""
+    from openobj_torch.ops import fused_field as tff
+
+    kw, fg_fused, bg_fused = _C1_CASES[case]
+    cfg_kw = dict(CFG_KW, **kw)
+    jcfg, tcfg = jtrainer.TrainConfig(**cfg_kw), ttrainer.TrainConfig(**cfg_kw)
+    tff.reset_counts()
+    tlosses, jlosses = _step_losses(monkeypatch, jcfg, tcfg)
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
+    steps = cfg_kw["n_iters_per_frame"]
+    assert tff.COUNTS["fused_field_plain"] == steps * (fg_fused + bg_fused)
+    assert tff.COUNTS["field_eager"] == steps * (2 - fg_fused - bg_fused)
 
 
 def test_port_train_frame_runs_and_grows():
