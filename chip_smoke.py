@@ -14,6 +14,25 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      envelope (configs/replica/room_0.json, 680x1200 frames, 50 objects +
      background, 512-d part features) for 3 frames, with the launch counts
      reset just before and read just after;
+  4b. the map's outputs of that mapper at full width, with the counts reset
+     just before and read just after: train.save_checkpoints (one object
+     and the background reloaded, field outputs bit-identical),
+     train.render_dataset of one pose (680x1200, 150 bins, chunks of 2048)
+     and train.export_meshes (the config's grid 128, voxel 0.005): K1 must
+     carry every field evaluation, as many launches as the code implies,
+     with no K2, plain or eager call. Then, outside the counted run, one
+     chunk of 4 objects rendered through K1 and through the plain field on
+     the card with the same jitter, one object's occupancy grid likewise,
+     one mesh timed stage by stage, and K1 against its plain version at
+     the render and mesh shapes (K1's rows of the kernels line gain those
+     shapes, each with the launches counted at exactly its dims);
+  4c. the port of examples/run_synthetic_scene.py's stages 2-4 on a scene
+     with ground truth (ground-truth instance ids in place of the
+     association stage): training with hidden_bg 64 (the SIMT K1 and K2;
+     never the eager field), a held-out render composited, meshes, with the
+     counts reset before and read after; PSNR > 18, depth MAE < 0.3 m and
+     at least one mesh, the example's gates; then K1/K2/K2r against their
+     plain versions at the h=64 shapes that run launched;
   5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
      scripts/bench_ensemble_mm.py and scripts/bench_fused_step_probe.py):
      drives the two probe scripts' port (openobj_torch.scripts.*) with the
@@ -21,8 +40,10 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      answers, and holds each kernel's output from that run against its
      plain version, beside the times the scripts took of kernel, plain
      version and library call, and the bound;
-  6. prints one JSON line with every kernel's numbers, the card's
-     nvidia-smi line, and last a JSON line {"ok": true, "device": ...}.
+  6. prints one JSON line with every kernel's numbers (the fused field's
+     launches summed over the counted runs of phases 4, 4b and 4c, and by
+     run and shape as counted), the card's nvidia-smi line, and last a
+     JSON line {"ok": true, "device": ...}.
 
 Each phase raises on failure; the script then exits non-zero and prints no
 result line. Without a CUDA device, or without the repository beside it, it
@@ -32,6 +53,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -54,6 +76,17 @@ BG = dict(name="bg", o=1, n=16800, h=128)     # 1200 rays x 14 samples
 
 FWD_ATOL = 1e-4
 GRAD_RTOL = 1e-3
+# phase 4b: K1's render against the plain field on the card (one chunk of
+# 4 objects, the same jitter): depth and colour where both pick the same
+# winner, and the share of pixels whose winner differs (sharp thresholds:
+# opacity >= 0.9, depth within the box, the z-buffer's strict <)
+RENDER_ATOL = 1e-3
+WINNER_FLIP_FRAC = 1e-3
+OCC_ATOL = 1e-4
+# phase 4b's render envelope (the JAX package's train.render_dataset
+# defaults) and the view renderer's chunk
+RENDER_BINS, RENDER_CHUNK, HIT_FRAC, VIEW_CHUNK = 150, 2048, 0.25, 4096
+MESH_CHUNK = 65536          # meshing.eval_points_chunked's default
 
 
 def log(msg: str) -> None:
@@ -75,6 +108,13 @@ def fwd_macs(h: int) -> int:
     """Multiply-adds per point of the field forward (clip head on): the
     matrix products, the projection, the alpha and colour heads."""
     return 21 * 3 + fwd_mm_macs(h) + h + 3 * h
+
+
+def fwd_macs_noclip(h: int) -> tuple[int, int]:
+    """(all, matrix-product) multiply-adds per point of the forward with the
+    clip head off, as rendering and meshing run it."""
+    clip = (h + 42) * h
+    return fwd_macs(h) - clip, fwd_mm_macs(h) - clip
 
 
 def bwd_macs(h: int) -> int:
@@ -124,7 +164,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # --------------------------------------------------------------------------- #
 
 
-def check_kernels(device) -> dict:
+def kernel_names(h: int) -> dict:
+    """The CUDA kernel behind each count at hidden width h."""
+    tc = h in (32, 128)
+    return {"fused_field_fwd": f"ff_fwd_kernel<{h}>" if tc else "ff_fwd_generic_kernel",
+            "fused_field_bwd": f"ff_bwd_kernel<{h}>" if tc else "ff_bwd_generic_kernel",
+            "fused_field_bwd_reduce": "ff_reduce_kernel"}
+
+
+def check_kernels(device, shapes=(FG, BG)) -> dict:
+    """Each kernel against its plain version at each shape, and its times."""
     import torch
     from openobj_torch.models import object_field
     from openobj_torch.ops import fused_field as ff
@@ -132,7 +181,7 @@ def check_kernels(device) -> dict:
     per = {"fused_field_fwd": [], "fused_field_bwd": [], "fused_field_bwd_reduce": []}
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    for shape in (FG, BG):
+    for shape in shapes:
         o, n, h = shape["o"], shape["n"], shape["h"]
         params = object_field.init_stacked_fields(
             gen, o, hidden=h, clip_size=512, scale=2.0, device=device)
@@ -226,16 +275,20 @@ def check_kernels(device) -> dict:
         simt_fwd = bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes)[0]
         simt_bwd = bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes)[0]
         b_red = bound_ms(float(o * n_tiles * p), 4.0 * o * n_tiles * p + wbytes)
+        names = kernel_names(h)
         per["fused_field_fwd"].append(dict(
-            shape=shape["name"], ms=t_fwd, plain_ms=t_fwd_plain, bound=b_fwd,
+            shape=shape["name"], dims=[o, n, h], ms=t_fwd, plain_ms=t_fwd_plain, bound=b_fwd,
             bound_simt=simt_fwd, err=fwd_err, library_ms=None))
         per["fused_field_bwd"].append(dict(
-            shape=shape["name"], ms=t_bwd, plain_ms=t_bwd_plain, bound=b_bwd,
+            shape=shape["name"], dims=[o, n, h], ms=t_bwd, plain_ms=t_bwd_plain, bound=b_bwd,
             bound_simt=simt_bwd, err=bwd_err, rel=worst, library_ms=None))
         per["fused_field_bwd_reduce"].append(dict(
-            shape=shape["name"], ms=t_red, plain_ms=t_sum, bound=b_red,
+            shape=shape["name"], dims=[o, n, h], ms=t_red, plain_ms=t_sum, bound=b_red,
             bound_simt=b_red[0], err=red_err, library_ms=t_sum, tiles=n_tiles))
-        log(f"[kernels] {shape['name']} O={o} N={n} h={h}: "
+        for k, rows in per.items():
+            rows[-1]["kernel"] = names[k]
+        log(f"[kernels] {shape['name']} O={o} N={n} h={h} ({names['fused_field_fwd']}, "
+            f"{names['fused_field_bwd']}): "
             f"K1 err {fwd_err:.2e} {t_fwd:.4f} ms (plain {t_fwd_plain:.4f}, bound {b_fwd[0]:.4f} "
             f"{b_fwd[1]}, SIMT-only {simt_fwd:.4f}) | "
             f"K2 err {bwd_err:.2e} worst-leaf rel {worst:.2e} {t_bwd:.4f} ms tile {tile} "
@@ -393,7 +446,7 @@ def profile_frame(step) -> None:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
 
 
-def run_main_path(device, profile: bool = False) -> dict:
+def run_main_path(device, profile: bool = False):
     import torch
     from openobj_torch.config import load_scene_config, make_mapper
     from openobj_torch.ops import fused_field as ff
@@ -414,6 +467,7 @@ def run_main_path(device, profile: bool = False) -> dict:
         outs.append(losses)
     mapper.finish()
     counts = dict(ff.COUNTS)
+    by_shape = dict(ff.COUNTS_BY_SHAPE)
     if profile:   # one more frame, outside the counted run
         rgb, depth, inst, t_wc, pf = frames[-1]
         profile_frame(lambda: mapper.process_frame(rgb, depth, inst, t_wc, partfeat=pf))
@@ -436,6 +490,12 @@ def run_main_path(device, profile: bool = False) -> dict:
             raise AssertionError(f"{k} launched {counts[k]} times, expected {steps}")
     if counts["fused_field_plain"] != 0:
         raise AssertionError(f"plain version ran {counts['fused_field_plain']} times on the card")
+    if counts["field_eager"] != 0:
+        raise AssertionError(f"the eager field ran {counts['field_eager']} times at room_0's widths")
+    want = {(k, s["o"], s["n"], s["h"]): steps // 2 for s in (FG, BG)
+            for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce")}
+    if by_shape != want:
+        raise AssertionError(f"launches by shape {by_shape}, expected {want}")
     if mapper.state.n_slots != FG["o"] or mapper.n_objects != 50:
         raise AssertionError(f"bucket {mapper.state.n_slots} / objects {mapper.n_objects}")
     log(f"[main] room_0 envelope, {cam.height}x{cam.width}, {mapper.n_objects} objects "
@@ -443,7 +503,366 @@ def run_main_path(device, profile: bool = False) -> dict:
         f"{[round(t * 1e3, 1) for t in times]} ms (first includes warm-up); "
         f"last-step losses {[round(float(v[-1]), 4) for v in vecs]}; counts {counts}")
     log(f"[main] ms/frame (frames 2-3): {1e3 * float(np.mean(times[1:])):.1f}")
-    return counts
+    return by_shape, cfg, mapper, frames
+
+
+# --------------------------------------------------------------------------- #
+# phase 4b: the map's outputs at full width
+# --------------------------------------------------------------------------- #
+
+
+@contextlib.contextmanager
+def plain_field_on_card():
+    """Within: the fused field runs its plain version on CUDA tensors too
+    (for comparisons only; nothing is counted)."""
+    from openobj_torch.ops import fused_field as ff
+
+    launch = ff.fused_field_apply
+    ff.fused_field_apply = ff.fused_field_plain
+    try:
+        yield
+    finally:
+        ff.fused_field_apply = launch
+
+
+@contextlib.contextmanager
+def fixed_jitter(u):
+    """Within: the renderer's jitter is ``u`` (cut to the shape asked for)."""
+    from openobj_torch.core import renderer
+
+    draw = renderer._uniform
+    renderer._uniform = lambda gen, shape, device: u[tuple(slice(0, n) for n in shape)]
+    try:
+        yield
+    finally:
+        renderer._uniform = draw
+
+
+def k1_shape_row(name, wflat, pts, h, launches) -> dict:
+    """K1 with the clip head off at one render or mesh shape: its max abs
+    error from the plain version, its time, the plain version's and the
+    bound; ``launches`` were counted at exactly this shape."""
+    import torch
+    from openobj_torch.ops import fused_field as ff
+
+    o, n, _ = pts.shape
+    lib = ff._lib()
+    alpha = torch.empty((o, n, 1), device=pts.device)
+    color = torch.empty((o, n, 3), device=pts.device)
+
+    def fwd_k():
+        err = lib.ff_forward(pts.data_ptr(), wflat.data_ptr(), alpha.data_ptr(),
+                             color.data_ptr(), None, o, n, h, 0, ff._stream(pts))
+        if err:
+            raise RuntimeError(f"ff_forward: CUDA error {err}")
+
+    fwd_k()
+    with torch.no_grad():
+        a_p, c_p, _ = ff.fused_field_plain(wflat, pts, h, False)
+        torch.cuda.synchronize()
+        err = max(float((alpha - a_p).abs().max()), float((color - c_p).abs().max()))
+        del a_p, c_p
+        if not err <= FWD_ATOL:
+            raise AssertionError(f"K1 {name}: max abs err {err:.3e} > {FWD_ATOL}")
+        t_k = time_ms(fwd_k)
+        t_p = time_ms(lambda: ff.fused_field_plain(wflat, pts, h, False), iters=3, warmup=1)
+    macs, mm = fwd_macs_noclip(h)
+    npts = o * n
+    nbytes = npts * 12 + wflat.numel() * 4 + npts * 4 * (1 + 3)
+    b = bound_ms(2.0 * macs * npts, nbytes, 2.0 * mm * npts)
+    log(f"[outputs] K1 {name} [{o},{n},3] h={h}: err {err:.2e}, {t_k:.4f} ms "
+        f"(plain {t_p:.4f}, bound {b[0]:.4f} {b[1]}, SIMT-only "
+        f"{bound_ms(2.0 * macs * npts, nbytes)[0]:.4f}), {launches} launches at this shape")
+    return {"shape": name, "kernel": kernel_names(h)["fused_field_fwd"], "dims": [o, n, h],
+            "launches": launches, "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b[0], "bound_by": b[1],
+            "bound_simt_ms": bound_ms(2.0 * macs * npts, nbytes)[0], "library_ms": None}
+
+
+def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
+    """Phase 4b. Returns K1's rows for the render and mesh shapes, and the
+    launches by shape that the outputs made."""
+    import shutil
+    from types import SimpleNamespace
+
+    import torch
+    from openobj_torch import train
+    from openobj_torch.core import checkpoint, meshing, renderer
+    from openobj_torch.models import object_field
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.ops import sampling
+
+    from openobj_torch import native
+
+    if native.load() is None:
+        raise AssertionError("the native geometry library (native/geometry.cc) did not build")
+    out = os.path.join(ROOT, "build", "chip_smoke_outputs")
+    shutil.rmtree(out, ignore_errors=True)
+    cam, tc = cfg.camera, cfg.train
+    t_wc = frames[-1][3]
+    mapping = {i: i % 7 for i in mapper.registry.inst_to_slot}
+    mapping[0] = 0
+    torch.cuda.synchronize()
+
+    ff.reset_counts()
+    t0 = time.perf_counter()
+    train.save_checkpoints(mapper, out, t_wc)
+    t1 = time.perf_counter()
+    train.render_dataset(mapper, [SimpleNamespace(t_wc=t_wc, frame_id=0)], out, mapping,
+                         bg_ids=cfg.bg_ids, n_bins=RENDER_BINS, chunk=RENDER_CHUNK,
+                         hit_frac=HIT_FRAC)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_meshes = train.export_meshes(mapper, out, cfg.grid_dim, cfg.live_voxel_size)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = dict(ff.COUNTS)
+    by_shape = dict(ff.COUNTS_BY_SHAPE)
+
+    # the launches the code implies: one K1 per fg chunk (every object at
+    # once), one per chunk of each background-id view (the config's bg ids
+    # 0/2/3: the background model and, here, blocks 2 and 3), and per
+    # meshed object its grid chunks plus its vertex chunks
+    reg = mapper.registry
+    ids, params, t_wo, ext, cen = train.render_stack(mapper, cfg.bg_ids)
+    n_views = sum(1 for i, s in reg.inst_to_slot.items()
+                  if i in cfg.bg_ids and reg.slots[s].bbox3d is not None)
+    bg_model = int(tc.do_bg and reg.bg is not None and reg.bg.bbox3d is not None)
+    n_px = cam.height * cam.width
+    dirs_c = mapper.cam_dirs.reshape(-1, 3)
+    tw = torch.as_tensor(t_wc, dtype=torch.float32, device=device)
+    origins, dirs_w = sampling.origin_dirs_w(tw.expand(n_px, 4, 4), dirs_c)
+    act = torch.ones(len(ids), dtype=torch.bool, device=device)
+    need = int(renderer.obb_hit_counts(t_wo, ext, act, origins, dirs_w).max())
+    full = -(-n_px // RENDER_CHUNK) * RENDER_CHUNK
+    cap = min(-(-int(n_px * HIT_FRAC) // RENDER_CHUNK) * RENDER_CHUNK, full)
+    while cap < min(need, full):
+        cap = min(cap * 2, full)
+    fg_launches = cap // RENDER_CHUNK
+    view_chunks = -(-n_px // VIEW_CHUNK)
+    bg_launches = (n_views + bg_model) * view_chunks
+    mesh_launches = 0
+    for i, s in reg.inst_to_slot.items():
+        dim = meshing.adaptive_grid_dim(reg.slots[s].bbox3d, cfg.live_voxel_size, cfg.grid_dim)
+        mesh_launches += -(-dim ** 3 // min(MESH_CHUNK, dim ** 3))
+        obj = os.path.join(out, "scene_mesh", f"obj{i}.obj")
+        if os.path.exists(obj):
+            with open(obj) as f:
+                n_v = sum(1 for line in f if line.startswith("v "))
+            mesh_launches += -(-n_v // MESH_CHUNK)
+    want = fg_launches + bg_launches + mesh_launches
+    if counts["fused_field_fwd"] != want:
+        raise AssertionError(f"K1 launched {counts['fused_field_fwd']} times, the code implies "
+                             f"{want} ({fg_launches} fg, {bg_launches} bg, {mesh_launches} mesh)")
+    others = {k: v for k, v in counts.items() if k != "fused_field_fwd" and v}
+    if others:
+        raise AssertionError(f"the outputs ran more than K1: {others}")
+    if sum(by_shape.values()) != counts["fused_field_fwd"]:
+        raise AssertionError(f"launches by shape {by_shape} do not add up to {counts}")
+    boxed = sum(st.bbox3d is not None for st in reg.slots.values())
+    if n_meshes < 1 or boxed != mapper.n_objects:
+        raise AssertionError(f"{n_meshes} meshes, {boxed} of {mapper.n_objects} objects boxed")
+    for name in ("rgb_0", "depth_0", "maskid_0", "inst_0"):
+        if not os.path.exists(os.path.join(out, "render", f"{name}.png")):
+            raise AssertionError(f"render_dataset wrote no {name}.png")
+    log(f"[outputs] checkpoints {1e3 * (t1 - t0):.1f} ms; rendered frame "
+        f"{cam.height}x{cam.width}, {RENDER_BINS} bins: {1e3 * (t2 - t1):.1f} ms/frame "
+        f"({len(ids)} objects together, cap {cap} rays each, {need} hit at most; "
+        f"{n_views} background-id objects and the background model as views); {n_meshes} "
+        f"meshes at grid "
+        f"{cfg.grid_dim}: {1e3 * (t3 - t2) / max(n_meshes, 1):.1f} ms/mesh; counts {counts}")
+
+    # reload one object and the background: bit-identical field outputs
+    gen = torch.Generator(device=device).manual_seed(0)
+    pts = 0.5 * torch.randn((4096, 3), generator=gen, device=device)
+    slot = reg.inst_to_slot[int(ids[0])]
+    for inst, live, h in ((ids[0], mapper.slot_params(slot), tc.hidden),
+                          (0, mapper.state.bg_params, tc.hidden_bg)):
+        template = object_field.init_field_params(gen, hidden=h, clip_size=tc.clip_size,
+                                                  device=device)
+        ck = checkpoint.load_object_checkpoint(
+            os.path.join(out, "ckpt", str(inst), f"obj_{inst}.npz"), template)
+        with torch.no_grad():
+            a = ff.field_evaluator(ck["params"], stacked=False)(pts)
+            b = ff.field_evaluator(live, stacked=False)(pts)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"object {inst}: reloaded field outputs differ")
+    log(f"[outputs] object {ids[0]} and the background reloaded: field outputs bit-identical")
+
+    # one chunk of 4 objects through K1 and through the plain field
+    sub = slice(0, 4)
+    u = torch.rand((4, RENDER_CHUNK, RENDER_BINS), generator=gen, device=device)
+    args = (object_field.tree_map(lambda x: x[sub], params), t_wo[sub], ext[sub], cen[sub],
+            act[sub], origins, dirs_w, gen)
+    kw = dict(n_bins=RENDER_BINS, max_hit_rays=RENDER_CHUNK, chunk=RENDER_CHUNK,
+              max_deg=tc.max_deg)
+    with fixed_jitter(u):
+        got = renderer.render_frame_batched(*args, **kw)
+        with plain_field_on_card():
+            ref = renderer.render_frame_batched(*args, **kw)
+    wk, wp = got["winner"], ref["winner"]
+    either = int(((wk >= 0) | (wp >= 0)).sum())
+    flips = int(((wk != wp) & ((wk >= 0) | (wp >= 0))).sum())
+    same = (wk == wp) & (wk >= 0)
+    d_err = float((got["depth"] - ref["depth"])[same].abs().max())
+    c_err = float((got["color"] - ref["color"])[same].abs().max())
+    log(f"[outputs] render chunk, 4 objects x {RENDER_CHUNK} rays x {RENDER_BINS} bins, K1 vs "
+        f"plain on the card: {flips} of {either} covered pixels ({flips / max(either, 1):.2e}; "
+        f"of all {n_px}: {flips / n_px:.2e}) change winner (limit {WINNER_FLIP_FRAC}); where "
+        f"the winner agrees ({int(same.sum())}) depth max abs {d_err:.2e}, colour {c_err:.2e} "
+        f"(limit {RENDER_ATOL})")
+    if not (flips <= WINNER_FLIP_FRAC * max(either, 1) and d_err <= RENDER_ATOL
+            and c_err <= RENDER_ATOL and int(same.sum()) > 0):
+        raise AssertionError("K1's render chunk disagrees with the plain field")
+
+    # one mesh, stage by stage
+    box = reg.slots[slot].bbox3d
+    scale, tf = meshing._box_frame(box, False)
+    dim = meshing.adaptive_grid_dim(box, cfg.live_voxel_size, cfg.grid_dim)
+    one = mapper.slot_params(slot)
+    c0 = cen[0].cpu().numpy()
+    t0 = time.perf_counter()
+    occ_k = meshing.eval_grid_occupancy(one, scale, tf, c0, dim)
+    t1 = time.perf_counter()
+    native.marching_tetrahedra(occ_k, 0.5)
+    t2 = time.perf_counter()
+    mesh = meshing.mesh_object(one, box, c0, grid_dim=dim, with_color=True)
+    torch.cuda.synchronize()
+    if mesh is None:
+        raise AssertionError(f"object {ids[0]} has no surface")
+    t3 = time.perf_counter()
+    mesh.export_obj(os.path.join(out, "breakdown.obj"))
+    t4 = time.perf_counter()
+    log(f"[outputs] one mesh (object {ids[0]}, grid {dim}^3): occupancy grid "
+        f"{1e3 * (t1 - t0):.1f} ms ({-(-dim ** 3 // MESH_CHUNK)} K1 launches), native marching "
+        f"{1e3 * (t2 - t1):.1f} ms, mesh_object whole {1e3 * (t3 - t2):.1f} ms, OBJ text "
+        f"{1e3 * (t4 - t3):.1f} ms; {len(mesh.vertices)} vertices, {len(mesh.faces)} faces")
+
+    # that occupancy grid through the plain field
+    with plain_field_on_card():
+        occ_p = meshing.eval_grid_occupancy(one, scale, tf, c0, dim)
+    occ_err = float(np.abs(occ_k - occ_p).max())
+    log(f"[outputs] object {ids[0]} occupancy grid {dim}^3, K1 vs plain on the card: max abs "
+        f"{occ_err:.2e} (limit {OCC_ATOL}); {int((occ_k > 0.5).sum())} voxels inside")
+    if not occ_err <= OCC_ATOL:
+        raise AssertionError("K1's occupancy grid disagrees with the plain field")
+
+    # K1 alone at the render and mesh shapes, on this mapper's weights
+    del got, ref, occ_k, occ_p
+    torch.cuda.empty_cache()
+    rows = []
+    n_r = RENDER_CHUNK * (RENDER_BINS - 1)
+    w_fg = ff._pack_params(params, tc.hidden, False).contiguous()
+    w_bg = ff._pack_params(object_field.tree_map(lambda x: x[None], mapper.state.bg_params),
+                           tc.hidden_bg, False).contiguous()
+    n_v = VIEW_CHUNK * (RENDER_BINS - 1)
+    # (the view chunks and the grid chunks of a mesh: the full-size ones)
+    for name, w, o, n, h in (
+            ("render", w_fg, len(ids), n_r, tc.hidden),
+            ("view_bg", w_bg, 1, n_v, tc.hidden_bg),
+            ("view", w_fg[:1], 1, n_v, tc.hidden),
+            ("mesh", w_fg[:1], 1, MESH_CHUNK, tc.hidden)):
+        launches = by_shape.get(("fused_field_fwd", o, n, h), 0)
+        if not launches:
+            if name in ("render", "mesh"):
+                raise AssertionError(f"K1 never launched at the {name} shape [{o},{n},{h}]")
+            continue
+        x = 0.5 * torch.randn((o, n, 3), generator=gen, device=device)
+        rows.append(k1_shape_row(name, w, x, h, launches))
+        del x
+        torch.cuda.empty_cache()
+    return rows, by_shape
+
+
+# --------------------------------------------------------------------------- #
+# phase 4c: quality on a scene with ground truth
+# --------------------------------------------------------------------------- #
+
+
+def run_synthetic_scene(device) -> dict:
+    """Stages 2-4 of examples/run_synthetic_scene.py on the port, with the
+    scene's ground-truth instance ids (room = background 0, spheres 4, 5) in
+    place of its association stage, on ``device``."""
+    import tempfile
+
+    import torch
+    from openobj_torch import eval as oeval
+    from openobj_torch import train
+    from openobj_torch.core import meshing, renderer, trainer
+    from openobj_torch.core.scene import Camera, SceneMapper
+    from openobj_torch.data import synthetic
+    from openobj_torch.ops import fused_field as ff
+
+    t0 = time.perf_counter()
+    cam = Camera(width=80, height=60, fx=50.0, fy=50.0, cx=40.0, cy=30.0)
+    dirs = cam.ray_dirs("cpu").numpy()
+    scene = synthetic.default_scene(n_spheres=2)
+    tcfg = trainer.TrainConfig(
+        n_iters_per_frame=25, win_size=2, n_samples_per_frame=24,
+        win_size_bg=2, n_samples_per_frame_bg=64, hidden=32, hidden_bg=64, clip_size=16)
+    mapper = SceneMapper(cam, tcfg, frame_capacity=16, initial_bucket=4, device=device)
+    torch.cuda.synchronize()
+    ff.reset_counts()
+    for a in np.linspace(-0.6, 0.6, 8):
+        t_wc = synthetic.orbit_pose(a)
+        rgb, depth, inst = scene.render(t_wc, dirs)
+        losses = mapper.process_frame(rgb, depth, inst, t_wc)
+    mapper.finish()
+    losses = losses.cpu().numpy()
+
+    # held-out view: per-object renders composited by z-buffer
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="synthetic_", dir=os.path.join(ROOT, "build"))
+    train.save_checkpoints(mapper, out, t_wc)      # the objects' boxes from their keyframes
+    t_eval = synthetic.orbit_pose(0.05)
+    rgb_gt, depth_gt, inst_gt = scene.render(t_eval, dirs)
+    gen = torch.Generator(device=mapper.device).manual_seed(5)
+    views, class_of = {}, {}
+    for inst_id, slot in mapper.registry.inst_to_slot.items():
+        st = mapper.registry.slots[slot]
+        if st.bbox3d is None:
+            continue
+        views[inst_id] = renderer.render_object_view(
+            mapper.slot_params(slot), st.bbox3d, st.obj_center, t_eval, mapper.cam_dirs, gen,
+            n_bins=96, chunk_size=1024)
+        class_of[inst_id] = inst_id
+    comp = renderer.composite_views(views, class_of, cam.height, cam.width)
+    obj_mask = inst_gt > 0
+    covered = comp["instid"] > 0
+    hit = obj_mask & covered
+    psnr = oeval.psnr(comp["rgb"] / 255.0, rgb_gt / 255.0, hit) if hit.any() else 0.0
+    derr = oeval.depth_l1(comp["depth"], depth_gt, hit) if hit.any() else float("inf")
+    iou = float(hit.sum() / max((obj_mask | covered).sum(), 1))
+
+    n_meshes = 0
+    for inst_id, slot in mapper.registry.inst_to_slot.items():
+        st = mapper.registry.slots[slot]
+        mesh = meshing.mesh_object(mapper.slot_params(slot), st.bbox3d, st.obj_center,
+                                   grid_dim=48, with_color=True) if st.bbox3d is not None else None
+        if mesh is not None:
+            mesh.export_obj(os.path.join(out, f"obj_{inst_id}.obj"))
+            n_meshes += 1
+    torch.cuda.synchronize()
+    counts = dict(ff.COUNTS)
+    by_shape = dict(ff.COUNTS_BY_SHAPE)
+    res = {"objects": mapper.n_objects, "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1]), "pixels": int(hit.sum()), "psnr": psnr,
+           "depth_mae": derr, "iou": iou, "meshes": n_meshes, "counts": counts,
+           "by_shape": by_shape, "seconds": time.perf_counter() - t0}
+    log(f"[synthetic] {res['objects']} objects + bg; last frame loss {res['loss_first']:.3f} "
+        f"-> {res['loss_last']:.3f}; held-out object-pixel PSNR {psnr:.2f} dB, depth MAE "
+        f"{derr:.4f} m, silhouette IoU {iou:.3f} over {res['pixels']} pixels; {n_meshes} "
+        f"meshes; counts {counts} ({res['seconds']:.1f} s)")
+    if not (res["pixels"] >= 100 and psnr > 18 and derr < 0.3 and n_meshes >= 1):
+        raise AssertionError(f"synthetic scene below the example's gates: {res}")
+    if counts["field_eager"] or counts["fused_field_plain"]:
+        raise AssertionError(f"the synthetic scene left the kernels: {counts}")
+    if counts["fused_field_bwd"] != counts["fused_field_bwd_reduce"]:
+        raise AssertionError(f"K2 and its reduction launched unequally: {counts}")
+    for k in ("fused_field_fwd", "fused_field_bwd"):   # hidden_bg 64: the SIMT kernels
+        if not any(key[0] == k and key[3] == tcfg.hidden_bg for key in by_shape):
+            raise AssertionError(f"{k} never launched at h={tcfg.hidden_bg}: {by_shape}")
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -566,7 +985,15 @@ def main(argv=None) -> int:
     per = check_kernels(device)
     check_convergence(device)
     check_steps_vs_cpu(device)
-    counts = run_main_path(device, profile=args.profile)
+    by_shape_main, cfg, mapper, frames = run_main_path(device, profile=args.profile)
+    k1_output_rows, by_shape_out = run_outputs(device, cfg, mapper, frames)
+    del mapper, frames
+    torch.cuda.empty_cache()
+    syn = run_synthetic_scene(device)
+    simt = sorted({(o, n, h) for (k, o, n, h) in syn["by_shape"]
+                   if k == "fused_field_bwd" and h not in (32, 128)})
+    per_simt = check_kernels(device, [dict(name=f"synthetic_bg{h}", o=o, n=n, h=h)
+                                      for o, n, h in simt])
     probe_rows = run_probe_path(device)
 
     replaces = {
@@ -574,14 +1001,31 @@ def main(argv=None) -> int:
         "fused_field_bwd": "openobj_tpu/ops/fused_field.py:172",
         "fused_field_bwd_reduce": "openobj_tpu/ops/fused_field.py:285",
     }
+    # launches as counted in each run, by (count, O, N, h)
+    paths = {"room_0 training": by_shape_main, "room_0 outputs": by_shape_out,
+             "synthetic scene": syn["by_shape"]}
+
+    def launches_at(name, dims):
+        return sum(bs.get((name, *dims), 0) for bs in paths.values())
+
     rows = []
     for name, shapes in per.items():
         b = [s["bound"] for s in shapes]
+        timed = [{"shape": s["shape"], "kernel": s["kernel"], "dims": s["dims"],
+                  "launches": launches_at(name, s["dims"]), "max_abs_err": s["err"],
+                  "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound"][0],
+                  "bound_by": s["bound"][1], "bound_simt_ms": s["bound_simt"],
+                  "library_ms": s["library_ms"]}
+                 for s in shapes + per_simt[name]]
+        if name == "fused_field_fwd":
+            timed += k1_output_rows
+        by_path = {p: sum(v for k, v in bs.items() if k[0] == name) for p, bs in paths.items()}
         rows.append({
             "name": name, "route": "cuda", "source": "openobj_torch/csrc/fused_field.cu",
-            "replaces": replaces[name], "launches": counts[name],
-            "max_abs_err": max(s["err"] for s in shapes),
-            # one training step launches each kernel once at each shape
+            "replaces": replaces[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(s["max_abs_err"] for s in timed),
+            # one room_0 training step launches each kernel once at each shape
             "ms": sum(s["ms"] for s in shapes),
             "plain_ms": sum(s["plain_ms"] for s in shapes),
             "bound_ms": sum(x[0] for x in b),
@@ -589,10 +1033,11 @@ def main(argv=None) -> int:
             "bound_simt_ms": sum(s["bound_simt"] for s in shapes),
             "library_ms": (sum(s["library_ms"] for s in shapes)
                            if shapes[0]["library_ms"] is not None else None),
-            "per_shape": [{"shape": s["shape"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-                           "bound_ms": s["bound"][0], "bound_by": s["bound"][1],
-                           "bound_simt_ms": s["bound_simt"]}
-                          for s in shapes],
+            # timed shapes, each with the launches counted at exactly its dims
+            "per_shape": timed,
+            # every shape launched: [O, N, h, launches] by run
+            "launch_shapes": {p: [[*k[1:], v] for k, v in sorted(bs.items()) if k[0] == name]
+                              for p, bs in paths.items()},
         })
     rows += probe_rows
     log(json.dumps({"kernels": rows}))

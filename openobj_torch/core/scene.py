@@ -241,3 +241,11 @@ class SceneMapper:
     @property
     def n_objects(self) -> int:
         return self.registry.n_objects
+
+    def slot_params(self, slot: int) -> dict:
+        return object_field.slice_slot(self.state.fg_params, slot)
+
+    def params_for_instance(self, inst_id: int) -> dict:
+        if self.cfg.do_bg and inst_id == 0:
+            return self.state.bg_params
+        return self.slot_params(self.registry.inst_to_slot[inst_id])

@@ -12,13 +12,12 @@ own 128-wide field; one AdamW over everything, lr 1e-3, wd 0.013.
 
 The field forward/backward goes through ``ops.fused_field.field_evaluator``,
 whatever ``field_impl`` says. Where the kernels cover the field's shape
-(``fused_field.kernels_cover``: ``max_deg`` 5, f32, a hidden width K2 is
-built for) that is the hand-written kernel pair on a CUDA device and the
-kernels' plain version on the CPU; any other shape runs the eager
-``object_field`` field on either device, as the reference's default
-``field_impl="xla"`` does. The pick is made on the shape before anything is
-launched, separately for the object stack and the background. Knobs that
-only shape the JAX program's layout (``scan_unroll``, ``remat``,
+(``fused_field.kernels_cover``: ``max_deg`` 5 and f32, at any hidden width)
+that is the hand-written kernel pair on a CUDA device and the kernels'
+plain version on the CPU; any other shape runs the eager ``object_field``
+field on either device, as the reference's default ``field_impl="xla"``
+does. The pick is made on the shape before anything is launched. Knobs
+that only shape the JAX program's layout (``scan_unroll``, ``remat``,
 ``gemm_impl``, ``optim_impl``, and the JAX package's ray-minor batch
 storage) are accepted so that configs load, and ignored.
 """
@@ -297,7 +296,7 @@ def _loss_for_slice(params, batch, active, cfg: TrainConfig, is_bg: bool):
     gt_pf = batch.get("partfeat")
     field = fused_field.field_evaluator(
         params, stacked=not is_bg, max_deg=cfg.max_deg, do_clip=cfg.part_mode,
-        compute_dtype=cfg.compute_dtype, grad=True)
+        compute_dtype=cfg.compute_dtype)
     a, c, f = field(pts)
     if is_bg:
         a, c = a[None], c[None]

@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels in openobj_tpu/ops/fused_field.py:
 //   ff_fwd_kernel    <- _fwd_kernel (:160), launched by _fused_core_fwd (:360);
 //                       ff_fwd_generic_kernel at widths other than 32 and 128
-//   ff_bwd_kernel    <- _bwd_kernel (:172), launched by _fused_core_bwd (:392)
+//   ff_bwd_kernel    <- _bwd_kernel (:172), launched by _fused_core_bwd (:392);
+//                       ff_bwd_generic_kernel at widths other than 32 and 128
 //   ff_reduce_kernel <- the cross-tile gradient accumulation that _bwd_kernel
 //                       carries along its sequential grid axis (:285-309)
 //
@@ -30,9 +31,9 @@
 //
 // K1 at h = 32 and 128 (every shipped config) runs its matrix products on the
 // tensor cores in 3xTF32, as K2's gradient products do (its section below).
-// At any other width, ff_fwd_generic_kernel: FP32 FMAs on the SIMT cores, up
-// to 4x4 outputs per thread (`mm`), weights read through the read-only/L2
-// path by all tiles of an object.
+// At any other width, ff_fwd_generic_kernel and ff_bwd_generic_kernel: FP32
+// FMAs on the SIMT cores, up to 4x4 outputs per thread (`mm`), weights read
+// through the read-only/L2 path by all tiles of an object.
 //
 // K2, what bounds it: about 98% of its multiply-adds are matrix products
 // (the recomputed trunk and heads, the weight gradients X^T dY, the input
@@ -332,6 +333,206 @@ ff_fwd_generic_kernel(const float* __restrict__ pts, const float* __restrict__ w
   for (int i = threadIdx.x; i < nv * h; i += NT) {
     const int p = i / h, j = i - p * h;
     hclip[(row0 + p) * h + j] = ha[p * ldh + j];
+  }
+}
+
+// ------------------------------------------------- K2 at other widths (SIMT)
+//
+// ff_bwd_generic_kernel: the backward at any width, on the SIMT cores with
+// K1-generic's building blocks (`encode`, `trunk`, `head`, `mm`). A block
+// owns one (object, tile) slot of the scratch buffer, as ff_bwd_kernel does,
+// and walks its tile in chunks of `tp` points: it recomputes the chunk's
+// forward (the same FMAs as ff_fwd_generic_kernel) into shared memory, then
+// runs the chain rule layer by layer, each weight gradient X^T dY written
+// into its slot by `mm` (the first chunk stores, later chunks add: `mm`
+// gives an output to the same thread whenever (M, N) are the same, so the
+// read-modify-write needs no barrier). Deterministic, like ff_bwd_kernel.
+
+// shared-memory floats of a chunk of tp points: t, proj, e1, e2, d_e1, d_e2,
+// the colour and alpha cotangents, and 7 [tp][h] activations
+__host__ __device__ inline int bwd_generic_floats(int h, int tp) {
+  return tp * (LD_T + LD_P + 2 * LD_E1 + 2 * LD_E2 + 4 + 1 + 7 * ld_h(h));
+}
+
+constexpr int SMEM_OPTIN_FLOATS = 232448 / 4;   // sm_90's opt-in limit per block
+
+// Points per chunk of the SIMT backward: 32, halved until the chunk fits.
+inline int bwd_generic_chunk(int h) {
+  int tp = 32;
+  while (tp > 1 && bwd_generic_floats(h, tp) > SMEM_OPTIN_FLOATS) tp /= 2;
+  return tp;
+}
+
+// dst[j] (+)= sum_{p < P} X[p][j] for j < N, one thread per column
+__device__ void col_sum(const float* X, int ld, int P, int N, float* dst, bool acc) {
+  for (int j = threadIdx.x; j < N; j += NT) {
+    float s = 0.0f;
+    for (int p = 0; p < P; ++p) s += X[p * ld + j];
+    dst[j] = acc ? dst[j] + s : s;
+  }
+}
+
+// D[p][j] = D[p][j] * (A[p][j] > 0): a ReLU's backward, in place
+__device__ void relu_mask(float* D, const float* A, int ld, int P, int N) {
+  for (int i = threadIdx.x; i < P * N; i += NT) {
+    const int p = i / N, j = i - p * N;
+    if (!(A[p * ld + j] > 0.0f)) D[p * ld + j] = 0.0f;
+  }
+}
+
+// the weight gradients of one layer fed by [x | e]:
+// G[w_off] (+)= [x | e]^T d over nv rows, G[b_off] (+)= column sums of d
+__device__ void layer_grads(float* G, int w_off, int b_off, int h, int nv, int ne,
+                            const float* x, const float* e, int lde, const float* d,
+                            bool acc) {
+  const int ldh = ld_h(h);
+  mm(h, h, nv, x, 1, ldh, d, ldh, 1, G + w_off, h, 1, acc);
+  if (ne) mm(ne, h, nv, e, 1, lde, d, ldh, 1, G + w_off + h * h, h, 1, acc);
+  col_sum(d, ldh, nv, h, G + b_off, acc);
+}
+
+__global__ void __launch_bounds__(NT)
+ff_bwd_generic_kernel(const float* __restrict__ pts, const float* __restrict__ w,
+                      const float* __restrict__ da, const float* __restrict__ dc,
+                      const float* __restrict__ dh, float* __restrict__ part,
+                      int N, int h, int do_clip, int tile, int tp) {
+  extern __shared__ float sm[];
+  const int ldh = ld_h(h);
+  const int o = blockIdx.y;
+  const Layout L = make_layout(h);
+  const float* W = w + (size_t)o * L.total;
+  float* G = part + ((size_t)o * gridDim.x + blockIdx.x) * L.total;
+
+  float* tt = sm;
+  float* pj = tt + tp * LD_T;      // proj, then d_proj
+  float* e1 = pj + tp * LD_P;
+  float* e2 = e1 + tp * LD_E1;
+  float* de1 = e2 + tp * LD_E2;
+  float* de2 = de1 + tp * LD_E1;
+  float* dcp = de2 + tp * LD_E2;   // sigmoid-input cotangent
+  float* dal = dcp + tp * 4;       // alpha pre-scale cotangent
+  float* h1 = dal + tp;
+  float* h2 = h1 + tp * ldh;
+  float* hc = h2 + tp * ldh;
+  float* h3 = hc + tp * ldh;
+  float* ha = h3 + tp * ldh;       // hcol -> d_hcol -> d_hc
+  float* hb = ha + tp * ldh;       // d_hclip -> d_h2
+  float* d3 = hb + tp * ldh;       // d_h3 -> d_h1
+
+  if (!do_clip) {   // the clip head's slot, which no chunk writes
+    for (int i = L.w_clip + threadIdx.x; i < L.total; i += NT) G[i] = 0.0f;
+  }
+  const int t0 = blockIdx.x * tile;
+  const int t1 = min(N, t0 + tile);
+  for (int c0 = t0; c0 < t1; c0 += tp) {
+    const int nv = min(tp, t1 - c0);
+    const bool acc = c0 != t0;
+    const size_t row0 = (size_t)o * N + c0;
+
+    // ---- recompute the forward (K1-generic's FMAs)
+    encode(pts + row0 * 3, W + L.dirs, nv, tt, pj, e1, e2);
+    __syncthreads();
+    trunk(W, L, h, nv, e1, h1, h2, hc, h3);
+    head(W, L.w_col, L.b_col, h, nv, h3, e2, ha);
+    if (do_clip) head(W, L.w_clip, L.b_clip, h, nv, h3, e2, hb);
+
+    // ---- the heads' cotangents: colour through its sigmoid, alpha, d_hclip
+    for (int i = threadIdx.x; i < nv * 3; i += NT) {
+      const int p = i / 3, c = i - p * 3;
+      const float col = sigmoid_f(dot_w(ha + p * ldh, W + L.w_oc + c, h, 3) + W[L.b_oc + c]);
+      dcp[p * 4 + c] = dc[(row0 + p) * 3 + c] * col * (1.0f - col);
+    }
+    for (int p = threadIdx.x; p < nv; p += NT) dal[p] = da[row0 + p] * ALPHA_SCALE;
+    if (do_clip) {
+      for (int i = threadIdx.x; i < nv * h; i += NT) {
+        const int p = i / h, j = i - p * h;
+        hb[p * ldh + j] = hb[p * ldh + j] > 0.0f ? dh[(row0 + p) * h + j] : 0.0f;
+      }
+    }
+    __syncthreads();
+    // the 3- and 1-wide heads' gradients
+    mm(h, 3, nv, ha, 1, ldh, dcp, 4, 1, G + L.w_oc, 3, 1, acc);
+    col_sum(dcp, 4, nv, 3, G + L.b_oc, acc);
+    mm(h, 1, nv, h3, 1, ldh, dal, 1, 1, G + L.w_alpha, 1, 1, acc);
+    col_sum(dal, 1, nv, 1, G + L.b_alpha, acc);
+    __syncthreads();
+    // d_hcol = (dcp w_oc^T) * (hcol > 0), in place
+    for (int i = threadIdx.x; i < nv * h; i += NT) {
+      const int p = i / h, j = i - p * h;
+      const float* wo = W + L.w_oc + j * 3;
+      const float v = fmaf(dcp[p * 4 + 2], wo[2], fmaf(dcp[p * 4 + 1], wo[1], dcp[p * 4] * wo[0]));
+      ha[p * ldh + j] = ha[p * ldh + j] > 0.0f ? v : 0.0f;
+    }
+    __syncthreads();
+
+    // ---- e2-fed heads: weight grads; d_h3 (before its mask) and d_e2
+    layer_grads(G, L.w_col, L.b_col, h, nv, E2, h3, e2, LD_E2, ha, acc);
+    mm(nv, h, h, ha, ldh, 1, W + L.w_col, 1, h, d3, ldh, 1, false);
+    mm(nv, E2, h, ha, ldh, 1, W + L.w_col + h * h, 1, h, de2, LD_E2, 1, false);
+    if (do_clip) {
+      layer_grads(G, L.w_clip, L.b_clip, h, nv, E2, h3, e2, LD_E2, hb, acc);
+      mm(nv, h, h, hb, ldh, 1, W + L.w_clip, 1, h, d3, ldh, 1, true);
+      mm(nv, E2, h, hb, ldh, 1, W + L.w_clip + h * h, 1, h, de2, LD_E2, 1, true);
+    }
+    __syncthreads();
+    // d_h3 = (. + dal w_alpha^T) * (h3 > 0)
+    for (int i = threadIdx.x; i < nv * h; i += NT) {
+      const int p = i / h, j = i - p * h;
+      const float v = fmaf(dal[p], W[L.w_alpha + j], d3[p * ldh + j]);
+      d3[p * ldh + j] = h3[p * ldh + j] > 0.0f ? v : 0.0f;
+    }
+    __syncthreads();
+
+    // ---- mid2: weight grad; d_hc = (d_h3 w_mid2^T) * (hc > 0)
+    layer_grads(G, L.w_mid2, L.b_mid2, h, nv, 0, hc, nullptr, 0, d3, acc);
+    mm(nv, h, h, d3, ldh, 1, W + L.w_mid2, 1, h, ha, ldh, 1, false);
+    __syncthreads();
+    relu_mask(ha, hc, ldh, nv, h);
+    __syncthreads();
+
+    // ---- skip layer: [w_cat; b_cat] grads; d_h2 (masked) and d_e1
+    layer_grads(G, L.w_cat, L.b_cat, h, nv, E1, h2, e1, LD_E1, ha, acc);
+    mm(nv, h, h, ha, ldh, 1, W + L.w_cat, 1, h, hb, ldh, 1, false);
+    mm(nv, E1, h, ha, ldh, 1, W + L.w_cat + h * h, 1, h, de1, LD_E1, 1, false);
+    __syncthreads();
+    relu_mask(hb, h2, ldh, nv, h);
+    __syncthreads();
+
+    // ---- mid1: weight grad; d_h1 = (d_h2 w_mid1^T) * (h1 > 0)
+    layer_grads(G, L.w_mid1, L.b_mid1, h, nv, 0, h1, nullptr, 0, hb, acc);
+    mm(nv, h, h, hb, ldh, 1, W + L.w_mid1, 1, h, d3, ldh, 1, false);
+    __syncthreads();
+    relu_mask(d3, h1, ldh, nv, h);
+    __syncthreads();
+
+    // ---- in_layer: [w_in; b_in] grads; d_e1 += d_h1 w_in^T
+    mm(E1, h, nv, e1, 1, LD_E1, d3, ldh, 1, G + L.w_in, h, 1, acc);
+    col_sum(d3, ldh, nv, h, G + L.b_in, acc);
+    mm(nv, E1, h, d3, ldh, 1, W + L.w_in, 1, h, de1, LD_E1, 1, true);
+    __syncthreads();
+
+    // ---- PE backward: d_proj = sum_k f_k cos(f_k proj) d_sin_k; d_dirs
+    for (int i = threadIdx.x; i < nv * ND; i += NT) {
+      const int p = i / ND, d = i - p * ND;
+      const float pr = pj[p * LD_P + d];
+      float g = 0.0f;
+#pragma unroll
+      for (int k = 0; k < NF; ++k) {
+        const float f = (float)(3.14159265358979323846 * (double)(1 << k));
+        const float ds = k < 4 ? de1[p * LD_E1 + 3 + ND * k + d]
+                               : de2[p * LD_E2 + ND * (k - 4) + d];
+        g += (f * cosf(__fmul_rn(f, pr))) * ds;
+      }
+      pj[p * LD_P + d] = g;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < ND * 3; e += NT) {
+      const int d = e / 3, c = e - d * 3;
+      float s = 0.0f;
+      for (int p = 0; p < nv; ++p) s = fmaf(pj[p * LD_P + d], tt[p * LD_T + c], s);
+      G[L.dirs + e] = acc ? G[L.dirs + e] + s : s;
+    }
+    __syncthreads();   // the next chunk's encode overwrites t and proj
   }
 }
 
@@ -1336,12 +1537,13 @@ extern "C" {
 int ff_param_count(int h) { return make_layout(h).total; }
 
 // K2 walks a tile of points in chunks of this many
-int ff_bwd_chunk(int) { return BP; }
+int ff_bwd_chunk(int h) { return h == 32 || h == 128 ? BP : bwd_generic_chunk(h); }
 
-// The largest K2 tile: unbounded at h = 32 (weights and gradients stay in
-// shared memory across chunks), one chunk at h = 128 (each chunk's weight
-// gradients are written to the tile's slot once).
-int ff_bwd_max_tile(int h) { return h <= 32 ? (1 << 30) : BP; }
+// The largest K2 tile: one chunk at h = 128 (each chunk's weight gradients
+// are written to the tile's slot once); unbounded otherwise (weights and
+// gradients stay in shared memory across chunks at h = 32; the SIMT kernel
+// adds each chunk's gradients into its slot).
+int ff_bwd_max_tile(int h) { return h == 128 ? BP : (1 << 30); }
 
 // K1 runs on the tensor cores at h = 32 and h = 128 (the widths of every
 // shipped config), and as the SIMT kernel at any other width.
@@ -1361,17 +1563,27 @@ int ff_forward(const float* pts, const float* w, float* alpha, float* color,
   return (int)cudaGetLastError();
 }
 
-// K2 is built for h = 32 and h = 128 (the widths of every shipped config);
-// the tile must be a multiple of the chunk and at most ff_bwd_max_tile(h).
+// K2 runs on the tensor cores at h = 32 and h = 128, and as the SIMT kernel
+// at any other width; the tile must be a multiple of ff_bwd_chunk(h) and at
+// most ff_bwd_max_tile(h).
 int ff_backward(const float* pts, const float* w, const float* da,
                 const float* dc, const float* dh, float* part, int O, int N,
                 int h, int do_clip, int tile, void* stream) {
-  if (tile <= 0 || tile % BP != 0 || tile > ff_bwd_max_tile(h))
+  const int chunk = ff_bwd_chunk(h);
+  if (h <= 0 || tile <= 0 || tile % chunk != 0 || tile > ff_bwd_max_tile(h) ||
+      bwd_generic_floats(h, chunk) > SMEM_OPTIN_FLOATS)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (h == 32) return launch_bwd<32>(pts, w, da, dc, dh, part, O, N, do_clip, tile, s);
   if (h == 128) return launch_bwd<128>(pts, w, da, dc, dh, part, O, N, do_clip, tile, s);
-  return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * bwd_generic_floats(h, chunk);
+  cudaError_t err = cudaFuncSetAttribute(
+      ff_bwd_generic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + tile - 1) / tile, O);
+  ff_bwd_generic_kernel<<<grid, NT, smem, s>>>(pts, w, da, dc, dh, part, N, h, do_clip,
+                                               tile, chunk);
+  return (int)cudaGetLastError();
 }
 
 int ff_reduce(const float* part, float* grad, int O, int T, int P,

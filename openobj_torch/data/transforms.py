@@ -1,15 +1,12 @@
 """Host-side frame preprocessing shared by all dataset loaders.
 
-A copy of ``openobj_tpu.data.transforms`` (numpy only).
+A copy of ``openobj_tpu.data.transforms`` (numpy only), without the
+undistortion maps, which the JAX package computes with OpenCV: the port
+needs them only in its dataset loaders, which are not ported yet.
 
 Parity targets:
   * depth scaling + max-depth clamp-to-zero
     (reference image_transforms.py:13-33, dataset.py:86);
-  * fisheye/radial undistortion maps from the config's 8-coefficient
-    distortion array [k1, k2, p1, p2, k3, k4, k5, k6]
-    (reference image_transforms.py:36-59, cfg.py:52-63 — the reference
-    parses the array and ships the Undistort transform but never wires it
-    into its offline loaders; here it IS applied when configured);
   * per-instance 2D bboxes from the instance map with x1.2 enlargement and
     a 10-px minimum side (reference utils.py:64-121, dataset.py:140-158);
   * background (instance 0) gets the full-frame bbox (dataset.py:172-175).
@@ -30,34 +27,6 @@ def scale_depth(depth: np.ndarray, depth_scale: float, max_depth: float) -> np.n
     d = depth.astype(np.float32) * depth_scale
     d[d > max_depth] = 0.0
     return d
-
-
-def undistort_maps(
-    w: int, h: int, fx: float, fy: float, cx: float, cy: float,
-    distortion,
-):
-    """Pixel remap tables for the reference's 8-coefficient model
-    [k1, k2, p1, p2, k3, k4, k5, k6] (image_transforms.py:44-56). Returns
-    (map_x, map_y) float32 [H, W]."""
-    import cv2
-
-    k = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
-    return cv2.initUndistortRectifyMap(
-        k, np.asarray(distortion, np.float64), np.eye(3), k, (w, h),
-        cv2.CV_32FC1,
-    )
-
-
-def undistort(im: np.ndarray, maps, nearest: bool = False) -> np.ndarray:
-    """Apply precomputed undistortion maps (image_transforms.py:57-59).
-    Use nearest=True for depth/instance images so invalid zeros and ids are
-    never blended."""
-    import cv2
-
-    return cv2.remap(
-        im, maps[0], maps[1],
-        cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR,
-    )
 
 
 def enlarge_bbox(bbox, scale: float, h: int, w: int):

@@ -4,8 +4,8 @@ Port of ``openobj_tpu.ops.fused_field``. The function is the whole field
 per (object, point): icosphere positional encoding -> 4-layer trunk with
 skip -> alpha / colour / clip-hidden heads. On a CUDA tensor it runs as the
 hand-written kernels in ``openobj_torch/csrc/fused_field.cu`` (forward K1;
-backward K2 plus a deterministic cross-tile reduction) under a
-``torch.autograd.Function``. On a CPU tensor it runs ``fused_field_plain``,
+backward K2 plus a deterministic cross-tile reduction; at any hidden width)
+under a ``torch.autograd.Function``. On a CPU tensor it runs ``fused_field_plain``,
 the plain PyTorch version of the same function (following the JAX kernel
 body ``_fwd_body``), differentiated by autograd. A CUDA tensor never takes
 the plain path.
@@ -26,24 +26,31 @@ import math
 import torch
 
 from openobj_torch.models import object_field
-from openobj_torch.models.object_field import tree_map
 from openobj_torch.ops import embedding
 from openobj_torch.ops.mlp import ALPHA_SCALE
 
 _F32 = torch.float32
 _E1, _E2, _ND, _NF = 87, 42, 21, 6
-BWD_WIDTHS = (32, 128)   # hidden widths K2 is built for (every shipped config)
 
 # launches of each kernel, calls of the plain version, and calls that took
 # the eager field because the kernels do not cover them, as plain ints
 COUNTS = {"fused_field_fwd": 0, "fused_field_bwd": 0,
           "fused_field_bwd_reduce": 0, "fused_field_plain": 0,
           "field_eager": 0}
+# the kernels' launches by shape: (count name, O, N, h) -> launches
+COUNTS_BY_SHAPE: dict[tuple[str, int, int, int], int] = {}
 
 
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    COUNTS_BY_SHAPE.clear()
+
+
+def _count(name: str, o: int, n: int, h: int) -> None:
+    COUNTS[name] += 1
+    key = (name, o, n, h)
+    COUNTS_BY_SHAPE[key] = COUNTS_BY_SHAPE.get(key, 0) + 1
 
 
 def param_layout(h: int) -> list[tuple[str, tuple[int, int]]]:
@@ -178,11 +185,6 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check_width(h: int) -> None:
-    if h not in BWD_WIDTHS:
-        raise ValueError(f"fused_field backward: K2 is built for h in {BWD_WIDTHS}, got {h}")
-
-
 def bwd_tile(o: int, n: int, chunk: int, n_sm: int, max_tile: int) -> int:
     """Points per backward block: a multiple of the chunk, at most
     ``max_tile``, that finishes in the least waves x tile length (a K2 block
@@ -218,7 +220,7 @@ def fused_field_forward_cuda(wflat, pts, h: int, do_clip: bool):
                          color.data_ptr(), hclip.data_ptr() if do_clip else None,
                          o, n, h, int(do_clip), _stream(pts))
     _raise_on(err, "fused_field forward")
-    COUNTS["fused_field_fwd"] += 1
+    _count("fused_field_fwd", o, n, h)
     return alpha, color, hclip
 
 
@@ -234,7 +236,6 @@ def fused_field_backward_cuda(wflat, pts, d_alpha, d_color, d_hclip, h: int,
     _check(d_color, "d_color", (o, n, 3))
     if do_clip:
         _check(d_hclip, "d_hclip", (o, n, h))
-    _check_width(h)
     tile, n_tiles = bwd_tiling(lib, o, n, h, pts.device)
     part = torch.empty((o, n_tiles, p), dtype=_F32, device=pts.device)
     grad = torch.empty((o, p), dtype=_F32, device=pts.device)
@@ -243,10 +244,10 @@ def fused_field_backward_cuda(wflat, pts, d_alpha, d_color, d_hclip, h: int,
                           d_color.data_ptr(), d_hclip.data_ptr() if do_clip else None,
                           part.data_ptr(), o, n, h, int(do_clip), tile, stream)
     _raise_on(err, "fused_field backward")
-    COUNTS["fused_field_bwd"] += 1
+    _count("fused_field_bwd", o, n, h)
     err = lib.ff_reduce(part.data_ptr(), grad.data_ptr(), o, n_tiles, p, stream)
     _raise_on(err, "fused_field backward reduction")
-    COUNTS["fused_field_bwd_reduce"] += 1
+    _count("fused_field_bwd_reduce", o, n, h)
     return grad
 
 
@@ -276,8 +277,6 @@ def fused_field_apply(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
                       do_clip: bool):
     """The kernel pair on a CUDA tensor, the plain version on a CPU one."""
     if pts_scaled.is_cuda:
-        if torch.is_grad_enabled() and wflat.requires_grad:
-            _check_width(h)   # before K1 runs, not midway through backward
         alpha, color, hclip = _FusedField.apply(
             wflat.contiguous(), pts_scaled.contiguous(), h, do_clip)
         return alpha, color, (hclip if do_clip else None)
@@ -287,35 +286,55 @@ def fused_field_apply(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
     return fused_field_plain(wflat, pts_scaled, h, do_clip)
 
 
-def kernels_cover(max_deg: int, compute_dtype: str, h: int, grad: bool) -> bool:
+def kernels_cover(max_deg: int, compute_dtype: str) -> bool:
     """Whether the kernels compute a field call of this shape: the reference
-    PE layout (``max_deg`` 5, the 87/42 split the packed layout hard-codes),
-    f32, and, when a gradient is wanted, a width K2 is built for
-    (``BWD_WIDTHS``). K1 takes any width."""
-    return max_deg == 5 and compute_dtype == "f32" and (not grad or h in BWD_WIDTHS)
+    PE layout (``max_deg`` 5, the 87/42 split the packed layout hard-codes)
+    and f32. K1 and K2 take any hidden width."""
+    return max_deg == 5 and compute_dtype == "f32"
 
 
-def _apply_packed(wflat, scale, points, h: int, do_clip: bool):
-    """Packed params [O, P] and per-object PE scale [O] at points [O, ..., 3]."""
-    o = points.shape[0]
-    lead = points.shape[1:-1]
-    pts_scaled = (points.reshape(o, -1, 3) / scale[:, None, None]).detach()
-    alpha, color, hclip = fused_field_apply(wflat, pts_scaled, h, do_clip)
-    return (alpha.reshape(o, *lead, 1), color.reshape(o, *lead, 3),
-            hclip.reshape(o, *lead, h) if do_clip else None)
+def field_evaluator(params: dict, stacked: bool, max_deg: int = 5,
+                    do_clip: bool = True, compute_dtype: str = "f32"):
+    """A function ``points -> (alpha, color, clip_hidden | None)`` for one
+    field (``stacked=False``: points [..., 3]) or a stack (points
+    [O, ..., 3]), the counterpart of ``object_field.field_apply(_stacked)(...,
+    clip_hidden_only=True)``. Gradients flow to all field params, including
+    the trainable PE direction table.
+
+    Where the kernels cover the call (``kernels_cover``), the params are
+    packed once, here, and every call runs K1 (K2 behind it under autograd;
+    their plain version on a CPU tensor). Otherwise every call runs the
+    eager field and counts one ``field_eager``. The choice is made on the
+    shape alone, before anything is launched."""
+    if not kernels_cover(max_deg, compute_dtype):
+        apply = object_field.field_apply_stacked if stacked else object_field.field_apply
+
+        def eager(points):
+            COUNTS["field_eager"] += 1
+            return apply(params, points, max_deg=max_deg, do_clip=do_clip,
+                         clip_hidden_only=True, compute_dtype=compute_dtype)
+        return eager
+
+    sp = params if stacked else object_field.tree_map(lambda x: x.unsqueeze(0), params)
+    h = sp["mlp"]["in_layer"]["w"].shape[-1]
+    do_clip = do_clip and "clip_linear" in sp["mlp"]
+    wflat = _pack_params(sp, h, do_clip)
+    scale = sp["pe"]["scale"].detach()
+
+    def fused(points):
+        pts = points if stacked else points[None]
+        o, lead = pts.shape[0], pts.shape[1:-1]
+        pts_scaled = (pts.reshape(o, -1, 3) / scale[:, None, None]).detach()
+        a, c, f = fused_field_apply(wflat, pts_scaled, h, do_clip)
+        a, c = a.reshape(o, *lead, 1), c.reshape(o, *lead, 3)
+        f = f.reshape(o, *lead, h) if do_clip else None
+        if stacked:
+            return a, c, f
+        return a[0], c[0], (f[0] if f is not None else None)
+    return fused
 
 
-def field_apply_stacked_fused(
-    stacked_params: dict,
-    points: torch.Tensor,     # [O, ..., 3]
-    max_deg: int = 5,
-    do_clip: bool = True,
-    compute_dtype: str = "f32",
-):
-    """Counterpart of ``object_field.field_apply_stacked(...,
-    clip_hidden_only=True)``: returns (alpha [O, ..., 1], color [O, ..., 3],
-    clip_hidden [O, ..., h] | None). Gradients flow to all field params,
-    including the trainable PE direction table."""
+def _check_fused_shape(max_deg: int, compute_dtype: str) -> None:
     if max_deg != 5:
         # the packed layout hard-codes the 87/42 split (3 + 21*4 trunk rows,
         # 21*2 head rows); other band counts would mispack
@@ -327,55 +346,24 @@ def field_apply_stacked_fused(
     if compute_dtype != "f32":
         raise NotImplementedError(
             f"compute_dtype={compute_dtype!r}: the fused field is f32 only so far")
-    h = stacked_params["mlp"]["in_layer"]["w"].shape[-1]
-    do_clip = do_clip and "clip_linear" in stacked_params["mlp"]
-    wflat = _pack_params(stacked_params, h, do_clip)
-    return _apply_packed(wflat, stacked_params["pe"]["scale"].detach(), points, h, do_clip)
+
+
+def field_apply_stacked_fused(
+    stacked_params: dict,
+    points: torch.Tensor,     # [O, ..., 3]
+    max_deg: int = 5,
+    do_clip: bool = True,
+    compute_dtype: str = "f32",
+):
+    """Counterpart of ``object_field.field_apply_stacked(...,
+    clip_hidden_only=True)`` through the kernels: returns (alpha [O, ..., 1],
+    color [O, ..., 3], clip_hidden [O, ..., h] | None)."""
+    _check_fused_shape(max_deg, compute_dtype)
+    return field_evaluator(stacked_params, stacked=True, do_clip=do_clip)(points)
 
 
 def field_apply_fused(params: dict, points: torch.Tensor, max_deg: int = 5,
                       do_clip: bool = True, compute_dtype: str = "f32"):
     """Single-object wrapper (background model / eval paths)."""
-    stacked = tree_map(lambda x: x.unsqueeze(0), params)
-    a, c, f = field_apply_stacked_fused(
-        stacked, points.unsqueeze(0), max_deg=max_deg, do_clip=do_clip,
-        compute_dtype=compute_dtype,
-    )
-    return a[0], c[0], (f[0] if f is not None else None)
-
-
-def field_evaluator(params: dict, stacked: bool, max_deg: int = 5,
-                    do_clip: bool = True, compute_dtype: str = "f32",
-                    grad: bool = False):
-    """A function ``points -> (alpha, color, clip_hidden | None)`` for one
-    field (``stacked=False``: points [..., 3]) or a stack (points
-    [O, ..., 3]), the counterpart of ``object_field.field_apply(_stacked)(...,
-    clip_hidden_only=True)``.
-
-    Where the kernels cover the call (``kernels_cover``; ``grad`` says
-    whether a backward will follow), the params are packed once, here, and
-    every call runs K1 (its plain version on a CPU tensor). Otherwise every
-    call runs the eager field and counts one ``field_eager``. The choice is
-    made on the shape alone, before anything is launched."""
-    h = params["mlp"]["in_layer"]["w"].shape[-1]
-    if not kernels_cover(max_deg, compute_dtype, h, grad):
-        apply = object_field.field_apply_stacked if stacked else object_field.field_apply
-
-        def eager(points):
-            COUNTS["field_eager"] += 1
-            return apply(params, points, max_deg=max_deg, do_clip=do_clip,
-                         clip_hidden_only=True, compute_dtype=compute_dtype)
-        return eager
-
-    sp = params if stacked else tree_map(lambda x: x.unsqueeze(0), params)
-    do_clip = do_clip and "clip_linear" in sp["mlp"]
-    wflat = _pack_params(sp, h, do_clip)
-    scale = sp["pe"]["scale"].detach()
-
-    def fused(points):
-        a, c, f = _apply_packed(wflat, scale, points if stacked else points[None],
-                                h, do_clip)
-        if stacked:
-            return a, c, f
-        return a[0], c[0], (f[0] if f is not None else None)
-    return fused
+    _check_fused_shape(max_deg, compute_dtype)
+    return field_evaluator(params, stacked=False, do_clip=do_clip)(points)

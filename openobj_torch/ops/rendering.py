@@ -9,7 +9,8 @@ Port of ``openobj_tpu.ops.rendering``:
   * ``reduce_masked_loss``: masked mean with optional inverse-variance
     weighting; a row with no valid sample contributes exactly zero (the
     reference zeroes the whole batch instead, which a slot-allocated object
-    axis with dead slots cannot use).
+    axis with dead slots cannot use);
+  * ``make_3d_grid``: the scaled, rigidly placed cube lattice for meshing.
 """
 
 from __future__ import annotations
@@ -73,3 +74,20 @@ def reduce_masked_loss(
     num = torch.sum(loss_mat * mask_f, dim=-1)
     den = torch.sum(mask_f, dim=-1)
     return torch.where(den > 0, num / (den + MASK_EPS), torch.zeros_like(num))
+
+
+def make_3d_grid(occ_range=(-1.0, 1.0), dim: int = 256, transform=None,
+                 scale=None, device="cpu") -> torch.Tensor:
+    """[dim, dim, dim, 3] lattice ('ij' order), optionally scaled per axis,
+    then rigidly transformed by ``transform`` [4, 4]. The rotation is
+    elementwise products summed, exact f32 on every device (a matmul may
+    take a reduced-precision path)."""
+    t = torch.linspace(occ_range[0], occ_range[1], dim, device=device)
+    gx, gy, gz = torch.meshgrid(t, t, t, indexing="ij")
+    grid = torch.stack([gx, gy, gz], dim=-1)
+    if scale is not None:
+        grid = grid * torch.as_tensor(scale, dtype=torch.float32, device=device)
+    if transform is not None:
+        tr = torch.as_tensor(transform, dtype=torch.float32, device=device)
+        grid = (grid[..., None, :] * tr[:3, :3]).sum(-1) + tr[:3, 3]
+    return grid

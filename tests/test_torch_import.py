@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing any of its modules pulls in
-neither jax nor openobj_tpu."""
+"""The PyTorch port stands alone: importing any of its modules (or
+chip_smoke.py, which drives it on the card) pulls in neither jax nor
+openobj_tpu, nor OpenCV, which the card's machine does not have."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ PKG = ROOT / "openobj_torch"
 
 
 def _modules():
-    for path in sorted(PKG.rglob("*.py")):
+    for path in [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"]:
         rel = path.relative_to(ROOT).with_suffix("")
         parts = list(rel.parts)
         if parts[-1] == "__init__":
@@ -30,6 +31,7 @@ def test_import_without_jax():
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['openobj_tpu'] = None\n"
+        "sys.modules['cv2'] = None\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
@@ -56,5 +58,5 @@ def test_no_forbidden_imports(name, path):
             continue
         for m in mods:
             top = m.split(".")[0]
-            assert top not in ("jax", "jaxlib", "openobj_tpu", "flax", "optax"), (
+            assert top not in ("jax", "jaxlib", "openobj_tpu", "flax", "optax", "cv2"), (
                 f"{name} imports {m}")

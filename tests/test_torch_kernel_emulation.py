@@ -400,6 +400,10 @@ def test_emulated_k1_matches_plain(emu_lib, o, n, h, do_clip, n_sm):
     (3, 40, 32, True, 32),       # one chunk per tile, then 8 points
     (1, 40, 128, True, 32),      # h=128: one chunk per tile
     (1, 33, 128, False, 32),
+    # other widths: the SIMT kernel, gradients added into the slot per chunk
+    (2, 70, 8, True, 64),        # 2 tiles: 2 chunks, then 6 points
+    (1, 75, 64, True, 96),       # 3 chunks, the last 11 points
+    (2, 37, 16, False, 32),      # clip head off
 ])
 def test_emulated_k2_matches_plain(emu_lib, o, n, h, do_clip, tile):
     lib = emu_lib
@@ -433,14 +437,16 @@ def test_emulated_k2_matches_plain(emu_lib, o, n, h, do_clip, tile):
 
 
 def test_emulated_k2_rejects_bad_tiles(emu_lib):
-    """The entry point refuses a tile that is not a whole number of chunks,
-    a multi-chunk tile at h=128 and a width it is not built for."""
+    """The entry point refuses a tile that is not a whole number of chunks
+    (at a tensor-core width and at a SIMT one), a multi-chunk tile at h=128
+    and a width whose chunk cannot fit in shared memory."""
     lib = emu_lib
     buf = np.zeros(1, np.float32)
     args = [_ptr(buf)] * 6
     assert lib.ff_backward(*args, 1, 40, 32, 1, 48, None) != 0
     assert lib.ff_backward(*args, 1, 40, 128, 1, 64, None) != 0
-    assert lib.ff_backward(*args, 1, 40, 64, 1, 32, None) != 0
+    assert lib.ff_backward(*args, 1, 40, 64, 1, 48, None) != 0
+    assert lib.ff_backward(*args, 1, 40, 9000, 1, 1, None) != 0
 
 
 @pytest.fixture(scope="module")

@@ -61,6 +61,11 @@ def _params(gen, o, h, device):
     # 4 chunks per block at h=128 (108 blocks), the last tile 40 points
     (2, 5000, 32, False, False),
     (3, 9000, 128, True, False),
+    # other widths: the SIMT kernels (K2's tile several chunks long)
+    (2, 700, 8, True, False),
+    (1, 3000, 64, True, False),
+    (2, 90, 16, False, False),
+    (1, 300, 64, True, True),
 ])
 def test_cuda_kernels_match_plain(cuda_device, o, n, h, do_clip, wide):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -150,26 +155,31 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_unbuilt_width_raises_before_the_forward(cuda_device):
-    """K2 is built for h in BWD_WIDTHS: a differentiable call at another
-    width raises before K1 runs; without gradients K1 alone runs."""
+    """No width is left unbuilt: a differentiable call at h=64 launches K1
+    and, under autograd, K2 and the reduction (the SIMT kernels), each
+    counted once at its shape; without gradients K1 alone runs."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     w = tff._pack_params(_params(gen, 2, 64, cuda_device), 64, True).contiguous()
     pts = torch.randn((2, 8, 3), generator=gen, device=cuda_device)
-    before = tff.COUNTS["fused_field_fwd"]
-    with pytest.raises(ValueError, match="built for"):
-        tff.fused_field_apply(w.requires_grad_(True), pts, 64, True)
-    assert tff.COUNTS["fused_field_fwd"] == before
+    tff.reset_counts()
+    wr = w.detach().requires_grad_(True)
+    alpha, color, hclip = tff.fused_field_apply(wr, pts, 64, True)
+    (g,) = torch.autograd.grad(alpha.sum() + color.sum() + hclip.sum(), wr)
+    assert tff.COUNTS_BY_SHAPE == {(k, 2, 8, 64): 1 for k in (
+        "fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce")}
+    assert bool(torch.isfinite(g).all()) and g.abs().max() > 0
     with torch.no_grad():
         alpha, _, _ = tff.fused_field_apply(w, pts, 64, True)
-    assert tff.COUNTS["fused_field_fwd"] == before + 1
+    assert tff.COUNTS["fused_field_fwd"] == 2 and tff.COUNTS["fused_field_bwd"] == 1
     assert alpha.shape == (2, 8, 1)
 
 
 @pytest.mark.cuda
 def test_uncovered_widths_train_on_the_card(cuda_device):
-    """hidden 8 / hidden_bg 16 (widths K2 is not built for) train on the card
-    through the eager field instead of raising, and the card's per-step
-    losses agree with the CPU's from the same state and batches (rel 1e-4)."""
+    """hidden 8 / hidden_bg 16 (widths without a tensor-core kernel) train on
+    the card through the SIMT K1/K2, never the eager field, and the card's
+    per-step losses agree with the CPU's (the kernels' plain version) from
+    the same state and batches (rel 1e-4)."""
     import numpy as np
 
     from openobj_torch import convert
@@ -214,5 +224,52 @@ def test_uncovered_widths_train_on_the_card(cuda_device):
             {k: x.to(cuda_device) for k, x in bsl.items()},
             fg["active"].to(cuda_device), cfg, store.partfeat.to(cuda_device))
         assert abs(float(l_gpu) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
-    assert tff.COUNTS["field_eager"] == 4 * cfg.n_iters_per_frame   # fg + bg, both devices
-    assert tff.COUNTS["fused_field_fwd"] == tff.COUNTS["fused_field_bwd"] == 0
+    steps = 2 * cfg.n_iters_per_frame   # fg + bg on each device
+    assert tff.COUNTS["field_eager"] == 0
+    assert tff.COUNTS["fused_field_fwd"] == tff.COUNTS["fused_field_bwd"] == steps
+    assert tff.COUNTS["fused_field_plain"] == steps
+
+
+@pytest.mark.cuda
+def test_render_and_mesh_through_k1_match_plain(cuda_device, monkeypatch):
+    """render_frame_batched and eval_grid_occupancy on the card: K1 carries
+    every field evaluation (one launch per chunk for all objects) and agrees
+    with the same calls through the plain field on the card, with the same
+    jitter: winners equal but for at most one ray, depth and colour 1e-3
+    where they agree, occupancy 1e-4."""
+    import numpy as np
+
+    from openobj_torch.core import meshing, renderer
+    from openobj_torch.ops import sampling
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    params = _params(gen, 3, 32, cuda_device)
+    params["mlp"]["out_alpha"]["b"] = torch.full((3, 1), 0.5, device=cuda_device)
+    t_wo = torch.eye(4, device=cuda_device).repeat(3, 1, 1)
+    t_wo[:, :3, 3] = torch.tensor([[-0.4, 0.0, 2.0], [0.0, 0.1, 2.3], [0.4, 0.2, 2.6]])
+    ext = torch.full((3, 3), 0.8, device=cuda_device)
+    cen = t_wo[:, :3, 3].clone()
+    act = torch.ones(3, dtype=torch.bool, device=cuda_device)
+    dirs = sampling.camera_ray_dirs(64, 48, 40.0, 40.0, 32.0, 24.0, device=cuda_device)
+    dirs = dirs.reshape(-1, 3)
+    origins = torch.zeros_like(dirs)
+    u = torch.rand((3, 256, 48), generator=gen, device=cuda_device)
+    monkeypatch.setattr(renderer, "_uniform",
+                        lambda g, shape, device: u[tuple(slice(0, n) for n in shape)])
+    args = (params, t_wo, ext, cen, act, origins, dirs, gen)
+    kw = dict(n_bins=48, max_hit_rays=1024, chunk=256)
+    tff.reset_counts()
+    got = renderer.render_frame_batched(*args, **kw)
+    assert tff.COUNTS["fused_field_fwd"] == 4 and tff.COUNTS["fused_field_plain"] == 0
+    occ_k = meshing.eval_grid_occupancy(tof.slice_slot(params, 1), np.full(3, 0.45),
+                                        np.eye(4), cen[1].cpu().numpy(), 40)
+    monkeypatch.setattr(tff, "fused_field_apply", tff.fused_field_plain)
+    ref = renderer.render_frame_batched(*args, **kw)
+    occ_p = meshing.eval_grid_occupancy(tof.slice_slot(params, 1), np.full(3, 0.45),
+                                        np.eye(4), cen[1].cpu().numpy(), 40)
+    wk, wp = got["winner"], ref["winner"]
+    assert int((wk != wp).sum()) <= 1 and int((wk >= 0).sum()) > 100
+    same = (wk == wp) & (wk >= 0)
+    assert float((got["depth"] - ref["depth"])[same].abs().max()) <= 1e-3
+    assert float((got["color"] - ref["color"])[same].abs().max()) <= 1e-3
+    assert np.abs(occ_k - occ_p).max() <= 1e-4

@@ -113,17 +113,19 @@ def test_step_losses_match_jax_train_frame(field_impl, monkeypatch):
 # through it); every other field call takes the eager field
 _C1_CASES = {
     "max_deg4": (dict(max_deg=4, hidden=32, hidden_bg=128), 0, 0),
-    "h32_bg16": (dict(hidden=32), 1, 0),
+    "h32_bg16": (dict(hidden=32), 1, 1),
+    "h32_bg128": (dict(hidden=32, hidden_bg=128), 1, 1),    # the tensor-core widths
 }
 
 
 @pytest.mark.parametrize("case", list(_C1_CASES))
 def test_field_dispatch_by_shape(case, monkeypatch):
-    """Shapes the kernels do not cover (another PE band count, hidden widths
-    K2 is not built for) train through the eager field and match JAX's
-    default XLA field, rel 1e-4; covered shapes keep the kernels' path. The
-    pick is per field: a covered fg stack beside an uncovered bg. (CFG_KW's
-    own widths, 8 and 16, are the eager case of the test above.)"""
+    """A shape the kernels do not cover (another PE band count) trains
+    through the eager field and matches JAX's default XLA field, rel 1e-4;
+    covered shapes (max_deg 5, f32, any hidden width: K1 and K2 have a
+    SIMT kernel beside the tensor-core ones) take the kernels' path, their
+    plain version here, on both fields. (CFG_KW's own widths, 8 and 16, are
+    covered too: the test above.)"""
     from openobj_torch.ops import fused_field as tff
 
     kw, fg_fused, bg_fused = _C1_CASES[case]
