@@ -7,7 +7,10 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
   1. prints the card and its power limit, and the build time;
   2. holds every kernel against its plain PyTorch version at the shapes of
      the main path (fg 64 objects x 1200 points, h=32; bg 1 x 16800, h=128;
-     clip head on) and times kernel, plain version and bound;
+     clip head on) and times kernel, plain version and bound; then the same
+     at the other widths' shapes: the tensor-core K1/K2 at the room_0 shapes
+     with h=64, fg at h=16, 48 and 96, bg at h=80 and 112 (every width they
+     are built for), and the SIMT K1/K2/K2r at h=24 (fg-like [8, 1200]);
   3. runs the port of examples/synthetic_convergence.py through the kernels
      and a few training steps on the card against the same steps on the CPU;
   4. drives the main path: SceneMapper.process_frame at the Replica room_0
@@ -28,11 +31,12 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      shapes, each with the launches counted at exactly its dims);
   4c. the port of examples/run_synthetic_scene.py's stages 2-4 on a scene
      with ground truth (ground-truth instance ids in place of the
-     association stage): training with hidden_bg 64 (the SIMT K1 and K2;
-     never the eager field), a held-out render composited, meshes, with the
-     counts reset before and read after; PSNR > 18, depth MAE < 0.3 m and
-     at least one mesh, the example's gates; then K1/K2/K2r against their
-     plain versions at the h=64 shapes that run launched;
+     association stage): training with hidden_bg 64 (ff_fwd_kernel<64> and
+     ff_bwd_kernel<64>; never the SIMT kernels, never the eager field), a
+     held-out render composited, meshes, with the counts reset before and
+     read after; PSNR > 18, depth MAE < 0.3 m and at least one mesh, the
+     example's gates; then K1/K2/K2r against their plain versions at the
+     h=64 shapes that run launched;
   5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
      scripts/bench_ensemble_mm.py and scripts/bench_fused_step_probe.py):
      drives the two probe scripts' port (openobj_torch.scripts.*) with the
@@ -64,15 +68,19 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
-# TF32 on the tensor cores, HBM3
-PEAK_F32 = 67e12
-PEAK_TF32 = 494.7e12
-PEAK_BYTES = 3.35e12
-
 # main-path shapes at the room_0 envelope
 FG = dict(name="fg", o=64, n=1200, h=32)      # 64-slot bucket x 120 rays x 10 samples
 BG = dict(name="bg", o=1, n=16800, h=128)     # 1200 rays x 14 samples
+# the other widths, phase 2: the tensor-core kernels at the room_0 shapes
+# with h=64, and at fg or bg at every other width they are built for
+# (weights in shared memory at h=16; from L2, one n-tile per K1 item at 48,
+# two at 80 to 112); the SIMT kernels at h=24
+OTHER_WIDTHS = (
+    dict(name="fg_h64", o=64, n=1200, h=64), dict(name="bg_h64", o=1, n=16800, h=64),
+    dict(name="fg_h16", o=64, n=1200, h=16), dict(name="fg_h48", o=64, n=1200, h=48),
+    dict(name="bg_h80", o=1, n=16800, h=80), dict(name="fg_h96", o=64, n=1200, h=96),
+    dict(name="bg_h112", o=1, n=16800, h=112), dict(name="simt_h24", o=8, n=1200, h=24),
+)
 
 FWD_ATOL = 1e-4
 GRAD_RTOL = 1e-3
@@ -91,56 +99,6 @@ MESH_CHUNK = 65536          # meshing.eval_points_chunked's default
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-# --------------------------------------------------------------------------- #
-# bounds: the work of one call at these shapes
-# --------------------------------------------------------------------------- #
-
-
-def fwd_mm_macs(h: int) -> int:
-    """Multiply-adds per point of the forward's matrix products (the trunk
-    and the two e2-fed heads, N = h)."""
-    return 87 * h + h * h + (h + 87) * h + h * h + 2 * (h + 42) * h
-
-
-def fwd_macs(h: int) -> int:
-    """Multiply-adds per point of the field forward (clip head on): the
-    matrix products, the projection, the alpha and colour heads."""
-    return 21 * 3 + fwd_mm_macs(h) + h + 3 * h
-
-
-def fwd_macs_noclip(h: int) -> tuple[int, int]:
-    """(all, matrix-product) multiply-adds per point of the forward with the
-    clip head off, as rendering and meshing run it."""
-    clip = (h + 42) * h
-    return fwd_macs(h) - clip, fwd_mm_macs(h) - clip
-
-
-def bwd_macs(h: int) -> int:
-    """Per point: the recomputed forward, the weight gradients (one MAC per
-    weight), the input gradients of every layer, and the PE backward."""
-    dx = 3 * h + h + 2 * h * h + 2 * 42 * h + h * h + (h + 87) * h + h * h + 87 * h
-    return fwd_macs(h) + fwd_macs(h) + dx + 6 * 21
-
-
-def bwd_mm_macs(h: int) -> int:
-    """The backward's matrix products: the recomputed forward's, the weight
-    gradients X^T dY and the input gradients dY W^T, each as many
-    multiply-adds as the forward's products."""
-    return 3 * fwd_mm_macs(h)
-
-
-def bound_ms(flops: float, nbytes: float, mm_flops: float = 0.0) -> tuple[float, str]:
-    """Least time (ms) for ``flops`` FP32-accurate operations moving
-    ``nbytes``, and what bounds it. The ``mm_flops`` of them that are matrix
-    products may run on the tensor cores in 3xTF32 (three TF32 products for
-    one FP32-accurate one); the rest run at the FP32 rate. The two kinds of
-    unit may overlap, so the operations take the longer of the two times.
-    With mm_flops = 0 this is the SIMT-only bound."""
-    t_ops = max(3.0 * mm_flops / PEAK_TF32, (flops - mm_flops) / PEAK_F32)
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -164,19 +122,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # --------------------------------------------------------------------------- #
 
 
-def kernel_names(h: int) -> dict:
-    """The CUDA kernel behind each count at hidden width h."""
-    tc = h in (32, 128)
-    return {"fused_field_fwd": f"ff_fwd_kernel<{h}>" if tc else "ff_fwd_generic_kernel",
-            "fused_field_bwd": f"ff_bwd_kernel<{h}>" if tc else "ff_bwd_generic_kernel",
-            "fused_field_bwd_reduce": "ff_reduce_kernel"}
-
-
-def check_kernels(device, shapes=(FG, BG)) -> dict:
+def check_kernels(device, shapes) -> dict:
     """Each kernel against its plain version at each shape, and its times."""
     import torch
     from openobj_torch.models import object_field
     from openobj_torch.ops import fused_field as ff
+    from openobj_torch.scripts._benchlib import bound_ms, field_bounds
 
     per = {"fused_field_fwd": [], "fused_field_bwd": [], "fused_field_bwd_reduce": []}
     gen = torch.Generator(device=device)
@@ -232,7 +183,10 @@ def check_kernels(device, shapes=(FG, BG)) -> dict:
                 raise AssertionError(
                     f"K2 {shape['name']} leaf {name}: max|d|/max|ref| {rel:.3e} > {GRAD_RTOL}")
 
-        # the reduction on its own, against torch.sum over the tile axis
+        # the reduction on its own, against its plain version: the same sum in
+        # tile order (the order of the TPU kernel's sequential grid), which it
+        # must match exactly; torch.sum over the tile axis (another order,
+        # rounding apart by ~1e-4 over 525 tiles) is the library call
         p = lib.ff_param_count(h)
         tile, n_tiles = ff.bwd_tiling(lib, o, n, h, device)
         part = torch.randn((o, n_tiles, p), generator=gen, device=device)
@@ -244,12 +198,19 @@ def check_kernels(device, shapes=(FG, BG)) -> dict:
             if err:
                 raise RuntimeError(f"ff_reduce: CUDA error {err}")
 
+        def reduce_plain():
+            acc = part[:, 0].clone()
+            for t in range(1, n_tiles):
+                acc += part[:, t]
+            return acc
+
         reduce_k()
-        red_ref = part.sum(dim=1)
+        red_ref = reduce_plain()
         torch.cuda.synchronize()
         red_err = float((red - red_ref).abs().max())
-        if not red_err <= 1e-4:
-            raise AssertionError(f"reduction {shape['name']}: max abs err {red_err:.3e}")
+        if not torch.equal(red, red_ref):
+            raise AssertionError(f"reduction {shape['name']}: max abs err {red_err:.3e} from "
+                                 "the sum in tile order (must be exact)")
 
         def bwd_k():   # the backward kernel alone, into the same scratch
             err = lib.ff_backward(pts.data_ptr(), wflat.data_ptr(), da.data_ptr(),
@@ -264,18 +225,14 @@ def check_kernels(device, shapes=(FG, BG)) -> dict:
         t_bwd = time_ms(bwd_k)
         t_red = time_ms(reduce_k)
         t_bwd_plain = time_ms(lambda: torch.autograd.grad(obj, w_req, retain_graph=True))
+        t_red_plain = time_ms(reduce_plain)
         t_sum = time_ms(lambda: part.sum(dim=1))
 
-        npts = o * n
-        wbytes = o * p * 4
-        fwd_bytes = npts * 12 + wbytes + npts * 4 * (1 + 3 + h)
-        bwd_bytes = npts * 12 + wbytes + npts * 4 * (1 + 3 + h) + wbytes
-        b_fwd = bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes, 2.0 * fwd_mm_macs(h) * npts)
-        b_bwd = bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes, 2.0 * bwd_mm_macs(h) * npts)
-        simt_fwd = bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes)[0]
-        simt_bwd = bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes)[0]
-        b_red = bound_ms(float(o * n_tiles * p), 4.0 * o * n_tiles * p + wbytes)
-        names = kernel_names(h)
+        fb = field_bounds(o, n, h, p)
+        b_fwd, b_bwd = fb["fwd"], fb["bwd"]
+        simt_fwd, simt_bwd = fb["fwd_simt"][0], fb["bwd_simt"][0]
+        b_red = bound_ms(float(o * n_tiles * p), 4.0 * o * n_tiles * p + o * p * 4)
+        names = ff.kernel_names(h)
         per["fused_field_fwd"].append(dict(
             shape=shape["name"], dims=[o, n, h], ms=t_fwd, plain_ms=t_fwd_plain, bound=b_fwd,
             bound_simt=simt_fwd, err=fwd_err, library_ms=None))
@@ -283,7 +240,7 @@ def check_kernels(device, shapes=(FG, BG)) -> dict:
             shape=shape["name"], dims=[o, n, h], ms=t_bwd, plain_ms=t_bwd_plain, bound=b_bwd,
             bound_simt=simt_bwd, err=bwd_err, rel=worst, library_ms=None))
         per["fused_field_bwd_reduce"].append(dict(
-            shape=shape["name"], dims=[o, n, h], ms=t_red, plain_ms=t_sum, bound=b_red,
+            shape=shape["name"], dims=[o, n, h], ms=t_red, plain_ms=t_red_plain, bound=b_red,
             bound_simt=b_red[0], err=red_err, library_ms=t_sum, tiles=n_tiles))
         for k, rows in per.items():
             rows[-1]["kernel"] = names[k]
@@ -294,8 +251,8 @@ def check_kernels(device, shapes=(FG, BG)) -> dict:
             f"K2 err {bwd_err:.2e} worst-leaf rel {worst:.2e} {t_bwd:.4f} ms tile {tile} "
             f"(plain bwd {t_bwd_plain:.4f}, bound {b_bwd[0]:.4f} {b_bwd[1]}, "
             f"SIMT-only {simt_bwd:.4f}) | "
-            f"reduce {n_tiles} tiles err {red_err:.2e} {t_red:.4f} ms "
-            f"(torch.sum {t_sum:.4f}, bound {b_red[0]:.4f} {b_red[1]})")
+            f"reduce {n_tiles} tiles err {red_err:.2e} {t_red:.4f} ms (plain, in tile order, "
+            f"{t_red_plain:.4f}; torch.sum {t_sum:.4f}, bound {b_red[0]:.4f} {b_red[1]})")
         del params, wflat, pts, da, dc, dh, part, red, obj, w_req
     return per
 
@@ -544,6 +501,7 @@ def k1_shape_row(name, wflat, pts, h, launches) -> dict:
     bound; ``launches`` were counted at exactly this shape."""
     import torch
     from openobj_torch.ops import fused_field as ff
+    from openobj_torch.scripts._benchlib import bound_ms, fwd_macs_noclip
 
     o, n, _ = pts.shape
     lib = ff._lib()
@@ -573,7 +531,7 @@ def k1_shape_row(name, wflat, pts, h, launches) -> dict:
     log(f"[outputs] K1 {name} [{o},{n},3] h={h}: err {err:.2e}, {t_k:.4f} ms "
         f"(plain {t_p:.4f}, bound {b[0]:.4f} {b[1]}, SIMT-only "
         f"{bound_ms(2.0 * macs * npts, nbytes)[0]:.4f}), {launches} launches at this shape")
-    return {"shape": name, "kernel": kernel_names(h)["fused_field_fwd"], "dims": [o, n, h],
+    return {"shape": name, "kernel": ff.kernel_names(h)["fused_field_fwd"], "dims": [o, n, h],
             "launches": launches, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b[0], "bound_by": b[1],
             "bound_simt_ms": bound_ms(2.0 * macs * npts, nbytes)[0], "library_ms": None}
@@ -859,9 +817,16 @@ def run_synthetic_scene(device) -> dict:
         raise AssertionError(f"the synthetic scene left the kernels: {counts}")
     if counts["fused_field_bwd"] != counts["fused_field_bwd_reduce"]:
         raise AssertionError(f"K2 and its reduction launched unequally: {counts}")
-    for k in ("fused_field_fwd", "fused_field_bwd"):   # hidden_bg 64: the SIMT kernels
+    # hidden_bg 64: the tensor-core kernels, ff_fwd_kernel<64> and ff_bwd_kernel<64>
+    if not ff.tensor_core_width(tcfg.hidden_bg):
+        raise AssertionError(f"h={tcfg.hidden_bg} has no tensor-core K1/K2 in the library")
+    for k in ("fused_field_fwd", "fused_field_bwd"):
         if not any(key[0] == k and key[3] == tcfg.hidden_bg for key in by_shape):
             raise AssertionError(f"{k} never launched at h={tcfg.hidden_bg}: {by_shape}")
+    log(f"[synthetic] h={tcfg.hidden_bg} launches through "
+        f"{ff.kernel_names(tcfg.hidden_bg)['fused_field_fwd']} / "
+        f"{ff.kernel_names(tcfg.hidden_bg)['fused_field_bwd']}: "
+        f"{sum(v for key, v in by_shape.items() if key[3] == tcfg.hidden_bg)}")
     return res
 
 
@@ -880,7 +845,7 @@ def run_probe_path(device) -> list[dict]:
     from openobj_torch.ops import probes
     from openobj_torch.scripts import bench_ensemble_mm as em
     from openobj_torch.scripts import bench_fused_step_probe as fs
-    from openobj_torch.scripts._benchlib import rel_err
+    from openobj_torch.scripts._benchlib import bound_ms, rel_err
 
     t0 = time.perf_counter()
     torch.cuda.synchronize()
@@ -982,7 +947,7 @@ def main(argv=None) -> int:
     secs = kernels.build(verbose=True)
     log(f"[build] {secs} ({time.perf_counter() - t0:.1f} s)")
 
-    per = check_kernels(device)
+    per = check_kernels(device, (FG, BG) + OTHER_WIDTHS)
     check_convergence(device)
     check_steps_vs_cpu(device)
     by_shape_main, cfg, mapper, frames = run_main_path(device, profile=args.profile)
@@ -990,10 +955,12 @@ def main(argv=None) -> int:
     del mapper, frames
     torch.cuda.empty_cache()
     syn = run_synthetic_scene(device)
-    simt = sorted({(o, n, h) for (k, o, n, h) in syn["by_shape"]
-                   if k == "fused_field_bwd" and h not in (32, 128)})
-    per_simt = check_kernels(device, [dict(name=f"synthetic_bg{h}", o=o, n=n, h=h)
-                                      for o, n, h in simt])
+    # the synthetic scene's trained shapes at widths other than the main
+    # path's (its bg field, h=64)
+    other = sorted({(o, n, h) for (k, o, n, h) in syn["by_shape"]
+                    if k == "fused_field_bwd" and h not in (FG["h"], BG["h"])})
+    per_syn = check_kernels(device, [dict(name=f"synthetic_bg{h}", o=o, n=n, h=h)
+                                     for o, n, h in other])
     probe_rows = run_probe_path(device)
 
     replaces = {
@@ -1009,14 +976,15 @@ def main(argv=None) -> int:
         return sum(bs.get((name, *dims), 0) for bs in paths.values())
 
     rows = []
-    for name, shapes in per.items():
+    for name, every in per.items():
+        shapes = [s for s in every if s["shape"] in (FG["name"], BG["name"])]
         b = [s["bound"] for s in shapes]
         timed = [{"shape": s["shape"], "kernel": s["kernel"], "dims": s["dims"],
                   "launches": launches_at(name, s["dims"]), "max_abs_err": s["err"],
                   "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound"][0],
                   "bound_by": s["bound"][1], "bound_simt_ms": s["bound_simt"],
                   "library_ms": s["library_ms"]}
-                 for s in shapes + per_simt[name]]
+                 for s in every + per_syn[name]]
         if name == "fused_field_fwd":
             timed += k1_output_rows
         by_path = {p: sum(v for k, v in bs.items() if k[0] == name) for p, bs in paths.items()}
@@ -1033,6 +1001,8 @@ def main(argv=None) -> int:
             "bound_simt_ms": sum(s["bound_simt"] for s in shapes),
             "library_ms": (sum(s["library_ms"] for s in shapes)
                            if shapes[0]["library_ms"] is not None else None),
+            # every kernel instance run (each tensor-core width, the SIMT kernels)
+            "instances": sorted({s["kernel"] for s in timed}, key=lambda k: (len(k), k)),
             # timed shapes, each with the launches counted at exactly its dims
             "per_shape": timed,
             # every shape launched: [O, N, h, launches] by run

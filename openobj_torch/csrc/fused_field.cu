@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas TPU kernels in openobj_tpu/ops/fused_field.py:
 //   ff_fwd_kernel    <- _fwd_kernel (:160), launched by _fused_core_fwd (:360);
-//                       ff_fwd_generic_kernel at widths other than 32 and 128
+//                       ff_fwd_generic_kernel at widths without a tensor-core
+//                       instance (FF_TC_WIDTHS: every multiple of 16 to 128)
 //   ff_bwd_kernel    <- _bwd_kernel (:172), launched by _fused_core_bwd (:392);
-//                       ff_bwd_generic_kernel at widths other than 32 and 128
+//                       ff_bwd_generic_kernel at the other widths
 //   ff_reduce_kernel <- the cross-tile gradient accumulation that _bwd_kernel
 //                       carries along its sequential grid axis (:285-309)
 //
@@ -29,11 +30,13 @@
 //    version's rounding, and the bands use sinf/cosf, never the __sinf
 //    intrinsics: a phase error of one ulp at 32 pi is already 4e-6.
 //
-// K1 at h = 32 and 128 (every shipped config) runs its matrix products on the
-// tensor cores in 3xTF32, as K2's gradient products do (its section below).
-// At any other width, ff_fwd_generic_kernel and ff_bwd_generic_kernel: FP32
-// FMAs on the SIMT cores, up to 4x4 outputs per thread (`mm`), weights read
-// through the read-only/L2 path by all tiles of an object.
+// K1 at h = 16, 32, ..., 128 (FF_TC_WIDTHS) runs its matrix products on the
+// tensor cores in 3xTF32, as K2's gradient products do (its section below);
+// each template derives its layout from H and the shared-memory budget
+// (`Dims`, `FwdDims`). At any other width, ff_fwd_generic_kernel and
+// ff_bwd_generic_kernel: FP32 FMAs on the SIMT cores, up to 4x4 outputs per
+// thread (`mm`), weights read through the read-only/L2 path by all tiles of
+// an object. The choice is made by width before any launch.
 //
 // K2, what bounds it: about 98% of its multiply-adds are matrix products
 // (the recomputed trunk and heads, the weight gradients X^T dY, the input
@@ -58,15 +61,17 @@
 //    and every accumulator has one owner: no atomics, deterministic.
 //  * Shared-memory matrices are XOR-swizzled (`Sw`), so that both fragment
 //    patterns (X and X^T, W and W^T) read 32 different banks.
-//  * h = 32: the object's weights (55 KB) are copied to shared memory once per
-//    block with cp.async, and the weight gradients (70 KB with padding) are
-//    accumulated there across all chunks of the block's tile; the block
-//    writes its slot once. The tile is as long as fills the card in the
-//    fewest waves of one block per SM (ops.fused_field.bwd_tile).
-//  * h = 128: the weights (465 KB) do not fit; B fragments come from global
-//    memory (L2-resident). A tile is one chunk, so the accumulators of each
-//    weight-gradient tile go from registers to the slot once: no per-chunk
-//    read-modify-write of the slot.
+//  * Where the weights and the weight-gradient accumulators fit in shared
+//    memory beside a chunk (h = 16 and 32; at h = 32 55 KB and 70 KB with
+//    padding), the weights are copied there once per block with cp.async,
+//    and the weight gradients are accumulated there across all chunks of
+//    the block's tile; the block writes its slot once. The tile is as long
+//    as fills the card in the fewest waves of one block per SM
+//    (ops.fused_field.bwd_tile).
+//  * Otherwise (h = 48 to 128; 465 KB of weights at h = 128) B fragments
+//    come from global memory (L2-resident). A tile is one chunk, so the
+//    accumulators of each weight-gradient tile go from registers to the slot
+//    once: no per-chunk read-modify-write of the slot.
 //  * The TPU accumulates weight gradients across ray tiles in order along
 //    its grid. Blocks here run in parallel, so each block owns one (object,
 //    tile) slot of a scratch buffer and ff_reduce_kernel sums the slots in
@@ -560,6 +565,21 @@ struct Sw {
   }
 };
 
+// The widths the tensor-core kernels take: every product's M and N are
+// whole 16-row tiles (H, H + 48 and 2H; H + 88 in 8-column tiles), and one
+// chunk's buffers fit in shared memory (196 KB for K2 at h = 128; a
+// width over 128 would need a shorter chunk).
+__host__ __device__ constexpr bool tc_shape(int h) { return h >= 16 && h <= 128 && h % 16 == 0; }
+
+// Outputs per thread along N in `fp32_layer`: the fewest, from 2 (4 at
+// N >= 128), with which a row of N / RN threads divides the block and the
+// block's rows divide the chunk (3 at N = 48 and 96, 5 at 80, 7 at 112).
+__host__ __device__ constexpr int layer_rn(int n) {
+  int r = n >= 128 ? 4 : 2;
+  while (n % r != 0 || NT % (n / r) != 0 || BP % (NT / (n / r)) != 0) ++r;
+  return r;
+}
+
 // Shapes of K2 at hidden width H. Bias gradients ride along: e1 gets a
 // column of ones after its 87 features, so row 87 of the weight-gradient
 // product [e1 | 1]^T d_h1 is b_in's gradient, and the packed layout puts
@@ -568,6 +588,10 @@ struct Sw {
 // e2-fed heads ([h3 | e2 | 1 | 0 x 5], w_col / w_clip and their biases).
 template <int H>
 struct Dims {
+  static_assert(tc_shape(H), "the tensor-core kernels take H = 16, 32, ..., 128");
+  // row length of an h-wide `Sw` matrix: its XOR permutes columns within
+  // aligned groups of 32, so a row of 16 or 48 would spill into the next
+  static constexpr int LH = round_up(H, 32);
   static constexpr int KX2 = H + 88;                 // [h2 | e1 | 1]
   static constexpr int LDX2 = round_up(KX2, 32);
   static constexpr int MX2 = round_up(KX2, 16);      // rows of w_cat's gradient product
@@ -575,9 +599,9 @@ struct Dims {
   static constexpr int LDX3 = round_up(KX3, 32);
   static constexpr int RH = H + 43;                  // head weight rows with the bias
   static constexpr int ME1 = 96;                     // rows of w_in's gradient product
-  // h = 32: the object's weights and the block's weight gradients live in
-  // shared memory for the whole tile. Row offsets (multiples of 8).
-  static constexpr bool SMEM_W = H <= 32;
+  // The object's weights and the block's weight-gradient accumulators, in
+  // shared memory for the whole tile where they fit (SMEM_W below). Row
+  // offsets (multiples of 8).
   static constexpr int WR_IN = 0, WR_MID1 = 88, WR_CAT = WR_MID1 + H,
                        WR_MID2 = WR_CAT + KX2, WR_COL = WR_MID2 + H,
                        WR_CLIP = WR_COL + KX3, WROWS = WR_CLIP + KX3;
@@ -589,11 +613,21 @@ struct Dims {
   static constexpr int S_DIRS = 0, S_WA = ND * 3, S_BA = S_WA + H, S_WOC = S_BA + 1,
                        S_BOC = S_WOC + 3 * H, S_BM1 = S_BOC + 3, S_BM2 = S_BM1 + H,
                        NS = S_BM2 + H;
-  // shared memory in floats
-  static constexpr int SMEM_FLOATS =
-      (SMEM_W ? WROWS * H + GROWS * LDG : 0) +
-      BP * (2 * LDX2 + 2 * LDX3 + 2 * H + 3 * H) +
-      BP * (4 + ND + 4 + 1) + NS;
+  // shared memory in floats: the weights and accumulators, and one chunk's
+  // buffers (X2, D2, X3, D3, DH, A1, AC, AO, then t, proj, dcp, dal, S)
+  static constexpr int W_FLOATS = WROWS * LH + GROWS * LDG;
+  static constexpr int CHUNK_FLOATS =
+      BP * (2 * LDX2 + 2 * LDX3 + 2 * H + 3 * LH) + BP * (4 + ND + 4 + 1) + NS;
+  // Weights and accumulators stay on chip where both fit beside the chunk
+  // (h = 16, 32); otherwise B fragments come from L2 and a tile is one chunk.
+  static constexpr bool SMEM_W = W_FLOATS + CHUNK_FLOATS <= SMEM_OPTIN_FLOATS;
+  static constexpr int SMEM_FLOATS = (SMEM_W ? W_FLOATS : 0) + CHUNK_FLOATS;
+  static_assert(SMEM_FLOATS <= SMEM_OPTIN_FLOATS, "a chunk must fit in shared memory");
+  // n-tiles per item of an N = H product: two (each A fragment serves both)
+  // where the H x H products then take the 8 warps no longer than with one
+  // (h = 64, 128); one otherwise (h = 48: 9 items of two, 18 of one).
+  static constexpr int NBF =
+      ((H / 16) * (H / 16) + NW - 1) / NW * 2 <= ((H / 16) * (H / 8) + NW - 1) / NW ? 2 : 1;
 };
 
 #ifdef __CUDACC__
@@ -686,7 +720,7 @@ __device__ int product(int slot, FI init, FA a, FB b, FE epi) {
 // thread owns RM x RN outputs, rows cy + TM i and columns cx + TN j.
 template <int N, int KH, int KE, class FX, class FW, class FB, class FE>
 __device__ void fp32_layer(FX x, FW w, FB bias, FE out) {
-  constexpr int RN = N >= 128 ? 4 : 2;
+  constexpr int RN = layer_rn(N);
   constexpr int TN = N / RN, TM = NT / TN, RM = BP / TM;
   static_assert(N % RN == 0 && NT % TN == 0 && BP % TM == 0, "layer shape");
   const int cx = threadIdx.x % TN, cy = threadIdx.x / TN;
@@ -730,11 +764,11 @@ __device__ void fp32_layer(FX x, FW w, FB bias, FE out) {
 
 // One weight matrix of the packed layout, [R][H] row-major with its bias row
 // (if any) counted in R: in the block's swizzled shared copy from row r0
-// (h = 32; rows past R are zero there), or in global memory (L2-resident),
+// (SMEM_W; rows past R are zero there), or in global memory (L2-resident),
 // where rows past R read as zero.
 template <int H, bool SMEM>
 struct Wm {
-  Sw<H> s;
+  Sw<Dims<H>::LH> s;
   const float* g;
   int r0, R;
   __device__ float at(int r, int c) const {
@@ -763,7 +797,7 @@ __device__ inline float2 relu2(float2 v) {
 
 // ------------------------------------------------------------------------ K1
 //
-// The forward at h = 32 and h = 128. Every matrix product (the trunk and the
+// The forward at h = 16, 32, ..., 128. Every matrix product (the trunk and the
 // two e2-fed heads) runs on the tensor cores in 3xTF32 (`rows_product`), on
 // K2's activation layouts: [h2 | e1 | 1] for the skip layer, then
 // [h3 | e2 | 1 | 0 x 5] for the heads, in one buffer (the first is dead once
@@ -785,10 +819,11 @@ __device__ inline float2 relu2(float2 v) {
 // 3xTF32 stays far inside K1's 1e-4 gate.
 //
 // A block walks a tile of FP-point chunks of one object (`fwd_tile`):
-// h = 32 splits the object's weights (55 KB, 110 KB split) into shared
-// memory once per tile; h = 128 (465 KB) reads B fragments from L2 and
-// splits them, each fragment serving all FP rows of the chunk. One block
-// fills an SM (about 200 KB of shared memory).
+// where they fit (h = 16, 32; at h = 32 55 KB, 110 KB split) it splits the
+// object's weights into shared memory once per tile; otherwise (h = 48 to
+// 128; 465 KB at h = 128) it reads B fragments from L2 and splits them, each
+// fragment serving all FP rows of the chunk. One block fills an SM (up to
+// 218 KB of shared memory).
 
 constexpr int FP = 64;          // points per forward chunk
 
@@ -864,7 +899,7 @@ struct FragB {
 
 // One packed weight matrix [R][H] (bias row counted in R; rows past R read
 // as zero) as B fragments: from its split copy in shared memory from k-step
-// ks0 (h = 32), or from device memory (L2-resident), split as it is read.
+// ks0 (SMEM_W), or from device memory (L2-resident), split as it is read.
 template <int H, bool SMEM>
 struct WFrag {
   FragB<H / 8> s;
@@ -942,22 +977,31 @@ __device__ void each_pair(int mt, int nt, const float (&c)[4], F f) {
 
 template <int H>
 struct FwdDims {
+  static_assert(tc_shape(H), "ff_fwd_kernel takes H = 16, 32, ..., 128");
   using D = Dims<H>;
   static constexpr int KSX = D::KX2 / 8;        // k-steps of [h2 | e1 | 1]
-  // row tiles per item: h = 128 reads its weights from L2, so each B
-  // fragment serves all FP rows; column tiles per item: an h-wide product
-  // is one item per warp
-  static constexpr int MT = H >= 128 ? FP / 16 : 1;
-  static constexpr int NB = H * (FP / (16 * MT)) / (8 * NW);
-  // k-step offsets of the split weights in shared memory (h = 32)
+  // k-step offsets of the split weights in shared memory (SMEM_W)
   static constexpr int WK_IN = 0, WK_MID1 = 11, WK_CAT = WK_MID1 + H / 8,
                        WK_MID2 = WK_CAT + KSX, WK_COL = WK_MID2 + H / 8,
                        WK_CLIP = WK_COL + D::KX3 / 8, WKS = WK_CLIP + D::KX3 / 8;
   static constexpr int LDP = H + 1;             // plain h3 and hcol rows
   static constexpr int SMALL = ND * 3 + 4 * H + 4;   // dirs, w_alpha, b_alpha, w_oc, b_oc
-  static constexpr int SMEM_WORDS =
-      (D::SMEM_W ? WKS * (H / 8) * 128 : 0) + (FP / 16) * (KSX + H / 8) * 256 + FP * LDP +
-      FP * (4 + ND) + SMALL;
+  static constexpr int W_WORDS = WKS * (H / 8) * 128;
+  static constexpr int CHUNK_WORDS =
+      (FP / 16) * (KSX + H / 8) * 256 + FP * LDP + FP * (4 + ND) + SMALL;
+  // The split weights stay in shared memory where they fit beside the chunk
+  // (h = 16, 32); otherwise B fragments come from L2.
+  static constexpr bool SMEM_W = W_WORDS + CHUNK_WORDS <= SMEM_OPTIN_FLOATS;
+  static constexpr int SMEM_WORDS = (SMEM_W ? W_WORDS : 0) + CHUNK_WORDS;
+  static_assert(SMEM_WORDS <= SMEM_OPTIN_FLOATS, "a chunk must fit in shared memory");
+  // Items of the N = H products, MT row tiles x NB n-tiles. From shared
+  // memory a B fragment is one 128-bit load: an item is one row tile and
+  // H/16 n-tiles, one item per warp. From L2 a B fragment is two loads and
+  // two splits, so each serves all FP/16 row tiles (MT), and an item takes
+  // two n-tiles where there are more n-tiles than warps (h = 80 to 128; at
+  // most 4 x 2 accumulator tiles, 32 registers).
+  static constexpr int MT = SMEM_W ? 1 : FP / 16;
+  static constexpr int NB = SMEM_W ? H / 16 : (H / 8 > NW ? 2 : 1);
 };
 
 template <int H>
@@ -965,9 +1009,10 @@ __global__ void __launch_bounds__(NT, 1)
 ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
               float* __restrict__ alpha, float* __restrict__ color,
               float* __restrict__ hclip, int N, int do_clip, int tile) {
+  static_assert(tc_shape(H), "ff_fwd_kernel takes H = 16, 32, ..., 128");
   using D = Dims<H>;
   using F = FwdDims<H>;
-  constexpr bool SW = D::SMEM_W;
+  constexpr bool SW = F::SMEM_W;
   constexpr int HS = H / 8;   // k-steps (and n-tiles) of an h-wide operand
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
@@ -976,7 +1021,7 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
   const float* W = w + (size_t)o * L.total;
 
   uint32_t* q = reinterpret_cast<uint32_t*>(sm);
-  uint32_t* wsp = q;             q += SW ? F::WKS * HS * 128 : 0;     // split weights (h = 32)
+  uint32_t* wsp = q;             q += SW ? F::W_WORDS : 0;      // split weights (SMEM_W)
   const FragA<F::KSX> X{q};      q += (FP / 16) * F::KSX * 256;  // [h2 | e1 | 1], then [h3 | e2 | 1 | 0]
   const FragA<HS> HB{q};                                          // h1, then hc
   float* hcp = reinterpret_cast<float*>(q);  q += (FP / 16) * HS * 256;  // then hcol, plain
@@ -1139,8 +1184,10 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
               const float* __restrict__ da, const float* __restrict__ dc,
               const float* __restrict__ dh, float* __restrict__ part,
               int N, int do_clip, int tile) {
+  static_assert(tc_shape(H), "ff_bwd_kernel takes H = 16, 32, ..., 128");
   using D = Dims<H>;
   constexpr bool SW = D::SMEM_W;
+  constexpr int LH = D::LH;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x;
   const int o = blockIdx.y;
@@ -1150,16 +1197,16 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
   float* G = part + ((size_t)o * gridDim.x + ti) * L.total;
 
   float* q = sm;
-  const Sw<H> ws{q};             q += SW ? D::WROWS * H : 0;     // weights (h = 32)
-  float* gs = q;                 q += SW ? D::GROWS * D::LDG : 0; // weight grads (h = 32)
+  const Sw<LH> ws{q};            q += SW ? D::WROWS * LH : 0;    // weights (SMEM_W)
+  float* gs = q;                 q += SW ? D::GROWS * D::LDG : 0; // weight grads (SMEM_W)
   const Sw<D::LDX2> X2{q};       q += BP * D::LDX2;  // [h2 | e1 | 1]
   const Sw<D::LDX2> D2{q};       q += BP * D::LDX2;  // [d_h2 | d_e1]
   const Sw<D::LDX3> X3{q};       q += BP * D::LDX3;  // [h3 | e2 | 1 | 0]
   const Sw<D::LDX3> D3{q};       q += BP * D::LDX3;  // [d_h3 | d_e2]
   const Sw<2 * H> DH{q};         q += BP * 2 * H;    // [d_hcol | d_hclip]
-  const Sw<H> A1{q};             q += BP * H;        // h1
-  const Sw<H> AC{q};             q += BP * H;        // hc, then d_h1
-  const Sw<H> AO{q};             q += BP * H;        // hcol, then d_hc
+  const Sw<LH> A1{q};            q += BP * LH;       // h1
+  const Sw<LH> AC{q};            q += BP * LH;       // hc, then d_h1
+  const Sw<LH> AO{q};            q += BP * LH;       // hcol, then d_hc
   float* tt = q;                 q += BP * 4;        // scaled points
   float* pj = q;                 q += BP * ND;       // proj, then d_proj
   float* dcp = q;                q += BP * 4;        // sigmoid-input cotangent
@@ -1190,8 +1237,8 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
 
   const auto zero2 = [](int, int) { return make_float2(0.0f, 0.0f); };
   // weight-gradient accumulator of one matrix: in shared memory across the
-  // tile's chunks (h = 32), or written once to the slot (h = 128: one chunk
-  // per tile); rows past R (padding) are dropped
+  // tile's chunks (SMEM_W), or written once to the slot (one chunk per
+  // tile); rows past R (padding) are dropped
   const auto g_init = [&](int gr0) {
     return [=](int m, int n) {
       if constexpr (SW) return *reinterpret_cast<const float2*>(gs + (gr0 + m) * D::LDG + n);
@@ -1208,7 +1255,7 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
       }
     };
   };
-  constexpr int NBF = H >= 64 ? 2 : 1;    // n-tiles per item of an N = H product
+  constexpr int NBF = D::NBF;   // n-tiles per item of an N = H product
 
   const int t0 = ti * tile;
   const int t1 = min(N, t0 + tile);
@@ -1530,28 +1577,61 @@ int launch_bwd(const float* pts, const float* w, const float* da, const float* d
   return (int)cudaGetLastError();
 }
 
+// The widths the tensor-core kernels are built for: every width they take
+// (`tc_shape`). Dispatch reads this one list (`TC_WIDTHS`); every other
+// width runs the SIMT kernels. A build may define FF_TC_WIDTHS with fewer
+// (the CPU emulation in tests/test_torch_kernel_emulation.py does, to keep
+// its host compile short).
+#ifndef FF_TC_WIDTHS
+#define FF_TC_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+#endif
+
+struct TcWidth {
+  int h;
+  bool smem_w;   // K2 keeps weights and accumulators on chip across a tile
+  int (*fwd)(const float*, const float*, float*, float*, float*, int, int, int, cudaStream_t);
+  int (*bwd)(const float*, const float*, const float*, const float*, const float*, float*, int,
+             int, int, int, cudaStream_t);
+};
+
+#define FF_TC_ENTRY(H) {H, Dims<H>::SMEM_W, launch_fwd<H>, launch_bwd<H>},
+const TcWidth TC_WIDTHS[] = {FF_TC_WIDTHS(FF_TC_ENTRY)};
+#undef FF_TC_ENTRY
+
+const TcWidth* tc_width(int h) {
+  for (const TcWidth& t : TC_WIDTHS)
+    if (t.h == h) return &t;
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" {
 
 int ff_param_count(int h) { return make_layout(h).total; }
 
+// 1 if K1 and K2 run on the tensor cores at width h, 0 if the SIMT kernels do
+int ff_tc_width(int h) { return tc_width(h) != nullptr; }
+
 // K2 walks a tile of points in chunks of this many
-int ff_bwd_chunk(int h) { return h == 32 || h == 128 ? BP : bwd_generic_chunk(h); }
+int ff_bwd_chunk(int h) { return tc_width(h) ? BP : bwd_generic_chunk(h); }
 
-// The largest K2 tile: one chunk at h = 128 (each chunk's weight gradients
-// are written to the tile's slot once); unbounded otherwise (weights and
-// gradients stay in shared memory across chunks at h = 32; the SIMT kernel
-// adds each chunk's gradients into its slot).
-int ff_bwd_max_tile(int h) { return h == 128 ? BP : (1 << 30); }
+// The largest K2 tile: one chunk where the tensor-core K2 reads its weights
+// from L2 (each chunk's weight gradients go to the tile's slot once);
+// unbounded otherwise (weights and gradients stay in shared memory across
+// chunks at h = 16 and 32; the SIMT kernel adds each chunk's gradients into
+// its slot).
+int ff_bwd_max_tile(int h) {
+  const TcWidth* t = tc_width(h);
+  return t && !t->smem_w ? BP : (1 << 30);
+}
 
-// K1 runs on the tensor cores at h = 32 and h = 128 (the widths of every
-// shipped config), and as the SIMT kernel at any other width.
+// K1 runs on the tensor cores at the widths of FF_TC_WIDTHS, and as the SIMT
+// kernel at any other width.
 int ff_forward(const float* pts, const float* w, float* alpha, float* color,
                float* hclip, int O, int N, int h, int do_clip, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (h == 32) return launch_fwd<32>(pts, w, alpha, color, hclip, O, N, do_clip, s);
-  if (h == 128) return launch_fwd<128>(pts, w, alpha, color, hclip, O, N, do_clip, s);
+  if (const TcWidth* t = tc_width(h)) return t->fwd(pts, w, alpha, color, hclip, O, N, do_clip, s);
   const size_t smem = fwd_smem(h);
   cudaError_t err = cudaFuncSetAttribute(
       ff_fwd_generic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1563,19 +1643,19 @@ int ff_forward(const float* pts, const float* w, float* alpha, float* color,
   return (int)cudaGetLastError();
 }
 
-// K2 runs on the tensor cores at h = 32 and h = 128, and as the SIMT kernel
-// at any other width; the tile must be a multiple of ff_bwd_chunk(h) and at
-// most ff_bwd_max_tile(h).
+// K2 runs on the tensor cores at the widths of FF_TC_WIDTHS, and as the SIMT
+// kernel at any other width; the tile must be a multiple of ff_bwd_chunk(h)
+// and at most ff_bwd_max_tile(h).
 int ff_backward(const float* pts, const float* w, const float* da,
                 const float* dc, const float* dh, float* part, int O, int N,
                 int h, int do_clip, int tile, void* stream) {
+  const TcWidth* t = tc_width(h);
   const int chunk = ff_bwd_chunk(h);
   if (h <= 0 || tile <= 0 || tile % chunk != 0 || tile > ff_bwd_max_tile(h) ||
-      bwd_generic_floats(h, chunk) > SMEM_OPTIN_FLOATS)
+      (!t && bwd_generic_floats(h, chunk) > SMEM_OPTIN_FLOATS))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (h == 32) return launch_bwd<32>(pts, w, da, dc, dh, part, O, N, do_clip, tile, s);
-  if (h == 128) return launch_bwd<128>(pts, w, da, dc, dh, part, O, N, do_clip, tile, s);
+  if (t) return t->bwd(pts, w, da, dc, dh, part, O, N, do_clip, tile, s);
   const size_t smem = sizeof(float) * bwd_generic_floats(h, chunk);
   cudaError_t err = cudaFuncSetAttribute(
       ff_bwd_generic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

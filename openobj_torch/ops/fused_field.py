@@ -4,7 +4,9 @@ Port of ``openobj_tpu.ops.fused_field``. The function is the whole field
 per (object, point): icosphere positional encoding -> 4-layer trunk with
 skip -> alpha / colour / clip-hidden heads. On a CUDA tensor it runs as the
 hand-written kernels in ``openobj_torch/csrc/fused_field.cu`` (forward K1;
-backward K2 plus a deterministic cross-tile reduction; at any hidden width)
+backward K2 plus a deterministic cross-tile reduction; on the tensor cores
+at every hidden width that is a multiple of 16 up to 128, on the SIMT cores
+at any other)
 under a ``torch.autograd.Function``. On a CPU tensor it runs ``fused_field_plain``,
 the plain PyTorch version of the same function (following the JAX kernel
 body ``_fwd_body``), differentiated by autograd. A CUDA tensor never takes
@@ -155,6 +157,9 @@ def _lib(source="fused_field"):
         for fn in (lib.ff_bwd_chunk, lib.ff_bwd_max_tile):
             fn.argtypes = [_INT]
             fn.restype = _INT
+        if hasattr(lib, "ff_tc_width"):   # not in copies older than the width table
+            lib.ff_tc_width.argtypes = [_INT]
+            lib.ff_tc_width.restype = _INT
         lib.ff_forward.argtypes = [_VP] * 5 + [_INT] * 4 + [_VP]
         lib.ff_forward.restype = _INT
         lib.ff_backward.argtypes = [_VP] * 6 + [_INT] * 5 + [_VP]
@@ -163,6 +168,23 @@ def _lib(source="fused_field"):
         lib.ff_reduce.restype = _INT
         lib._openobj_typed = True
     return lib
+
+
+def tensor_core_width(h: int) -> bool:
+    """Whether K1 and K2 run on the tensor cores at hidden width ``h`` (the
+    library's width table, ``FF_TC_WIDTHS``: every multiple of 16 up to
+    128); at any other width the SIMT kernels run."""
+    return bool(_lib().ff_tc_width(h))
+
+
+def kernel_names(h: int) -> dict:
+    """The CUDA kernel behind each launch count at hidden width ``h``."""
+    if tensor_core_width(h):
+        fwd, bwd = f"ff_fwd_kernel<{h}>", f"ff_bwd_kernel<{h}>"
+    else:
+        fwd, bwd = "ff_fwd_generic_kernel", "ff_bwd_generic_kernel"
+    return {"fused_field_fwd": fwd, "fused_field_bwd": bwd,
+            "fused_field_bwd_reduce": "ff_reduce_kernel"}
 
 
 def _check(x: torch.Tensor, name: str, shape: tuple) -> None:

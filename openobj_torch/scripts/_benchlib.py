@@ -16,6 +16,10 @@ the loop. Neither happens to CUDA launches: every captured launch runs.
 one stream, the cost a caller that launches from Python sees. A probe of
 launch cost reports both.
 
+The work of a fused-field call and the least time the card could take for
+it (``field_bounds``, ``bound_ms``) are here too, for ``chip_smoke.py`` and
+``bench_fused_field``.
+
 A ``Case`` is one probe kernel at fixed inputs beside its plain version,
 the library call that computes the same function (if one does) and the
 work that bounds it. ``measure`` runs its kernel once, keeps the output
@@ -33,6 +37,76 @@ import statistics
 from typing import Any, Callable
 
 import torch
+
+
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
+# TF32 on the tensor cores, HBM3
+PEAK_F32 = 67e12
+PEAK_TF32 = 494.7e12
+PEAK_BYTES = 3.35e12
+
+
+def fwd_mm_macs(h: int) -> int:
+    """Multiply-adds per point of the forward's matrix products (the trunk
+    and the two e2-fed heads, N = h)."""
+    return 87 * h + h * h + (h + 87) * h + h * h + 2 * (h + 42) * h
+
+
+def fwd_macs(h: int) -> int:
+    """Multiply-adds per point of the field forward (clip head on): the
+    matrix products, the projection, the alpha and colour heads."""
+    return 21 * 3 + fwd_mm_macs(h) + h + 3 * h
+
+
+def fwd_macs_noclip(h: int) -> tuple[int, int]:
+    """(all, matrix-product) multiply-adds per point of the forward with the
+    clip head off, as rendering and meshing run it."""
+    clip = (h + 42) * h
+    return fwd_macs(h) - clip, fwd_mm_macs(h) - clip
+
+
+def bwd_macs(h: int) -> int:
+    """Per point: the recomputed forward, the weight gradients (one MAC per
+    weight), the input gradients of every layer, and the PE backward."""
+    dx = 3 * h + h + 2 * h * h + 2 * 42 * h + h * h + (h + 87) * h + h * h + 87 * h
+    return fwd_macs(h) + fwd_macs(h) + dx + 6 * 21
+
+
+def bwd_mm_macs(h: int) -> int:
+    """The backward's matrix products: the recomputed forward's, the weight
+    gradients X^T dY and the input gradients dY W^T, each as many
+    multiply-adds as the forward's products."""
+    return 3 * fwd_mm_macs(h)
+
+
+def bound_ms(flops: float, nbytes: float, mm_flops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) for ``flops`` FP32-accurate operations moving
+    ``nbytes``, and what bounds it. The ``mm_flops`` of them that are matrix
+    products may run on the tensor cores in 3xTF32 (three TF32 products for
+    one FP32-accurate one); the rest run at the FP32 rate. The two kinds of
+    unit may overlap, so the operations take the longer of the two times.
+    With mm_flops = 0 this is the SIMT-only bound."""
+    t_ops = max(3.0 * mm_flops / PEAK_TF32, (flops - mm_flops) / PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def field_bounds(o: int, n: int, h: int, p: int) -> dict:
+    """Bounds of one fused-field forward and backward (clip head on) over O
+    objects x N points at width h, P packed parameters per object: the
+    points, weights and cotangents read once, the outputs (or one gradient
+    per object) written once; ``*_simt`` with every product on the SIMT
+    cores. Values are ``bound_ms`` pairs (ms, what bounds it)."""
+    npts = o * n
+    wbytes = o * p * 4
+    fwd_bytes = npts * 12 + wbytes + npts * 4 * (1 + 3 + h)
+    bwd_bytes = fwd_bytes + wbytes
+    return {
+        "fwd": bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes, 2.0 * fwd_mm_macs(h) * npts),
+        "bwd": bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes, 2.0 * bwd_mm_macs(h) * npts),
+        "fwd_simt": bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes),
+        "bwd_simt": bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes),
+    }
 
 
 def _require_cuda() -> None:

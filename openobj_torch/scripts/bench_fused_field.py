@@ -10,7 +10,9 @@ card.
         --against chip_proof/other/openobj_torch/csrc/fused_field.cu
 
 At the main path's two shapes (fg 64 objects x 1200 points, h=32; bg 1 x
-16800, h=128; clip head on; inputs from a seed) it builds both sources with
+16800, h=128) and at other widths' (the synthetic scene's bg [1, 1792] at
+h=64; the room_0 shapes at h=64; fg at h=16 and h=96), clip head on, inputs
+from a seed, it builds both sources with
 the same ``nvcc`` flags and tiles both backwards with
 ``fused_field.bwd_tiling``. For each forward it reports the max abs
 difference from ``fused_field_plain`` (the 1e-4 gate of ``chip_smoke.py``).
@@ -22,7 +24,9 @@ beside the plain FP32 backward's own distance from float64. It times each
 kernel alone (the forward into preallocated outputs, the backward into its
 own per-tile scratch, without the reduction) with CUDA events in turns:
 this, other, other, this; and the plain forward and backward (autograd of
-``fused_field_plain``). The last line is one JSON object with every number.
+``fused_field_plain``), and each kernel's bound (``_benchlib.field_bounds``)
+and the kernels this checkout launches there. The last line is one JSON
+object with every number.
 """
 
 from __future__ import annotations
@@ -37,8 +41,14 @@ import torch
 from openobj_torch import kernels
 from openobj_torch.models import object_field
 from openobj_torch.ops import fused_field as ff
+from openobj_torch.scripts._benchlib import field_bounds
 
-SHAPES = (dict(name="fg", o=64, n=1200, h=32), dict(name="bg", o=1, n=16800, h=128))
+SHAPES = (
+    dict(name="fg", o=64, n=1200, h=32), dict(name="bg", o=1, n=16800, h=128),
+    dict(name="syn_bg_h64", o=1, n=1792, h=64),
+    dict(name="fg_h64", o=64, n=1200, h=64), dict(name="bg_h64", o=1, n=16800, h=64),
+    dict(name="fg_h16", o=64, n=1200, h=16), dict(name="fg_h96", o=64, n=1200, h=96),
+)
 ITERS = 20      # timed launches per reading, after 3 warm-ups
 
 
@@ -121,7 +131,8 @@ def run(against: Path | None) -> dict:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    kernels.build(["fused_field"] + ([against] if against else []), verbose=True)
+    secs = kernels.build(["fused_field"] + ([against] if against else []), verbose=True)
+    print(f"[build] nvcc seconds (sources not built yet, in parallel): {secs}", flush=True)
     libs = {"this": ff._lib()}
     if against:
         libs["other"] = ff._lib(against)
@@ -141,7 +152,10 @@ def run(against: Path | None) -> dict:
         ref64 = _plain_grad(wflat, pts, cts, h, torch.float64)[1]
 
         outs_p = ff.fused_field_plain(wflat, pts, h, True)
-        row = {"o": o, "n": n, "h": h, "plain_vs_f64": _leaf_rel(ref, ref64, h)[0]}
+        bounds = field_bounds(o, n, h, ff.packed_size(h))
+        row = {"o": o, "n": n, "h": h, "plain_vs_f64": _leaf_rel(ref, ref64, h)[0],
+               "kernels": ff.kernel_names(h),
+               "bound_fwd_ms": bounds["fwd"][0], "bound_ms": bounds["bwd"][0]}
         runs = {k: Field(lib, wflat, pts, *cts, h) for k, lib in libs.items()}
         for k, r in runs.items():
             r.forward()
@@ -159,17 +173,18 @@ def run(against: Path | None) -> dict:
         row["plain_fwd_ms"] = _time(lambda: ff.fused_field_plain(wflat, pts, h, True))
         row["plain_ms"] = _time(lambda: torch.autograd.grad(obj, w_req, retain_graph=True))
         out[shape["name"]] = row
-        print(f"[k1] {shape['name']} O={o} N={n} h={h}: "
+        print(f"[k1] {shape['name']} O={o} N={n} h={h} ({row['kernels']['fused_field_fwd']}): "
               + "; ".join(f"{k} {['%.4f' % t for t in row[k]['fwd_ms']]} ms "
                           f"(max abs {row[k]['fwd_max_abs']:.2e})" for k in runs)
-              + f"; plain forward {row['plain_fwd_ms']:.4f} ms", flush=True)
-        print(f"[k2] {shape['name']} O={o} N={n} h={h}: "
+              + f"; plain forward {row['plain_fwd_ms']:.4f} ms; bound "
+              f"{row['bound_fwd_ms']:.4f} ms", flush=True)
+        print(f"[k2] {shape['name']} O={o} N={n} h={h} ({row['kernels']['fused_field_bwd']}): "
               + "; ".join(f"{k} {['%.4f' % t for t in row[k]['ms']]} ms (tile {row[k]['tile']}, "
                           f"worst leaf rel {row[k]['worst_leaf_rel']:.2e} at {row[k]['worst_leaf']}, "
                           f"vs f64 {row[k]['vs_f64']:.2e})"
                           for k in runs)
-              + f"; plain backward {row['plain_ms']:.4f} ms (vs f64 {row['plain_vs_f64']:.2e})",
-              flush=True)
+              + f"; plain backward {row['plain_ms']:.4f} ms (vs f64 {row['plain_vs_f64']:.2e}); "
+              f"bound {row['bound_ms']:.4f} ms", flush=True)
         del params, wflat, pts, cts, w_req, obj, ref, ref64, runs, outs_p
     return out
 

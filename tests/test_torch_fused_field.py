@@ -1,7 +1,9 @@
 """The port's fused field against the JAX fused field.
 
 On the CPU the port runs the kernels' plain version; the JAX side runs its
-Pallas kernels in interpret mode, as tests/test_fused_field.py does. The
+Pallas kernels in interpret mode, as tests/test_fused_field.py does, at
+hidden widths 16, 32 and 64 (the card runs all three on its tensor-core
+K1/K2). The
 CUDA kernels are held against the plain version in
 tests/test_torch_kernels.py (needs a GPU, not JAX).
 """
@@ -59,9 +61,10 @@ def _grads_match(g_jax, leaves, grads, rtol):
         assert rel < rtol, f"{path}: rel {rel:.2e}"
 
 
+@pytest.mark.parametrize("h", [16, 32, 64])
 @pytest.mark.parametrize("do_clip", [True, False])
-def test_forward_matches_jax(do_clip):
-    p, pts, _ = _setup()
+def test_forward_matches_jax(do_clip, h):
+    p, pts, _ = _setup(h=h)
     a0, c0, f0 = jff.field_apply_stacked_fused(p, jnp.asarray(pts), do_clip=do_clip)
     tp, _ = _torch_params(p)
     a1, c1, f1 = tff.field_apply_stacked_fused(tp, torch.from_numpy(pts), do_clip=do_clip)
@@ -73,15 +76,16 @@ def test_forward_matches_jax(do_clip):
         assert f0 is None and f1 is None
 
 
+@pytest.mark.parametrize("h", [16, 32, 64])
 @pytest.mark.parametrize("n,do_clip,rtol", [
     (40, True, 3e-5),      # one tile
     (40, False, 3e-5),
     (600, True, 2e-4),     # N > 512: two backward tiles on the JAX side
 ])
-def test_grads_match_jax(n, do_clip, rtol):
-    p, pts, rng = _setup(o=2 if n > 512 else 3, n=n)
+def test_grads_match_jax(n, do_clip, rtol, h):
+    p, pts, rng = _setup(o=2 if n > 512 else 3, n=n, h=h)
     o = pts.shape[0]
-    cts = [rng.normal(size=(o, n, k)).astype(np.float32) for k in (1, 3, 32)]
+    cts = [rng.normal(size=(o, n, k)).astype(np.float32) for k in (1, 3, h)]
 
     def jloss(params):
         a, c, f = jff.field_apply_stacked_fused(params, jnp.asarray(pts), do_clip=do_clip)

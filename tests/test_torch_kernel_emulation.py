@@ -9,9 +9,13 @@ inline-PTX helpers that the source builds only under nvcc, runs each
 block's threads as ``std::thread``s and emulates ``mma.sync`` from its
 documented fragment layout. That checks the kernel's indexing: fragments,
 swizzled shared memory, the packed layout and its bias rows, ragged
-chunks, tiles of several chunks, the clip head on and off, at both widths
-the tensor-core kernels are built for (and K1's SIMT kernel at another
-width). It says nothing of speed or of the card's own rounding;
+chunks, tiles of several chunks, the clip head on and off, for the
+tensor-core K1 and K2 at the widths ``EMU_TC_WIDTHS`` (weights in shared
+memory at h = 16 and 32, from L2 at 48 to 128), and for the SIMT kernels at
+widths outside them. The emulation builds only the tensor-core widths its
+tests use (``FF_TC_WIDTHS``, defined for the host compiler); the card
+builds every multiple of 16 up to 128. It says nothing of speed or of the
+card's own rounding;
 ``tests/test_torch_kernels.py`` holds the real kernels to the same plain
 version on a GPU (``tests/test_torch_probe_kernels.py`` for dW and the
 ensemble GEMM).
@@ -36,6 +40,8 @@ FWD_ATOL = 1e-4      # as tests/test_torch_kernels.py
 GRAD_RTOL = 1e-3
 GEMM_RTOL = 1e-5     # as tests/test_torch_probe_kernels.py
 CHAIN_RTOL = 1e-4    # as tests/test_torch_probe_kernels.py
+# the tensor-core widths the emulated fused_field.cu is built with
+EMU_TC_WIDTHS = (16, 32, 48, 64, 96, 128)
 
 # What the CUDA source needs from the CUDA runtime and from its inline-PTX
 # helpers, for a host C++20 compiler:
@@ -327,7 +333,7 @@ def _host_source(name: str) -> str:
                   r"emu_launch(\2, [&] { \1(\3); });", s, flags=re.S)
 
 
-def _emulated(tmp_path_factory, name: str) -> ctypes.CDLL:
+def _emulated(tmp_path_factory, name: str, defines=()) -> ctypes.CDLL:
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
@@ -336,14 +342,19 @@ def _emulated(tmp_path_factory, name: str) -> ctypes.CDLL:
     cpp.write_text(_host_source(name))
     stub.write_text(STUB)
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", "-include", str(stub), "-o", str(so), str(cpp)],
+                    "-Wno-unknown-pragmas", *defines, "-include", str(stub), "-o", str(so),
+                    str(cpp)],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(so))
 
 
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
-    lib = _emulated(tmp_path_factory, "fused_field")
+    widths = " ".join(f"X({h})" for h in EMU_TC_WIDTHS)
+    lib = _emulated(tmp_path_factory, "fused_field", [f"-DFF_TC_WIDTHS(X)={widths}"])
+    for fn in (lib.ff_tc_width, lib.ff_bwd_chunk, lib.ff_bwd_max_tile):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
     lib.ff_forward.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.ff_forward.restype = ctypes.c_int
     lib.ff_backward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -374,10 +385,24 @@ def _field(rng, o, n, h, do_clip):
     (3, 150, 32, True, 4),       # tiles of 3 chunks (64, 64, 22 points)
     (1, 150, 128, True, 1),      # h=128: one block walks 3 chunks
     (1, 100, 128, False, 132),   # h=128, clip head off: a chunk per block
-    (2, 40, 64, True, 132),      # another width: the SIMT kernel
+    (2, 40, 64, True, 132),      # h=64: weights from L2, all 4 row tiles per item
+    # the other tensor-core widths: weights in shared memory at h=16, from L2
+    # at 48 and 64 (one n-tile per item) and 96 (two); one ragged chunk per
+    # block but for a tile of several chunks at h=16 and at h=48
+    (2, 150, 16, True, 1),       # one block per object walks 3 chunks (64, 64, 22)
+    (2, 37, 16, False, 132),     # clip head off, one ragged chunk
+    (1, 40, 48, True, 132),
+    (1, 70, 48, False, 1),       # one block walks 2 chunks (64, 6), clip head off
+    (1, 40, 64, False, 132),     # clip head off
+    (1, 40, 96, True, 132),
+    (1, 37, 96, False, 132),
+    # widths without a tensor-core kernel: the SIMT kernel
+    (2, 40, 24, True, 132),
+    (1, 70, 24, False, 132),
 ])
 def test_emulated_k1_matches_plain(emu_lib, o, n, h, do_clip, n_sm):
     lib = emu_lib
+    assert lib.ff_tc_width(h) == (h in EMU_TC_WIDTHS)
     w, pts = _field(np.random.default_rng(1), o, n, h, do_clip)
     ref = tff.fused_field_plain(w, pts, h, do_clip)
     outs = [np.full((o, n, k), np.nan, np.float32) for k in (1, 3, h)]
@@ -400,13 +425,27 @@ def test_emulated_k1_matches_plain(emu_lib, o, n, h, do_clip, n_sm):
     (3, 40, 32, True, 32),       # one chunk per tile, then 8 points
     (1, 40, 128, True, 32),      # h=128: one chunk per tile
     (1, 33, 128, False, 32),
-    # other widths: the SIMT kernel, gradients added into the slot per chunk
-    (2, 70, 8, True, 64),        # 2 tiles: 2 chunks, then 6 points
-    (1, 75, 64, True, 96),       # 3 chunks, the last 11 points
+    # the other tensor-core widths: on chip across the tile at h=16, one
+    # chunk per tile from L2 at 48 to 128
+    (1, 75, 64, True, 32),       # 3 tiles, the last 11 points
     (2, 37, 16, False, 32),      # clip head off
+    (2, 100, 16, True, 64),      # 2 tiles: 2 chunks, then 32 + 4 points
+    (1, 75, 16, True, 96),       # one tile of 3 chunks, the last 11 points
+    (2, 40, 64, False, 32),      # clip head off
+    (1, 40, 48, True, 32),       # 2 tiles, the last 8 points
+    (1, 33, 48, False, 32),
+    (1, 45, 96, True, 32),
+    (1, 20, 96, False, 32),      # fewer points than a chunk
+    # widths without a tensor-core kernel: the SIMT kernel, gradients added
+    # into the slot per chunk
+    (2, 70, 8, True, 64),        # 2 tiles: 2 chunks, then 6 points
+    (1, 75, 24, True, 96),       # one tile of 3 chunks, the last 11 points
+    (2, 37, 24, False, 32),      # clip head off
 ])
 def test_emulated_k2_matches_plain(emu_lib, o, n, h, do_clip, tile):
     lib = emu_lib
+    assert lib.ff_tc_width(h) == (h in EMU_TC_WIDTHS)
+    assert tile % lib.ff_bwd_chunk(h) == 0 and tile <= lib.ff_bwd_max_tile(h)
     rng = np.random.default_rng(0)
     w, pts = _field(rng, o, n, h, do_clip)
     cts = [torch.from_numpy(rng.standard_normal((o, n, k)).astype(np.float32)) for k in (1, 3, h)]
@@ -438,15 +477,38 @@ def test_emulated_k2_matches_plain(emu_lib, o, n, h, do_clip, tile):
 
 def test_emulated_k2_rejects_bad_tiles(emu_lib):
     """The entry point refuses a tile that is not a whole number of chunks
-    (at a tensor-core width and at a SIMT one), a multi-chunk tile at h=128
-    and a width whose chunk cannot fit in shared memory."""
+    (at tensor-core widths and at a SIMT one), a multi-chunk tile where the
+    tensor-core K2 reads its weights from L2 (h=128, h=64) and a width whose
+    chunk cannot fit in shared memory."""
     lib = emu_lib
     buf = np.zeros(1, np.float32)
     args = [_ptr(buf)] * 6
     assert lib.ff_backward(*args, 1, 40, 32, 1, 48, None) != 0
     assert lib.ff_backward(*args, 1, 40, 128, 1, 64, None) != 0
     assert lib.ff_backward(*args, 1, 40, 64, 1, 48, None) != 0
+    assert lib.ff_backward(*args, 1, 40, 64, 1, 64, None) != 0
+    assert lib.ff_backward(*args, 1, 40, 24, 1, 48, None) != 0
     assert lib.ff_backward(*args, 1, 40, 9000, 1, 1, None) != 0
+
+
+@pytest.mark.parametrize("h,chunk,max_tile", [
+    (16, 32, 1 << 30),   # weights and accumulators on chip across the tile
+    (32, 32, 1 << 30),
+    (48, 32, 32),        # weights from L2: one chunk per tile
+    (64, 32, 32),
+    (96, 32, 32),
+    (128, 32, 32),
+    (8, 32, 1 << 30),    # the SIMT kernel: any whole number of chunks
+    (24, 32, 1 << 30),
+    (136, 32, 1 << 30),
+    (320, 16, 1 << 30),  # a shorter chunk, so that it fits in shared memory
+])
+def test_emulated_tc_width_table(emu_lib, h, chunk, max_tile):
+    """ff_tc_width, ff_bwd_chunk and ff_bwd_max_tile read the one width table:
+    the tensor-core kernels at the widths built, the SIMT ones elsewhere."""
+    assert emu_lib.ff_tc_width(h) == (h in EMU_TC_WIDTHS)
+    assert emu_lib.ff_bwd_chunk(h) == chunk
+    assert emu_lib.ff_bwd_max_tile(h) == max_tile
 
 
 @pytest.fixture(scope="module")

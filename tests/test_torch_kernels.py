@@ -61,13 +61,29 @@ def _params(gen, o, h, device):
     # 4 chunks per block at h=128 (108 blocks), the last tile 40 points
     (2, 5000, 32, False, False),
     (3, 9000, 128, True, False),
-    # other widths: the SIMT kernels (K2's tile several chunks long)
-    (2, 700, 8, True, False),
+    # the other tensor-core widths: weights and gradient accumulators on
+    # chip at h=16 (K2's tile several chunks long), from L2 at 48 to 112 (one
+    # chunk per K2 tile; K1 items of all 4 row tiles)
     (1, 3000, 64, True, False),
     (2, 90, 16, False, False),
     (1, 300, 64, True, True),
+    (2, 700, 16, True, False),
+    (1, 1792, 64, True, False),    # the synthetic scene's bg shape
+    (1, 1000, 48, True, False),
+    (2, 333, 48, False, False),
+    (1, 2000, 96, True, False),
+    (2, 150, 96, False, True),
+    (1, 800, 80, True, False),
+    (1, 500, 112, True, False),
+    (1, 300, 112, False, True),
+    # widths without a tensor-core kernel: the SIMT kernels (K2's tile
+    # several chunks long)
+    (2, 700, 8, True, False),
+    (2, 300, 24, True, False),
+    (1, 90, 24, False, True),
 ])
 def test_cuda_kernels_match_plain(cuda_device, o, n, h, do_clip, wide):
+    assert tff.tensor_core_width(h) == (h % 16 == 0 and 16 <= h <= 128)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     w = tff._pack_params(_params(gen, o, h, cuda_device), h, do_clip).contiguous()
     if wide:
@@ -154,32 +170,40 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-def test_unbuilt_width_raises_before_the_forward(cuda_device):
-    """No width is left unbuilt: a differentiable call at h=64 launches K1
-    and, under autograd, K2 and the reduction (the SIMT kernels), each
-    counted once at its shape; without gradients K1 alone runs."""
+@pytest.mark.parametrize("h,tc", [(64, True), (24, False)])
+def test_unbuilt_width_raises_before_the_forward(cuda_device, h, tc):
+    """No width is left unbuilt: a differentiable call launches K1 and,
+    under autograd, K2 and the reduction, each counted once at its shape
+    (at h=64 the tensor-core kernels, at h=24 the SIMT ones); without
+    gradients K1 alone runs."""
+    assert tff.tensor_core_width(h) == tc
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    w = tff._pack_params(_params(gen, 2, 64, cuda_device), 64, True).contiguous()
+    w = tff._pack_params(_params(gen, 2, h, cuda_device), h, True).contiguous()
     pts = torch.randn((2, 8, 3), generator=gen, device=cuda_device)
     tff.reset_counts()
     wr = w.detach().requires_grad_(True)
-    alpha, color, hclip = tff.fused_field_apply(wr, pts, 64, True)
+    alpha, color, hclip = tff.fused_field_apply(wr, pts, h, True)
     (g,) = torch.autograd.grad(alpha.sum() + color.sum() + hclip.sum(), wr)
-    assert tff.COUNTS_BY_SHAPE == {(k, 2, 8, 64): 1 for k in (
+    assert tff.COUNTS_BY_SHAPE == {(k, 2, 8, h): 1 for k in (
         "fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce")}
     assert bool(torch.isfinite(g).all()) and g.abs().max() > 0
     with torch.no_grad():
-        alpha, _, _ = tff.fused_field_apply(w, pts, 64, True)
+        alpha, _, _ = tff.fused_field_apply(w, pts, h, True)
     assert tff.COUNTS["fused_field_fwd"] == 2 and tff.COUNTS["fused_field_bwd"] == 1
     assert alpha.shape == (2, 8, 1)
 
 
 @pytest.mark.cuda
-def test_uncovered_widths_train_on_the_card(cuda_device):
-    """hidden 8 / hidden_bg 16 (widths without a tensor-core kernel) train on
-    the card through the SIMT K1/K2, never the eager field, and the card's
-    per-step losses agree with the CPU's (the kernels' plain version) from
-    the same state and batches (rel 1e-4)."""
+@pytest.mark.parametrize("hidden,hidden_bg,tc", [
+    (8, 24, False),    # widths without a tensor-core kernel: the SIMT K1/K2
+    (16, 64, True),    # the tensor-core K1/K2 (weights on chip at 16, from L2 at 64)
+])
+def test_uncovered_widths_train_on_the_card(cuda_device, hidden, hidden_bg, tc):
+    """Widths other than room_0's train on the card through K1/K2 (the SIMT
+    kernels at hidden 8 / hidden_bg 24, the tensor-core ones at 16 / 64),
+    never the eager field, and the card's per-step losses agree with the
+    CPU's (the kernels' plain version) from the same state and batches (rel
+    1e-4)."""
     import numpy as np
 
     from openobj_torch import convert
@@ -189,8 +213,9 @@ def test_uncovered_widths_train_on_the_card(cuda_device):
 
     cfg = trainer.TrainConfig(
         n_iters_per_frame=3, win_size=2, n_samples_per_frame=8, win_size_bg=2,
-        n_samples_per_frame_bg=16, hidden=8, hidden_bg=16, clip_size=16,
+        n_samples_per_frame_bg=16, hidden=hidden, hidden_bg=hidden_bg, clip_size=16,
         part_mode=True, part_down=4)
+    assert tff.tensor_core_width(hidden) == tff.tensor_core_width(hidden_bg) == tc
     rng = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(0)
     state_cpu = trainer.init_train_state(gen, cfg, n_slots=2, device="cpu")
