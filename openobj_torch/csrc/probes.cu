@@ -23,14 +23,16 @@
 //   part_quad_kernel       <- q5 compile_case body fwd_quadratic_chained (:426)
 //
 // All arithmetic is FP32-accurate, no fast math: FP32 FMA on the SIMT cores,
-// except part_dw_kernel, the ensemble GEMM's two kernels
+// except part_tg_kernel, part_dw_kernel, the ensemble GEMM's two kernels
 // (ens_gemm_persistent_kernel, ens_gemm_tiled_kernel) and step_chain_kernel,
 // whose products run on the tensor cores in 3xTF32 (hi/lo TF32 split, three
 // mma.sync per tile, f32 sums). The plain PyTorch versions
 // (openobj_torch/ops/probes.py) run in full FP32 and are the reference. Each
 // kernel's note says what bounds it on an H100 and what its design does about
-// that. The ensemble GEMM's kernels and step_chain_kernel get their x tiles
-// and weights by Hopper's one-dimensional bulk copy (TMA without a tensor
+// that (part_tg_kernel: bytes, 6.4 us at the probe's shape; one product of
+// [gt; wb] rows against wb, C streamed through two stages, one wave).
+// The ensemble GEMM's kernels, step_chain_kernel and part_tg_kernel get their
+// operands by Hopper's one-dimensional bulk copy (TMA without a tensor
 // map) into mbarrier-tracked stages; step_chain_kernel
 // splits a pair's rays across a thread-block cluster and sums the blocks'
 // partials through distributed shared memory. None of the kernels uses wgmma
@@ -41,8 +43,8 @@
 // raises if it is not cudaSuccess.
 
 // Without nvcc (tests/test_torch_kernel_emulation.py runs launch_nop_kernel,
-// step_chain_kernel, part_dw_kernel and the ensemble GEMM's kernels on the
-// CPU), a header included ahead of this
+// step_chain_kernel, part_tg_kernel, part_dw_kernel and the ensemble GEMM's
+// kernels on the CPU), a header included ahead of this
 // file stands in for the CUDA runtime and the inline-PTX helpers under
 // `#ifdef __CUDACC__` below.
 #ifdef __CUDACC__
@@ -1117,19 +1119,19 @@ int chain_setup(ChainArgs& a, ChainLaunch& l, const float* xs, const float* w0, 
 //   quad  z = hp (wb wb^T) [R, Hp], the Gram matrix formed in the kernel
 //
 // Bound: bytes (tg 21.4 MB for 0.33 GFLOP, about 16 FLOP per byte; dw and
-// quad less). tg reads each operand element from device memory once
-// per block that needs it, in coalesced rows, through shared memory (row
-// stride 65 floats, so that the strided reads of the other operand are free
-// of bank conflicts). tg gives every object ceil(R/32) row blocks plus one
-// block for g, so that 64 objects fill the card; dw (its own note below)
-// runs on the tensor cores. quad forms g in one block per object and
-// keeps it in shared memory for z; it is the smallest of the three and
+// quad less). tg and dw (their notes below) run on the tensor cores. quad
+// forms g in one block per object (abt_block, FP32 FMA on the SIMT cores)
+// and keeps it in shared memory for z; it is the smallest of the three and
 // leaves SMs idle at 64 objects.
 
-constexpr int PT_RT = 32;       // rows of t per block (tg)
-constexpr int PT_CC = 64;       // C per chunk (tg, quad)
+constexpr int PT_CC = 64;       // C per chunk (quad)
 constexpr int PT_LD = PT_CC + 1;
 constexpr int PT_MAXO = 16;     // outputs per thread: nA * nB <= NT * 16
+constexpr int TG_RT = 48;       // rows of A per block (tg): three m-tiles
+constexpr int TG_MT = TG_RT / 16;
+constexpr int TG_KC = 128;      // columns of C per stage (tg): two k-steps per warp
+constexpr int TG_LD = TG_KC + 4;    // tg's shared row stride, 4 mod 32
+constexpr int TG_STAGES = 2;    // stages of the ring (tg)
 constexpr int DW_CT = 16 * NW;  // columns of C per block (dw): a warp per 16
 constexpr int DW_RC = 128;      // rays staged at once (dw)
 constexpr int DW_G = 32;        // rays per cp.async group (dw)
@@ -1170,35 +1172,187 @@ __device__ void abt_block(const float* __restrict__ A, int nA,
   }
 }
 
-__global__ void __launch_bounds__(NT)
-part_tg_kernel(const float* __restrict__ gt, const float* __restrict__ wb,
-               float* __restrict__ t, float* __restrict__ g, int R, int Hp, int C) {
-  extern __shared__ __align__(16) float sm[];
-  float* As = sm;
-  float* Bs = sm + max(PT_RT, Hp) * PT_LD;
-  const int o = blockIdx.y;
-  const int n_rt = gridDim.x - 1;
-  const float* wo = wb + (size_t)o * Hp * C;
-  float acc[PT_MAXO];
-  if ((int)blockIdx.x < n_rt) {
-    const int r0 = blockIdx.x * PT_RT;
-    const int nv = min(PT_RT, R - r0);
-    abt_block(gt + ((size_t)o * R + r0) * C, nv, wo, Hp, C, As, Bs, acc);
-    float* to = t + ((size_t)o * R + r0) * Hp;
-#pragma unroll
-    for (int j = 0; j < PT_MAXO; ++j) {
-      const int idx = j * NT + threadIdx.x;
-      if (idx < nv * Hp) to[idx] = acc[j];
+// Start the copies of C chunk ch (TG_KC columns) of the block's na A rows
+// (from `a`) and of wb[o]'s Hp rows (from `w`) into stage st, A rows at 0
+// and B rows at TG_RT, all at stride TG_LD, completing on `bar`: where vec,
+// one bulk copy a row (row j by lane j / NW of warp j % NW, so that every
+// warp issues a few) and one arrival, that of row 0's thread, which
+// announces all of the chunk's bytes (a bulk copy may land before it: the
+// transaction count goes below zero, and the phase waits for the arrival);
+// else 4-byte cp.asyncs by every thread, one arrival each.
+// Columns past C are zeroed with plain stores, which the next
+// __syncthreads publishes.
+__device__ inline void tg_start(float* st, const float* a, int na, const float* w, int Hp, int C,
+                                int ch, int vec, uint64_t* bar) {
+  const int c0 = ch * TG_KC, cw = min(TG_KC, C - c0);
+  const int rows = na + Hp;
+  if (vec) {
+    const int j = (threadIdx.x & 31) * NW + (threadIdx.x >> 5);
+    if (j == 0) mbar_arrive_expect_tx(bar, 4u * cw * rows);
+    if (j < rows) {
+      const bool is_a = j < na;
+      float* d = st + (is_a ? j : TG_RT + j - na) * TG_LD;
+      for (int q = cw; q < TG_KC; ++q) d[q] = 0.0f;
+      fence_proxy_async();
+      bulk_copy_g2s(d, (is_a ? a + (size_t)j * C : w + (size_t)(j - na) * C) + c0, 4u * cw, bar);
     }
   } else {
-    abt_block(wo, Hp, wo, Hp, C, As, Bs, acc);
-    float* go = g + (size_t)o * Hp * Hp;
+    for (int i = threadIdx.x; i < rows * TG_KC; i += NT) {
+      const int j = i / TG_KC, q = i % TG_KC;
+      const bool is_a = j < na;
+      float* d = st + (is_a ? j : TG_RT + j - na) * TG_LD + q;
+      if (q < cw) cp_async4(d, (is_a ? a + (size_t)j * C : w + (size_t)(j - na) * C) + c0 + q);
+      else *d = 0.0f;
+    }
+    cp_async_mbar_arrive(bar);
+  }
+}
+
+// Floats of part_tg_kernel's shared memory before its mbarriers: the ring,
+// then the rows a Gram tile's A reads past the last stage's B rows (its
+// tiles reach ceil(Hp / TG_RT) TG_RT rows), or the warps' partials if more.
+__host__ __device__ inline int tg_floats(int nb, int hp) {
+  const int slack = max(0, (hp + TG_RT - 1) / TG_RT * TG_RT - 8 * nb);
+  return max((TG_STAGES * (TG_RT + 8 * nb) + slack) * TG_LD, NW * TG_RT * 8 * nb);
+}
+
+// t = gt[o] wb[o]^T and g = wb[o] wb[o]^T as one product on the tensor cores
+// in 3xTF32: A is the R rows of gt[o] followed by the Hp rows of wb[o], B is
+// wb[o] (N = Hp padded to 8 NB), K = C. A block owns TG_RT rows of A: one of
+// the ceil(R / TG_RT) tiles of gt[o], which writes t, or one of the ceil(Hp /
+// TG_RT) tiles of wb[o], which writes g and reads its A rows from the B rows
+// it stages anyway; one code path.
+//
+// Bound: bytes (21.4 MB at the probe's shape, 6.4 us at 3.35 TB/s; the
+// products in 3xTF32 2.0 us at the dense TF32 rate, 3.1 us as padded to the
+// tiles here). At the probe's shape (R = 120, Hp = 33) an object has three gt
+// tiles and one Gram tile: 256 blocks, two resident per SM (97 KB of shared
+// memory, registers under __launch_bounds__(NT, 2)), so the grid is one wave.
+// C streams in chunks of TG_KC columns through TG_STAGES stages, each on its
+// own mbarrier: a bulk copy per row where C % 4 == 0 and gt, wb are 16-byte
+// aligned (4-byte cp.asyncs else). A stage is refilled right after the
+// barrier that follows its last reads, one barrier per chunk, so one chunk is
+// in flight while the warps multiply the other. Measured on an H100
+// (scripts/part_tg_parts.py, PERF.md), every chunk costs a fixed time beyond
+// its bytes and products: 128-column chunks in two stages took under three
+// quarters of the time of 64-column chunks in four (and four stages were no
+// faster than two), and spreading the row copies over all warps, rather than
+// the first three, took off another few percent. The warps split K: each
+// takes two k-steps of a chunk and holds every (m-tile, n-tile) of the tile,
+// so each element of A and of B in shared memory is read by one warp once,
+// and split where it is read (split_a: an add and a mask); a pre-split copy
+// of B would split as many elements and add a pass and a barrier. The three
+// mma.sync of a tile accumulate in place, small products first. The row
+// stride of 4 mod 32 floats puts a fragment's 32 reads (row g, column t) in
+// 32 banks. Rows past nv and past Hp hold whatever the stage held: a row of A
+// meets only its own row of the product, a row of B its own column, and
+// neither is stored. At the end the warps' partials meet in shared memory
+// (the ring, reused) and are summed in warp order, so the result does not
+// depend on timing, and whole rows of t or g are stored, coalesced.
+template <int NB>
+__global__ void __launch_bounds__(NT, 2)
+part_tg_kernel(const float* __restrict__ gt, const float* __restrict__ wb,
+               float* __restrict__ t, float* __restrict__ g, int R, int Hp, int C,
+               int vec) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int NP = 8 * NB;                     // B rows: Hp padded
+  constexpr int STAGE = (TG_RT + NP) * TG_LD;    // floats: A rows, then B rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int fr = lane >> 2, fc = lane & 3;       // fragment row and column
+  const int o = blockIdx.y;
+  const int n_rt = (R + TG_RT - 1) / TG_RT;      // gt's tiles, then wb's
+  const bool gram = (int)blockIdx.x >= n_rt;
+  const int r0 = ((int)blockIdx.x - (gram ? n_rt : 0)) * TG_RT;
+  const int nv = min(TG_RT, (gram ? Hp : R) - r0);
+  const int na = gram ? 0 : nv;                  // A rows copied
+  const float* wo = wb + (size_t)o * Hp * C;
+  const float* ao = gt + ((size_t)o * R + r0) * C;
+  const int nch = (C + TG_KC - 1) / TG_KC;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + tg_floats(NB, Hp));
+
+  if (tid == 0) {
+    for (int s = 0; s < TG_STAGES; ++s) mbar_init(full + s, vec ? 1 : NT);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  for (int s = 0; s < min(TG_STAGES - 1, nch); ++s)
+    tg_start(sm + s * STAGE, ao, na, wo, Hp, C, s, vec, full + s);
+
+  float acc[TG_MT][NB][4];
 #pragma unroll
-    for (int j = 0; j < PT_MAXO; ++j) {
-      const int idx = j * NT + threadIdx.x;
-      if (idx < Hp * Hp) go[idx] = acc[j];
+  for (int m = 0; m < TG_MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.0f;
+
+  for (int ch = 0; ch < nch; ++ch) {
+    __syncthreads();    // chunk ch - 1 is consumed: its stage takes chunk ch + TG_STAGES - 1
+    const int next = ch + TG_STAGES - 1, sn = next % TG_STAGES, sc = ch % TG_STAGES;
+    if (next < nch) tg_start(sm + sn * STAGE, ao, na, wo, Hp, C, next, vec, full + sn);
+    mbar_wait(full + sc, (ch / TG_STAGES) & 1);
+    const float* bs = sm + sc * STAGE + TG_RT * TG_LD;
+    const float* as = gram ? bs + r0 * TG_LD : bs - TG_RT * TG_LD;
+    const int cw = min(TG_KC, C - ch * TG_KC);
+    for (int ks = warp; 8 * ks < cw; ks += NW) {
+      const int k = 8 * ks + fc;
+      // a0..a3 = A[fr][k], A[fr + 8][k], A[fr][k + 4], A[fr + 8][k + 4]
+      uint32_t ah[TG_MT][4], al[TG_MT][4];
+#pragma unroll
+      for (int m = 0; m < TG_MT; ++m) {
+        const float* ar = as + (16 * m + fr) * TG_LD + k;
+        split_a(ar[0], ah[m][0], al[m][0]);
+        split_a(ar[8 * TG_LD], ah[m][1], al[m][1]);
+        split_a(ar[4], ah[m][2], al[m][2]);
+        split_a(ar[8 * TG_LD + 4], ah[m][3], al[m][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        // b0, b1 = B[k][n] = wb[n][k] and wb[n][k + 4], n = 8 j + fr
+        const float* br = bs + (8 * j + fr) * TG_LD + k;
+        uint32_t bh[2], bl[2];
+        split_a(br[0], bh[0], bl[0]);
+        split_a(br[4], bh[1], bl[1]);
+#pragma unroll
+        for (int m = 0; m < TG_MT; ++m) {
+          mma_tf32(acc[m][j], al[m], bh);
+          mma_tf32(acc[m][j], ah[m], bl);
+          mma_tf32(acc[m][j], ah[m], bh);
+        }
+      }
     }
   }
+
+  __syncthreads();      // every warp is done with the ring: it takes the partials
+  float* part = sm + warp * TG_RT * NP;          // [TG_RT][NP] per warp
+#pragma unroll
+  for (int m = 0; m < TG_MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        part[(16 * m + fr + 8 * (i >> 1)) * NP + 8 * j + 2 * fc + (i & 1)] = acc[m][j][i];
+  __syncthreads();
+  float* out = gram ? g + ((size_t)o * Hp + r0) * Hp : t + ((size_t)o * R + r0) * Hp;
+  for (int i = tid; i < nv * Hp; i += NT) {      // the tile's rows are contiguous
+    const int m = i / Hp, n = i - m * Hp;
+    float v = 0.0f;
+    for (int w = 0; w < NW; ++w) v += sm[(w * TG_RT + m) * NP + n];
+    out[i] = v;
+  }
+}
+
+template <int NB>
+int launch_tg(const float* gt, const float* wb, float* t, float* g, int O, int R, int Hp,
+              int C, cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * tg_floats(NB, Hp) + (int)sizeof(uint64_t) * TG_STAGES;
+  cudaError_t err = cudaFuncSetAttribute(
+      part_tg_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = C % 4 == 0 && aligned16(gt) && aligned16(wb);
+  dim3 grid((R + TG_RT - 1) / TG_RT + (Hp + TG_RT - 1) / TG_RT, O);
+  part_tg_kernel<NB><<<grid, NT, smem, stream>>>(gt, wb, t, g, R, Hp, C, vec);
+  return (int)cudaGetLastError();
 }
 
 // dW[o] = dt[o]^T gt[o], computed as its transpose dW[o]^T = gt[o]^T dt[o]
@@ -1463,13 +1617,17 @@ int pr_step_chain_launch(int S, int O, int N, int DX, int K, int H, int depth, i
 int pr_part_tg(const float* gt, const float* wb, float* t, float* g, int O, int R,
                int Hp, int C, void* stream) {
   if (O < 1 || R < 1 || C < 1 || Hp < 1 || Hp > 64) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (max(PT_RT, Hp) + Hp) * PT_LD;
-  cudaError_t err = cudaFuncSetAttribute(
-      part_tg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((R + PT_RT - 1) / PT_RT + 1, O);
-  part_tg_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(gt, wb, t, g, R, Hp, C);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch ((Hp + 7) / 8) {   // the 8-column tiles of Hp
+    case 1: return launch_tg<1>(gt, wb, t, g, O, R, Hp, C, s);
+    case 2: return launch_tg<2>(gt, wb, t, g, O, R, Hp, C, s);
+    case 3: return launch_tg<3>(gt, wb, t, g, O, R, Hp, C, s);
+    case 4: return launch_tg<4>(gt, wb, t, g, O, R, Hp, C, s);
+    case 5: return launch_tg<5>(gt, wb, t, g, O, R, Hp, C, s);
+    case 6: return launch_tg<6>(gt, wb, t, g, O, R, Hp, C, s);
+    case 7: return launch_tg<7>(gt, wb, t, g, O, R, Hp, C, s);
+    default: return launch_tg<8>(gt, wb, t, g, O, R, Hp, C, s);
+  }
 }
 
 // dt [O, R, Hp], gt [O, R, C] -> dw [O, Hp, C]

@@ -231,11 +231,12 @@ def q5(device, seed: int = 0, n_tiles: int = 8, o_tile: int = 8) -> tuple[dict, 
         t, gram = probes.part_tg_plain(torch.sin(g0), w)
         return probes.part_epilogue(t, gram, h)
 
+    tg_flops = 2 * obj * (r * hpd * c + hpd * hpd * c)    # all on the tensor cores
     tg = measure(Case(
         "part_term[tg]", f"{SCRIPT}:342", "part_term_tg", lambda: probes.part_tg(gt, wb),
         lambda: probes.part_tg_plain(gt, wb), None,
-        2 * obj * (r * hpd * c + hpd * hpd * c), 4 * obj * (r * c + hpd * c + r * hpd + hpd * hpd),
-        GEMM_RTOL, 100))
+        tg_flops, 4 * obj * (r * c + hpd * c + r * hpd + hpd * hpd), GEMM_RTOL, 100,
+        mm_flops=tg_flops))
     with counted(tg):
         per = scan_time(cuda_fn, (wb, hp, gt0), iters=100)
         err = rel_err(cuda_fn(wb, hp, gt0), library_fn(wb, hp, gt0))

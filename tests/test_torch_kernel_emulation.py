@@ -1,7 +1,7 @@
 """K1 and K2, the fused-field forward and backward of
-openobj_torch/csrc/fused_field.cu, and the part term's dW kernel and the
-ensemble GEMM's kernels of openobj_torch/csrc/probes.cu, run on the CPU
-against their plain versions.
+openobj_torch/csrc/fused_field.cu, and the part term's {t, g} and dW
+kernels and the ensemble GEMM's kernels of openobj_torch/csrc/probes.cu,
+run on the CPU against their plain versions.
 
 Each CUDA source is compiled by the host C++ compiler with ``STUB`` (below)
 included ahead of it: the stub stands in for the CUDA built-ins and the
@@ -17,8 +17,8 @@ tests use (``FF_TC_WIDTHS``, defined for the host compiler); the card
 builds every multiple of 16 up to 128. It says nothing of speed or of the
 card's own rounding;
 ``tests/test_torch_kernels.py`` holds the real kernels to the same plain
-version on a GPU (``tests/test_torch_probe_kernels.py`` for dW and the
-ensemble GEMM).
+version on a GPU (``tests/test_torch_probe_kernels.py`` for the part term
+and the ensemble GEMM).
 """
 
 import ctypes
@@ -516,6 +516,8 @@ def emu_probes(tmp_path_factory):
     lib = _emulated(tmp_path_factory, "probes")
     lib.pr_part_dw.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.pr_part_dw.restype = ctypes.c_int
+    lib.pr_part_tg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pr_part_tg.restype = ctypes.c_int
     lib.pr_ens_gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.pr_ens_gemm.restype = ctypes.c_int
     lib.pr_ens_gemm_occupancy.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -703,6 +705,36 @@ def test_emulated_part_dw_matches_plain(emu_probes, o, r, hp, c):
     assert emu_probes.pr_part_dw(_ptr(dt), _ptr(gt), _ptr(out), o, r, hp, c, None) == 0
     ref = probes.part_dw_plain(torch.from_numpy(dt), torch.from_numpy(gt)).numpy()
     assert float(np.abs(out - ref).max()) <= GEMM_RTOL * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("o,r,hp,c", [
+    (2, 120, 33, 512),   # the probe's widths: three gt tiles (48, 48, 24 rows) and
+                         # the Gram tile, 4 chunks through the 2 stages
+    (1, 45, 33, 100),    # a ragged row tile, a ragged chunk (bulk copies)
+    (2, 7, 64, 70),      # Hp = 64: two Gram tiles; C % 4 != 0 (4-byte copies)
+    (2, 33, 1, 3),
+    (1, 300, 17, 130),   # seven row tiles, 2 chunks (128, then 2 columns)
+])
+def test_emulated_part_tg_matches_plain(emu_probes, o, r, hp, c):
+    """part_tg_kernel against part_tg_plain: t from the gt tiles, g from the
+    Gram tile; every element of both written."""
+    rng = np.random.default_rng(6)
+    gt = (0.1 * rng.standard_normal((o, r, c))).astype(np.float32)
+    wb = (0.1 * rng.standard_normal((o, hp, c))).astype(np.float32)
+    t = np.full((o, r, hp), np.nan, np.float32)
+    g = np.full((o, hp, hp), np.nan, np.float32)
+    assert emu_probes.pr_part_tg(_ptr(gt), _ptr(wb), _ptr(t), _ptr(g), o, r, hp, c, None) == 0
+    t_ref, g_ref = (x.numpy() for x in probes.part_tg_plain(torch.from_numpy(gt),
+                                                             torch.from_numpy(wb)))
+    assert float(np.abs(t - t_ref).max()) <= GEMM_RTOL * float(np.abs(t_ref).max())
+    assert float(np.abs(g - g_ref).max()) <= GEMM_RTOL * float(np.abs(g_ref).max())
+
+
+def test_emulated_part_tg_rejects_bad_arguments(emu_probes):
+    """Hp outside 1..64 is refused."""
+    buf = np.zeros(1, np.float32)
+    for hp in (0, 65):
+        assert emu_probes.pr_part_tg(*[_ptr(buf)] * 4, 1, 1, hp, 1, None) != 0
 
 
 def test_k1_phases_stamps_every_barrier(tmp_path, monkeypatch):
