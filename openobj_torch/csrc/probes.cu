@@ -20,30 +20,33 @@
 //                             :290) at depth 0 and 1
 //   part_tg_kernel         <- bench_fused_step_probe.py q5 kernel (:342)
 //   part_dw_kernel<NB>     <- q5 compile_case body bwd_dw (:422)
-//   part_quad_kernel       <- q5 compile_case body fwd_quadratic_chained (:426)
+//   part_quad_kernel<NB>   <- q5 compile_case body fwd_quadratic_chained (:426)
 //
 // All arithmetic is FP32-accurate, no fast math: FP32 FMA on the SIMT cores,
-// except part_tg_kernel, part_dw_kernel, the ensemble GEMM's two kernels
-// (ens_gemm_persistent_kernel, ens_gemm_tiled_kernel) and step_chain_kernel,
-// whose products run on the tensor cores in 3xTF32 (hi/lo TF32 split, three
-// mma.sync per tile, f32 sums). The plain PyTorch versions
+// except part_tg_kernel, part_dw_kernel, part_quad_kernel, the ensemble
+// GEMM's two kernels (ens_gemm_persistent_kernel, ens_gemm_tiled_kernel) and
+// step_chain_kernel, whose products run on the tensor cores in 3xTF32 (hi/lo
+// TF32 split, three mma.sync per tile, f32 sums). The plain PyTorch versions
 // (openobj_torch/ops/probes.py) run in full FP32 and are the reference. Each
 // kernel's note says what bounds it on an H100 and what its design does about
 // that (part_tg_kernel: bytes, 6.4 us at the probe's shape; one product of
-// [gt; wb] rows against wb, C streamed through two stages, one wave).
-// The ensemble GEMM's kernels, step_chain_kernel and part_tg_kernel get their
-// operands by Hopper's one-dimensional bulk copy (TMA without a tensor
-// map) into mbarrier-tracked stages; step_chain_kernel
-// splits a pair's rays across a thread-block cluster and sums the blocks'
-// partials through distributed shared memory. None of the kernels uses wgmma
-// yet.
+// [gt; wb] rows against wb, C streamed through two stages, one wave;
+// part_quad_kernel: bytes, 1.9 us; an object's C split across a cluster of
+// two blocks, each copying its Gram partial into the other's shared memory).
+// The ensemble GEMM's kernels, step_chain_kernel, part_tg_kernel and
+// part_quad_kernel get their operands by Hopper's one-dimensional bulk copy
+// (TMA without a tensor map) into mbarrier-tracked stages; step_chain_kernel
+// and part_quad_kernel split their work across a thread-block cluster and
+// sum the blocks' partials through distributed shared memory (the chain by
+// reading its peers' shared memory, part_quad by bulk copies into it). None
+// of the kernels uses wgmma yet.
 //
 // The C entry points return cudaGetLastError() after each launch (or a CUDA
 // error code for an argument the kernel cannot take); the Python wrapper
 // raises if it is not cudaSuccess.
 
 // Without nvcc (tests/test_torch_kernel_emulation.py runs launch_nop_kernel,
-// step_chain_kernel, part_tg_kernel, part_dw_kernel and the ensemble GEMM's
+// step_chain_kernel, the part term's three kernels and the ensemble GEMM's
 // kernels on the CPU), a header included ahead of this
 // file stands in for the CUDA runtime and the inline-PTX helpers under
 // `#ifdef __CUDACC__` below.
@@ -188,6 +191,17 @@ __device__ inline void cluster_sync() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// cluster_sync in two halves, without its memory ordering: after the
+// arrival the thread may go on, and the wait returns once every thread of
+// the cluster has arrived
+__device__ inline void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // the float at `p`'s offset in the shared memory of the cluster's block `rank`
 __device__ inline float ld_cluster(const float* p, unsigned rank) {
   unsigned addr;
@@ -195,6 +209,19 @@ __device__ inline float ld_cluster(const float* p, unsigned rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+
+// `bytes` (a multiple of 16, 16-byte aligned) from this block's shared
+// memory at `p` to the same offset in the shared memory of the cluster's
+// block `rank`, completing that many bytes of that block's mbarrier at
+// `bar`'s offset; the source is read through the async proxy
+__device__ inline void bulk_copy_s2peer(float* p, unsigned bytes, uint64_t* bar, unsigned rank) {
+  unsigned dst, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "r"(smem_u32(p)), "r"(bytes), "r"(rbar) : "memory");
 }
 #endif
 
@@ -1056,13 +1083,14 @@ size_t chain_smem(int DXP, int DX, int K, int H) {
          (CSTAGES + 1) * sizeof(uint64_t);
 }
 
-// The launch of l with clusters of c blocks, for `grid` blocks
-cudaLaunchConfig_t chain_config(const ChainLaunch& l, dim3 grid, unsigned c,
-                                cudaLaunchAttribute& attr, void* stream) {
+// A launch of `grid` blocks of `threads` with `smem` bytes of dynamic shared
+// memory, in clusters of c blocks
+cudaLaunchConfig_t cluster_config(dim3 grid, int threads, size_t smem, unsigned c,
+                                  cudaLaunchAttribute& attr, void* stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = l.smem;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = c;
@@ -1080,7 +1108,7 @@ cudaLaunchConfig_t chain_config(const ChainLaunch& l, dim3 grid, unsigned c,
 int choose_cluster(long pairs, ChainLaunch& l, int& c) {
   for (c = 8; c >= 1; c /= 2) {
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = chain_config(l, dim3(c), c, attr, nullptr);
+    const cudaLaunchConfig_t cfg = cluster_config(dim3(c), NT, l.smem, c, attr, nullptr);
     const int err = (int)cudaOccupancyMaxActiveClusters(&l.active, l.kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (pairs <= l.active || c == 1) break;
@@ -1119,58 +1147,26 @@ int chain_setup(ChainArgs& a, ChainLaunch& l, const float* xs, const float* w0, 
 //   quad  z = hp (wb wb^T) [R, Hp], the Gram matrix formed in the kernel
 //
 // Bound: bytes (tg 21.4 MB for 0.33 GFLOP, about 16 FLOP per byte; dw and
-// quad less). tg and dw (their notes below) run on the tensor cores. quad
-// forms g in one block per object (abt_block, FP32 FMA on the SIMT cores)
-// and keeps it in shared memory for z; it is the smallest of the three and
-// leaves SMs idle at 64 objects.
+// quad less). All three run their products on the tensor cores in 3xTF32
+// (their notes below); quad (part_quad_kernel) splits each object's C across
+// a cluster of two blocks, 128 in one wave, and sums their Gram partials
+// through distributed shared memory: 7.0 us at the probe's shape on an H100
+// against the 1.9 us bound (PERF.md).
 
-constexpr int PT_CC = 64;       // C per chunk (quad)
-constexpr int PT_LD = PT_CC + 1;
-constexpr int PT_MAXO = 16;     // outputs per thread: nA * nB <= NT * 16
 constexpr int TG_RT = 48;       // rows of A per block (tg): three m-tiles
 constexpr int TG_MT = TG_RT / 16;
-constexpr int TG_KC = 128;      // columns of C per stage (tg): two k-steps per warp
-constexpr int TG_LD = TG_KC + 4;    // tg's shared row stride, 4 mod 32
-constexpr int TG_STAGES = 2;    // stages of the ring (tg)
+constexpr int TG_KC = 128;      // columns of C per stage (tg, quad)
+constexpr int TG_LD = TG_KC + 4;    // tg's and quad's shared row stride, 4 mod 32
+constexpr int TG_STAGES = 2;    // stages of the ring (tg, quad)
 constexpr int DW_CT = 16 * NW;  // columns of C per block (dw): a warp per 16
 constexpr int DW_RC = 128;      // rays staged at once (dw)
 constexpr int DW_G = 32;        // rays per cp.async group (dw)
 constexpr int DW_B = 4;         // dt fragments loaded at once per thread (dw)
 constexpr int DW_LDG = DW_CT + 8;   // gt's shared row stride, 8 mod 32
-
-// acc[j] = sum_c A[a][c] B[b][c] for output j*NT + tid = a*nB + b, with A
-// rows at global stride C; the sum runs over c in order.
-__device__ void abt_block(const float* __restrict__ A, int nA,
-                          const float* __restrict__ B, int nB, int C,
-                          float* As, float* Bs, float acc[PT_MAXO]) {
-#pragma unroll
-  for (int j = 0; j < PT_MAXO; ++j) acc[j] = 0.0f;
-  const int nout = nA * nB;
-  for (int c0 = 0; c0 < C; c0 += PT_CC) {
-    const int cw = min(PT_CC, C - c0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nA * cw; i += NT) {
-      const int r = i / cw, c = i - r * cw;
-      As[r * PT_LD + c] = A[(size_t)r * C + c0 + c];
-    }
-    for (int i = threadIdx.x; i < nB * cw; i += NT) {
-      const int r = i / cw, c = i - r * cw;
-      Bs[r * PT_LD + c] = B[(size_t)r * C + c0 + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < PT_MAXO; ++j) {
-      const int idx = j * NT + threadIdx.x;
-      if (idx < nout) {
-        const float* ar = As + (idx / nB) * PT_LD;
-        const float* br = Bs + (idx % nB) * PT_LD;
-        float v = acc[j];
-        for (int c = 0; c < cw; ++c) v = fmaf(ar[c], br[c], v);
-        acc[j] = v;
-      }
-    }
-  }
-}
+constexpr int QD_CL = 2;        // blocks per object (quad): a cluster
+constexpr int QD_NT = 256;      // threads per block (quad)
+constexpr int QD_NW = QD_NT / 32;
+constexpr int QD_HR = 64;       // rows of hp staged at once (quad): four m-tiles
 
 // Start the copies of C chunk ch (TG_KC columns) of the block's na A rows
 // (from `a`) and of wb[o]'s Hp rows (from `w`) into stage st, A rows at 0
@@ -1492,33 +1488,365 @@ int launch_dw(const float* dt, const float* gt, float* dw, int O, int R, int Hp,
   return (int)cudaGetLastError();
 }
 
-// z[o] = hp[o] g with g = wb[o] wb[o]^T formed first, into shared memory.
-__global__ void __launch_bounds__(NT)
-part_quad_kernel(const float* __restrict__ hp, const float* __restrict__ wb,
-                 float* __restrict__ z, int R, int Hp, int C) {
-  extern __shared__ __align__(16) float sm[];
-  float* As = sm;
-  float* Bs = sm + Hp * PT_LD;
-  float* gs = Bs + Hp * PT_LD;       // [Hp][Hp]
-  const int o = blockIdx.x;
-  const float* wo = wb + (size_t)o * Hp * C;
-  float acc[PT_MAXO];
-  abt_block(wo, Hp, wo, Hp, C, As, Bs, acc);
+// z[o] = hp[o] g with g = wb[o] wb[o]^T, by a cluster of QD_CL blocks per
+// object. Rank q of the cluster owns the q-th slice of C (cs columns, a
+// multiple of 8; 256 at the probe's C = 512) and the q-th run of rows of hp
+// and z (rs = ceil(R / QD_CL); 60 at R = 120). Either may be empty (C or R
+// smaller than the cluster): the rank still adds its partial, of zeros.
+//
+// Bound: bytes (wb 4.33 MB, hp and z 1.01 MB each at the probe's shape,
+// 1.9 us at 3.35 TB/s; the Gram in 3xTF32 0.4 us at the dense TF32 rate).
+// One block per object would put 64 blocks on 132 SMs, each streaming its
+// object's 67.6 KB alone; here 128 blocks of 8 warps take an SM each, every
+// block's copies in flight from its first instructions. The work of a block
+// is small and done once, so its time is the data's arrival (~2.3 us on an
+// H100) and then a chain of short phases, each made as short as the design
+// could make it (PERF.md: clusters of 4 blocks of 4 warps, 256 blocks, ran
+// slower than 2 of 8, and 4 of 8 do not all fit at once):
+//  * At entry the block starts the copies of its slice of wb[o] (the Hp
+//    rows, TG_KC columns a chunk, through part_tg's two stages: one bulk
+//    copy a row on the stage's mbarrier where C % 4 == 0 and wb is 16-byte
+//    aligned, else 4-byte cp.asyncs) and of its hp rows (4-byte cp.asyncs, a
+//    row per warp at a time, as a row of 33 floats is not 16-byte aligned),
+//    which land while the Gram is formed.
+//  * The Gram partial g_q = wb[:, slice] wb[:, slice]^T runs on mma.sync
+//    m16n8k8 in 3xTF32 (as part_tg's Gram tile), M = Hp padded to 16-row
+//    m-tiles, N = Hp padded to 8 NB. A and B are the same rows, so B's
+//    fragments are A's registers (n-tile j is half of m-tile j / 2): each
+//    warp loads and splits only A. g is symmetric, so only the tiles on or
+//    right of the diagonal blocks (n-tile j >= 2 m) are multiplied, 9 of 15
+//    at Hp = 33, and a tile right of them is stored twice, as itself and
+//    mirrored. The warps split K (two k-steps a chunk each) and each holds
+//    all of its tiles; they store their partials in fragment order (16 bytes
+//    a lane, no bank conflict), and each lane sums, in warp order, the
+//    warps' partials of its own fragment positions in a tile of its warp's
+//    share into its rank's slot of gx. The 4 mod 32 row stride puts a
+//    fragment's reads in 32 banks.
+//  * Exchange: gx holds a partial per rank, [QD_CL][Hp][LDG]. One thread
+//    copies the block's own, by one bulk copy from shared memory to the
+//    cluster's (cp.async.bulk.shared::cluster.shared::cta), into the same
+//    slot of every peer, completing on the peer's mbarrier; each block waits
+//    on its own mbarrier and sums the slots in rank order 0 .. QD_CL - 1
+//    into gf, so that every block has the same g, whatever the timing. The
+//    cluster barriers left are relaxed arrivals waited for long after: one
+//    once the block's mbarriers are set up (waited for before the copies,
+//    so that none meets an unset mbarrier), one once its peers' partials
+//    have landed (waited for at exit, so that no block leaves while a copy
+//    may still read its shared memory). Cluster barriers with release and
+//    acquire around reads of the peers' shared memory (ld.shared::cluster)
+//    took over three times as long on an H100 (PERF.md).
+//  * z = hp g for the block's rows on the tensor cores too, in 3xTF32 (B[k][n]
+//    = g[n][k], g being symmetric; k >= Hp masked to 0 in the last k-step):
+//    a warp per (m-tile, half of the n-tiles), the tile then stored through
+//    shared memory as one contiguous, coalesced run of rows. Rows past QD_HR
+//    are staged in further runs after the first. On FP32 FMAs z took about
+//    a quarter of the kernel on an H100 (PERF.md).
+// Rows of a stage past Hp hold whatever it held: a row of A meets only its
+// own row of the product and its own column through B, and neither is
+// stored; columns past the slice up to the last k-step are zeroed.
+
+// gx's, gf's and hs' row stride: at least Hp, 4 mod 8, so that a fragment's
+// reads (8 rows by 4 columns) fall in 32 banks
+__host__ __device__ inline int quad_ldg(int hp) { return (hp + 3) / 8 * 8 + 4; }
+
+// Offsets (floats) in part_quad_kernel's shared memory: the ring of stages
+// (each 16 ceil(Hp / 16) rows of TG_LD); after the last chunk the same floats
+// take the warps' partials in fragment order, then a run of z's rows; the
+// ranks' partials gx [QD_CL][Hp][LDG], gf [8 NB][LDG] and up to QD_HR hp rows
+// hs (rounded up to 16) [.][LDG]; the stages' mbarriers and the exchange's
+// (bars).
+struct QuadSmem {
+  int gx, gf, hs, bars;
+};
+
+__host__ __device__ inline QuadSmem quad_smem(int hp, int cs, int rs) {
+  const int stages = min(TG_STAGES, (cs + TG_KC - 1) / TG_KC);
+  const int nb = (hp + 7) / 8, mt = (nb + 1) / 2, ldg = quad_ldg(hp), hr = min(rs, QD_HR);
+  const int tiles = mt * nb - mt * (mt - 1);     // (m, j) with j >= 2 m
+  QuadSmem s;
+  s.gx = max(max(stages * 16 * mt * TG_LD, QD_NW * tiles * 128), round4(hr * hp));
+  s.gf = s.gx + QD_CL * hp * ldg;
+  s.hs = s.gf + 8 * nb * ldg;
+  s.bars = s.hs + (hr + 15) / 16 * 16 * ldg;
+  return s;
+}
+
+// Start the copies of the cw columns of wb's Hp rows at `w` (row stride C)
+// into stage st, at row stride TG_LD, completing on `bar`: where vec, one
+// bulk copy a row (row j by lane j / QD_NW of warp j % QD_NW) and one
+// arrival, that of row 0's thread, which announces the chunk's bytes; else
+// 4-byte cp.asyncs by every thread, one arrival each. The columns from cw
+// to the last k-step's end are zeroed with plain stores, which the next
+// __syncthreads publishes.
+__device__ inline void quad_start(float* st, const float* w, int Hp, int C, int cw, int vec,
+                                  uint64_t* bar) {
+  const int cp = (cw + 7) & ~7;
+  if (vec) {
+    const int j = (threadIdx.x & 31) * QD_NW + (threadIdx.x >> 5);
+    if (j == 0) mbar_arrive_expect_tx(bar, 4u * cw * Hp);
+    if (j < Hp) {
+      float* d = st + j * TG_LD;
+      for (int q = cw; q < cp; ++q) d[q] = 0.0f;
+      fence_proxy_async();
+      bulk_copy_g2s(d, w + (size_t)j * C, 4u * cw, bar);
+    }
+  } else {
+    for (int i = threadIdx.x; i < Hp * cp; i += QD_NT) {
+      const int j = i / cp, q = i - j * cp;
+      float* d = st + j * TG_LD + q;
+      if (q < cw) cp_async4(d, w + (size_t)j * C + q);
+      else *d = 0.0f;
+    }
+    cp_async_mbar_arrive(bar);
+  }
+}
+
+// Start the 4-byte cp.asyncs of n rows of hp (Hp floats each, contiguous at
+// `h`) into hs at row stride ldg, a warp per row, as one group.
+__device__ inline void quad_rows(float* hs, const float* h, int n, int Hp, int ldg) {
+  for (int r = threadIdx.x >> 5; r < n; r += QD_NW)
+    for (int c = threadIdx.x & 31; c < Hp; c += 32) cp_async4(hs + r * ldg + c, h + r * Hp + c);
+  cp_async_commit();
+}
+
+// z's rows m0 .. m0 + 15 of a run (nb rows) by n-tiles J0 .. J0 + JN - 1, on
+// the tensor cores in 3xTF32: A = hs, B[k][n] = g[n][k] (g is symmetric),
+// K = Hp padded to 8 NB, k >= Hp (only in the last k-step) masked to 0, as
+// hs' and gf's rows end there; into zs [nb][Hp]. J0 and JN are constants,
+// so that no branch separates the tiles' chains of mma.sync.
+template <int NB, int J0, int JN>
+__device__ inline void quad_z_tile(const float* hs, const float* gf, int ldg, int Hp, int m0,
+                                   int nb, float* zs) {
+  const int lane = threadIdx.x & 31, fr = lane >> 2, fc = lane & 3;
+  float c[JN][4];
 #pragma unroll
-  for (int j = 0; j < PT_MAXO; ++j) {
-    const int idx = j * NT + threadIdx.x;
-    if (idx < Hp * Hp) gs[idx] = acc[j];
+  for (int j = 0; j < JN; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < NB; ++ks) {
+    const int k = 8 * ks + fc;
+    const bool k0 = ks < NB - 1 || k < Hp, k4 = ks < NB - 1 || k + 4 < Hp;
+    const float* ar = hs + (m0 + fr) * ldg + k;
+    uint32_t ah[4], al[4];
+    split_a(k0 ? ar[0] : 0.0f, ah[0], al[0]);
+    split_a(k0 ? ar[8 * ldg] : 0.0f, ah[1], al[1]);
+    split_a(k4 ? ar[4] : 0.0f, ah[2], al[2]);
+    split_a(k4 ? ar[8 * ldg + 4] : 0.0f, ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const float* br = gf + (8 * (J0 + j) + fr) * ldg + k;
+      uint32_t bh[2], bl[2];
+      split_a(k0 ? br[0] : 0.0f, bh[0], bl[0]);
+      split_a(k4 ? br[4] : 0.0f, bh[1], bl[1]);
+      mma_tf32(c[j], al, bh);
+      mma_tf32(c[j], ah, bl);
+      mma_tf32(c[j], ah, bh);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < JN; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + fr + 8 * (i >> 1), n = 8 * (J0 + j) + 2 * fc + (i & 1);
+      if (r < nb && n < Hp) zs[r * Hp + n] = c[j][i];
+    }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(QD_NT, 2)
+part_quad_kernel(const float* __restrict__ hp, const float* __restrict__ wb,
+                 float* __restrict__ z, int R, int Hp, int C, int cs, int rs, int vec) {
+  extern __shared__ __align__(16) float sm[];
+  constexpr int MT = (NB + 1) / 2;               // 16-row m-tiles of Hp
+  constexpr int STAGE = 16 * MT * TG_LD;         // floats
+  constexpr int TILES = MT * NB - MT * (MT - 1); // (m, j) with j >= 2 m
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int fr = lane >> 2, fc = lane & 3;       // fragment row and column
+  const int o = blockIdx.x / QD_CL, q = blockIdx.x - o * QD_CL;   // object, rank
+  const int ldg = quad_ldg(Hp);
+  const QuadSmem L = quad_smem(Hp, cs, rs);
+  const int hl = Hp * ldg;                       // floats of a partial
+  float* gx = sm + L.gx;
+  float* gp = gx + q * hl;                       // this rank's partial, in its slot
+  float* gf = sm + L.gf;
+  float* hs = sm + L.hs;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* xbar = full + TG_STAGES;             // the peers' partials have landed
+  const int width = max(0, min(cs, C - q * cs));   // this rank's columns
+  const int nr = max(0, min(rs, R - q * rs));      // and rows
+  const int nch = (width + TG_KC - 1) / TG_KC;
+  const float* wo = wb + (size_t)o * Hp * C + (size_t)q * cs;
+  const float* ho = hp + ((size_t)o * R + (size_t)q * rs) * Hp;
+  float* zo = z + ((size_t)o * R + (size_t)q * rs) * Hp;
+
+  if (tid == 0) {
+    for (int s = 0; s < TG_STAGES; ++s) mbar_init(full + s, vec ? 1 : QD_NT);
+    mbar_init(xbar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  const float* ho = hp + (size_t)o * R * Hp;
-  float* zo = z + (size_t)o * R * Hp;
-  for (int idx = threadIdx.x; idx < R * Hp; idx += NT) {
-    const int r = idx / Hp, b = idx - r * Hp;
-    const float* hr = ho + (size_t)r * Hp;
-    float v = 0.0f;
-    for (int k = 0; k < Hp; ++k) v = fmaf(__ldg(hr + k), gs[k * Hp + b], v);
-    zo[idx] = v;
+  cluster_arrive_relaxed();   // this block's mbarriers are set up (waited for before the exchange)
+  for (int s = 0; s < min(TG_STAGES - 1, nch); ++s)
+    quad_start(sm + s * STAGE, wo + s * TG_KC, Hp, C, min(TG_KC, width - s * TG_KC), vec, full + s);
+  quad_rows(hs, ho, min(nr, QD_HR), Hp, ldg);
+
+  float gq[MT][NB][4];                            // the tiles with j >= 2 m
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gq[m][j][i] = 0.0f;
+
+  for (int ch = 0; ch < nch; ++ch) {
+    __syncthreads();    // the warps are done with chunk ch - 1: its stage takes chunk ch + 1
+    const int next = ch + TG_STAGES - 1, sn = next % TG_STAGES, sc = ch % TG_STAGES;
+    if (next < nch)
+      quad_start(sm + sn * STAGE, wo + next * TG_KC, Hp, C, min(TG_KC, width - next * TG_KC), vec,
+                 full + sn);
+    mbar_wait(full + sc, (ch / TG_STAGES) & 1);
+    const float* as = sm + sc * STAGE;
+    const int cw = min(TG_KC, width - ch * TG_KC);
+    for (int ks = warp; 8 * ks < cw; ks += QD_NW) {
+      const int k = 8 * ks + fc;
+      // a0..a3 = wb[16 m + fr][k], [16 m + 8 + fr][k], [16 m + fr][k + 4], [16 m + 8 + fr][k + 4]
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* ar = as + (16 * m + fr) * TG_LD + k;
+        split_a(ar[0], ah[m][0], al[m][0]);
+        split_a(ar[8 * TG_LD], ah[m][1], al[m][1]);
+        split_a(ar[4], ah[m][2], al[m][2]);
+        split_a(ar[8 * TG_LD + 4], ah[m][3], al[m][3]);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 2 * m; j < NB; ++j) {
+          // b0, b1 = wb[8 j + fr][k], [8 j + fr][k + 4]: a0, a2 (j even) or a1, a3
+          // (j odd) of m-tile j / 2
+          const int mb = j >> 1, hb = j & 1;
+          const uint32_t bh[2] = {ah[mb][hb], ah[mb][hb + 2]};
+          const uint32_t bl[2] = {al[mb][hb], al[mb][hb + 2]};
+          mma_tf32(gq[m][j], al[m], bh);
+          mma_tf32(gq[m][j], ah[m], bl);
+          mma_tf32(gq[m][j], ah[m], bh);
+        }
+    }
   }
+
+  __syncthreads();      // every warp is done with the ring: it takes the partials
+  float4* part = reinterpret_cast<float4*>(sm);  // [QD_NW][TILES][32], fragment order
+  {
+    int t = 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 2 * m; j < NB; ++j, ++t)
+        part[(warp * TILES + t) * 32 + lane] =
+            make_float4(gq[m][j][0], gq[m][j][1], gq[m][j][2], gq[m][j][3]);
+  }
+  __syncthreads();
+  {
+    int t = 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 2 * m; j < NB; ++j, ++t) {
+        if (t % QD_NW != warp) continue;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int w = 0; w < QD_NW; ++w) {
+          const float4 u = part[(w * TILES + t) * 32 + lane];
+          v[0] += u.x;
+          v[1] += u.y;
+          v[2] += u.z;
+          v[3] += u.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * m + fr + 8 * (i >> 1), c = 8 * j + 2 * fc + (i & 1);
+          if (r < Hp && c < Hp) {
+            gp[r * ldg + c] = v[i];
+            if (j >= 2 * m + 2) gp[c * ldg + r] = v[i];   // its mirror is not multiplied
+          }
+        }
+      }
+  }
+  fence_proxy_async();  // this thread's stores to gp, before the bulk copies read it
+  __syncthreads();
+  cluster_wait();       // every peer's mbarriers are set up
+  if (tid == 0) {       // gp to the same slot of every peer
+    mbar_arrive_expect_tx(xbar, 4u * (QD_CL - 1) * hl);
+    for (int r = 1; r < QD_CL; ++r) bulk_copy_s2peer(gp, 4u * hl, xbar, (q + r) % QD_CL);
+  }
+  mbar_wait(xbar, 0);   // every peer's partial is in its slot
+  cluster_arrive_relaxed();   // so the copies from the peers are done (waited for at exit)
+  // g = the ranks' partials summed in rank order
+  for (int i = tid; i < hl / 4; i += QD_NT) {
+    float4 v = reinterpret_cast<const float4*>(gx)[i];
+#pragma unroll
+    for (int r = 1; r < QD_CL; ++r) {
+      const float4 u = reinterpret_cast<const float4*>(gx + r * hl)[i];
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    reinterpret_cast<float4*>(gf)[i] = v;
+  }
+
+  float* zs = sm;       // a run of z's rows [nb][Hp], in the ring
+  for (int b0 = 0; b0 < nr; b0 += QD_HR) {
+    const int nb = min(QD_HR, nr - b0);
+    if (b0 > 0) {
+      __syncthreads();  // every warp is done with the last run's hs and zs
+      quad_rows(hs, ho + (size_t)b0 * Hp, nb, Hp, ldg);
+    }
+    cp_async_wait<0>();
+    __syncthreads();    // g and the run's hp rows are whole
+    // z: an item is an m-tile of the run by half of the n-tiles (all of them
+    // where NB = 1)
+    constexpr int JH = (NB + 1) / 2, HN = NB > 1 ? 2 : 1;
+    for (int item = warp; item < HN * ((nb + 15) / 16); item += QD_NW) {
+      const int m0 = 16 * (item / HN);
+      if (item % HN == 0) quad_z_tile<NB, 0, JH>(hs, gf, ldg, Hp, m0, nb, zs);
+      else quad_z_tile<NB, JH, (NB > 1 ? NB - JH : 1)>(hs, gf, ldg, Hp, m0, nb, zs);
+    }
+    __syncthreads();    // the run's z is whole: stored as one contiguous run
+    for (int i = tid; i < nb * Hp; i += QD_NT) zo[(size_t)b0 * Hp + i] = zs[i];
+  }
+  cluster_wait();       // every peer's copy of this block's partial is done: it may exit
+}
+
+using QuadKernel = void (*)(const float*, const float*, float*, int, int, int, int, int, int);
+
+struct QuadLaunch {
+  QuadKernel kernel;
+  int cs, rs;           // columns of C and rows of hp per rank
+  size_t smem;          // dynamic shared memory, bytes
+};
+
+// pr_part_quad's arguments checked, the launch it makes for them chosen and
+// its shared memory opted into: cudaSuccess, or the CUDA error code with
+// which pr_part_quad refuses them.
+int quad_setup(QuadLaunch& l, int O, int R, int Hp, int C) {
+  if (O < 1 || R < 1 || C < 1 || Hp < 1 || Hp > 64) return (int)cudaErrorInvalidValue;
+  l.cs = ((C + QD_CL - 1) / QD_CL + 7) & ~7;
+  l.rs = (R + QD_CL - 1) / QD_CL;
+  switch ((Hp + 7) / 8) {   // the 8-column tiles of Hp
+    case 1: l.kernel = part_quad_kernel<1>; break;
+    case 2: l.kernel = part_quad_kernel<2>; break;
+    case 3: l.kernel = part_quad_kernel<3>; break;
+    case 4: l.kernel = part_quad_kernel<4>; break;
+    case 5: l.kernel = part_quad_kernel<5>; break;
+    case 6: l.kernel = part_quad_kernel<6>; break;
+    case 7: l.kernel = part_quad_kernel<7>; break;
+    default: l.kernel = part_quad_kernel<8>; break;
+  }
+  l.smem = sizeof(float) * quad_smem(Hp, l.cs, l.rs).bars + sizeof(uint64_t) * (TG_STAGES + 1);
+  return (int)cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)l.smem);
 }
 
 }  // namespace
@@ -1588,7 +1916,7 @@ int pr_step_chain(const float* xs, const float* w0, const float* w1, const float
   int err = chain_setup(a, l, xs, w0, w1, w2, out, S, O, N, DX, K, H, depth);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = chain_config(l, l.grid, a.cluster, attr, stream);
+  const cudaLaunchConfig_t cfg = cluster_config(l.grid, NT, l.smem, a.cluster, attr, stream);
   err = (int)cudaLaunchKernelEx(&cfg, l.kernel, a);
   if (err != cudaSuccess) return err;
   return (int)cudaGetLastError();
@@ -1647,16 +1975,39 @@ int pr_part_dw(const float* dt, const float* gt, float* dw, int O, int R, int Hp
   }
 }
 
-// hp [O, R, Hp], wb [O, Hp, C] -> z [O, R, Hp]
+// hp [O, R, Hp], wb [O, Hp, C] -> z [O, R, Hp]; one launch, a cluster of
+// QD_CL blocks per object; a refused cluster launch returns its error
 int pr_part_quad(const float* hp, const float* wb, float* z, int O, int R, int Hp,
                  int C, void* stream) {
-  if (O < 1 || R < 1 || C < 1 || Hp < 1 || Hp > 64) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * Hp * PT_LD + Hp * Hp);
-  cudaError_t err = cudaFuncSetAttribute(
-      part_quad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  part_quad_kernel<<<O, NT, smem, (cudaStream_t)stream>>>(hp, wb, z, R, Hp, C);
+  QuadLaunch l;
+  int err = quad_setup(l, O, R, Hp, C);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(O * QD_CL), QD_NT, l.smem, QD_CL, attr, stream);
+  const int vec = C % 4 == 0 && aligned16(wb);
+  err = (int)cudaLaunchKernelEx(&cfg, l.kernel, hp, wb, z, R, Hp, C, l.cs, l.rs, vec);
+  if (err != cudaSuccess) return err;
   return (int)cudaGetLastError();
+}
+
+// The launch pr_part_quad makes for these arguments, without making it:
+// out[0..5] = its blocks resident per SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), threads per block, dynamic shared memory in bytes, blocks,
+// blocks per cluster, clusters resident at once.
+int pr_part_quad_launch(int O, int R, int Hp, int C, int* out) {
+  QuadLaunch l;
+  int err = quad_setup(l, O, R, Hp, C);
+  if (err != cudaSuccess) return err;
+  out[1] = QD_NT;
+  out[2] = (int)l.smem;
+  out[3] = O * QD_CL;
+  out[4] = QD_CL;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, l.kernel, QD_NT, l.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(dim3(QD_CL), QD_NT, l.smem, QD_CL, attr, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(out + 5, l.kernel, &cfg);
 }
 
 }  // extern "C"

@@ -18,7 +18,9 @@ XLA's.
       the kernel builds, launches and matches its plain version.
   q5. The part term t = gt wb^T with g = wb wb^T in one kernel (P5 tg;
       epilogue num + pn2 outside, as in the script) against the library;
-      then dW = dt^T gt and z = hp (wb wb^T) as correctness cases.
+      then dW = dt^T gt and z = hp (wb wb^T) as correctness cases, each
+      timed beside its library call (``torch.bmm``, a three-operand
+      ``torch.einsum``).
 
 Times come from ``openobj_torch.scripts._benchlib.scan_time`` (CUDA
 graphs of 1 and N calls). Inputs are made from a seed on the device.
@@ -210,6 +212,19 @@ def q4(device, seed: int = 0) -> tuple[dict, list]:
     }, c0 + c1 + c2
 
 
+def _einsum_path(eq: str, *ops) -> str:
+    """The order in which ``torch.einsum`` contracts ``ops``: opt_einsum's
+    path (pairs of operand positions) where torch uses it, else left to
+    right."""
+    oe = torch.backends.opt_einsum
+    if oe.enabled and oe.is_available():
+        import opt_einsum
+
+        path, _ = opt_einsum.contract_path(eq, *ops, optimize=oe.strategy)
+        return f"opt_einsum {oe.strategy}: {path}"
+    return "left to right"
+
+
 def q5(device, seed: int = 0, n_tiles: int = 8, o_tile: int = 8) -> tuple[dict, list]:
     """The part term's {t, g} kernel, epilogue outside, vs the library;
     then dW and the quadratic form as correctness cases."""
@@ -245,11 +260,16 @@ def q5(device, seed: int = 0, n_tiles: int = 8, o_tile: int = 8) -> tuple[dict, 
         "part_term[dw]", f"{SCRIPT}:422", "part_term_dw", lambda: probes.part_dw(hp, gt),
         lambda: probes.part_dw_plain(hp, gt), lambda: torch.bmm(hp.transpose(1, 2), gt),
         2 * obj * hpd * r * c, 4 * obj * (r * hpd + r * c + hpd * c), GEMM_RTOL, 100))
+    gram_flops = 2 * obj * hpd * hpd * c                  # on the tensor cores
+    # the library's one call: with the operands in this order, left-to-right
+    # contraction (torch's without opt_einsum) forms g = wb wb^T first, and
+    # so does opt_einsum's cheapest path
     quad, quad_case = _compile_case(lambda: Case(
         "part_term[quad]", f"{SCRIPT}:426", "part_term_quad", lambda: probes.part_quad(hp, wb),
-        lambda: probes.part_quad_plain(hp, wb), None,
-        2 * obj * (hpd * hpd * c + r * hpd * hpd), 4 * obj * (r * hpd + hpd * c + r * hpd),
-        GEMM_RTOL, 100))
+        lambda: probes.part_quad_plain(hp, wb),
+        lambda: torch.einsum("ohc,okc,orh->ork", wb, wb, hp),
+        gram_flops + 2 * obj * r * hpd * hpd, 4 * obj * (r * hpd + hpd * c + r * hpd),
+        GEMM_RTOL, 100, mm_flops=gram_flops))
     return {
         "cuda_t_g_us_per_step": round(per * 1e6, 3),
         "cuda_t_g_kernel_alone_us": round(tg.us, 3),
@@ -259,6 +279,9 @@ def q5(device, seed: int = 0, n_tiles: int = 8, o_tile: int = 8) -> tuple[dict, 
         "max_rel_err_vs_library": err,
         "compile_bwd_dW_loaded_operands": dw,
         "compile_quadratic_chained_dot": quad,
+        "cuda_quad_kernel_alone_us": round(quad_case[0].us, 3) if quad_case else None,
+        "library_quad_us": round(quad_case[0].library_us, 3) if quad_case else None,
+        "library_quad_einsum_path": _einsum_path("ohc,okc,orh->ork", wb, wb, hp),
     }, [tg] + dw_case + quad_case
 
 

@@ -1,7 +1,7 @@
 """K1 and K2, the fused-field forward and backward of
-openobj_torch/csrc/fused_field.cu, and the part term's {t, g} and dW
-kernels and the ensemble GEMM's kernels of openobj_torch/csrc/probes.cu,
-run on the CPU against their plain versions.
+openobj_torch/csrc/fused_field.cu, and the part term's {t, g}, dW and
+quadratic kernels, the chain and the ensemble GEMM's kernels of
+openobj_torch/csrc/probes.cu, run on the CPU against their plain versions.
 
 Each CUDA source is compiled by the host C++ compiler with ``STUB`` (below)
 included ahead of it: the stub stands in for the CUDA built-ins and the
@@ -52,8 +52,10 @@ STUB = r"""
 //  * the blocks of a thread-block cluster (cudaLaunchKernelEx with a cluster
 //    dimension) run their threads together, and a cluster's blocks are
 //    consecutive in x; barrier.cluster is a std::barrier over all of the
-//    cluster's threads, and ld_cluster (mapa + ld.shared::cluster) reads the
-//    same offset in the peer block's shared buffer;
+//    cluster's threads (its arrive and wait, apart, the barrier's), ld_cluster
+//    (mapa + ld.shared::cluster) reads and a bulk copy to a peer
+//    (cp.async.bulk.shared::cluster) writes the same offset in the peer
+//    block's shared buffer;
 //  * mma.sync m16n8k8 (tf32 operands, f32 accumulator) and __shfl_sync are
 //    warp-wide exchanges through a std::barrier of 32 threads, mma computed
 //    from the PTX
@@ -69,9 +71,9 @@ STUB = r"""
 //    count, pending arrivals, expected arrivals and phase bit), changed
 //    under one lock; a phase completes when no arrival and no byte is
 //    pending, and try_wait.parity blocks the waiting thread until the phase
-//    of that parity has completed. A bulk copy is a memcpy, made when a
-//    thread first waits on its mbarrier (so a read that does not wait sees
-//    the old contents), that then completes its bytes; cp.async is a plain
+//    of that parity has completed. A bulk copy is a memcpy, made while a
+//    thread waits on its mbarrier (so a read that does not wait sees the
+//    old contents), that then completes its bytes; cp.async is a plain
 //    copy, so the arrival that waits for a thread's cp.asyncs is made at
 //    once.
 // It checks indexing, layouts and synchronisation, not the card's rounding
@@ -86,6 +88,7 @@ STUB = r"""
 #include <functional>
 #include <memory>
 #include <mutex>
+#include <optional>
 #include <thread>
 #include <vector>
 #define __global__
@@ -99,6 +102,7 @@ struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint4 { uint32_t x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local uint3 threadIdx, blockIdx;
@@ -132,6 +136,9 @@ inline void named_sync(int id, int n) {
   b->arrive_and_wait();
 }
 inline void cluster_sync() { t_clu->bar->arrive_and_wait(); }
+inline thread_local std::optional<std::barrier<>::arrival_token> t_cluster_token;
+inline void cluster_arrive_relaxed() { t_cluster_token.emplace(t_clu->bar->arrive()); }
+inline void cluster_wait() { t_clu->bar->wait(std::move(*t_cluster_token)); }
 inline float ld_cluster(const float* p, unsigned rank) {
   return t_clu->blocks[rank]->smem[p - t_blk->smem];
 }
@@ -230,24 +237,33 @@ inline void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
   std::lock_guard<std::mutex> lock(g_bar_mu);
   emu_bar_update(bar, 1, bytes);
 }
-// A bulk copy lands when a thread first waits on its mbarrier, no earlier:
-// a read of the stage that does not wait for it sees the old contents.
+// A bulk copy lands when a thread waits on its mbarrier, no earlier (a copy
+// from a peer block while the thread waits): a read of the stage that does
+// not wait for it sees the old contents.
 inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
   std::lock_guard<std::mutex> lock(g_bar_mu);
   g_copies.push_back({bar, dst, src, bytes});
+  g_bar_cv.notify_all();
 }
 inline void mbar_wait(uint64_t* bar, unsigned parity) {
   std::unique_lock<std::mutex> lock(g_bar_mu);
-  for (size_t i = 0; i < g_copies.size();) {
-    const EmuCopy c = g_copies[i];
-    if (c.bar != bar) { ++i; continue; }
-    g_copies.erase(g_copies.begin() + i);
-    std::memcpy(c.dst, c.src, c.bytes);
-    emu_bar_update(bar, 0, -(int64_t)c.bytes);
-  }
-  g_bar_cv.wait(lock, [&] { return (unsigned)(emu_bar(bar).expected_phase >> 15) != parity; });
+  g_bar_cv.wait(lock, [&] {
+    for (size_t i = 0; i < g_copies.size();) {
+      const EmuCopy c = g_copies[i];
+      if (c.bar != bar) { ++i; continue; }
+      g_copies.erase(g_copies.begin() + i);
+      std::memcpy(c.dst, c.src, c.bytes);
+      emu_bar_update(bar, 0, -(int64_t)c.bytes);
+    }
+    return (unsigned)(emu_bar(bar).expected_phase >> 15) != parity;
+  });
 }
 inline void cp_async_mbar_arrive(uint64_t* bar) { mbar_arrive(bar); }
+inline void bulk_copy_s2peer(float* p, unsigned bytes, uint64_t* bar, unsigned rank) {
+  float* peer = t_clu->blocks[rank]->smem;
+  bulk_copy_g2s(peer + (p - t_blk->smem), p, bytes,
+                reinterpret_cast<uint64_t*>(peer + (reinterpret_cast<float*>(bar) - t_blk->smem)));
+}
 inline void fence_proxy_async() {}
 
 // Blocks in clusters of nc (consecutive in x), one cluster at a time, each
@@ -518,6 +534,10 @@ def emu_probes(tmp_path_factory):
     lib.pr_part_dw.restype = ctypes.c_int
     lib.pr_part_tg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.pr_part_tg.restype = ctypes.c_int
+    lib.pr_part_quad.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pr_part_quad.restype = ctypes.c_int
+    lib.pr_part_quad_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pr_part_quad_launch.restype = ctypes.c_int
     lib.pr_ens_gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.pr_ens_gemm.restype = ctypes.c_int
     lib.pr_ens_gemm_occupancy.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -737,6 +757,49 @@ def test_emulated_part_tg_rejects_bad_arguments(emu_probes):
         assert emu_probes.pr_part_tg(*[_ptr(buf)] * 4, 1, 1, hp, 1, None) != 0
 
 
+@pytest.mark.parametrize("o,r,hp,c", [
+    (2, 120, 33, 512),   # the probe's widths: a 256-column slice (two chunks) and 60 rows
+                         # per rank
+    (1, 45, 33, 100),    # ragged slices (56, 44 columns) and rows (23, 22)
+    (2, 7, 64, 70),      # Hp = 64; C % 4 != 0 (4-byte copies); rows 4, 3
+    (2, 3, 1, 3),        # a rank with no columns
+    (1, 1, 5, 3),        # R < QD_CL: a rank with no rows and no columns
+    (1, 300, 17, 2100),  # 1056-column slices, nine chunks through the two stages; 150
+                         # rows per rank, staged as 64, 64 and 22
+])
+def test_emulated_part_quad_matches_plain(emu_probes, o, r, hp, c):
+    """part_quad_kernel against part_quad_plain: the cluster's ranks sum their
+    Gram partials over distributed shared memory; every element of z written."""
+    rng = np.random.default_rng(7)
+    h = (0.1 * rng.standard_normal((o, r, hp))).astype(np.float32)
+    wb = (0.1 * rng.standard_normal((o, hp, c))).astype(np.float32)
+    z = np.full((o, r, hp), np.nan, np.float32)
+    assert emu_probes.pr_part_quad(_ptr(h), _ptr(wb), _ptr(z), o, r, hp, c, None) == 0
+    ref = probes.part_quad_plain(torch.from_numpy(h), torch.from_numpy(wb)).numpy()
+    assert float(np.abs(z - ref).max()) <= GEMM_RTOL * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("o,r,hp,c,smem", [
+    (64, 120, 33, 512, 75_192),     # q5: two stages of 48 rows, partials inside them
+    (1, 300, 17, 2100, 43_576),     # two stages of 32 rows; 64 hp rows staged
+    (2, 7, 64, 70, 138_520),        # the widest: the partials [8][20][32] float4 beyond
+                                    # the one stage
+])
+def test_emulated_part_quad_launch_layout(emu_probes, o, r, hp, c, smem):
+    """pr_part_quad_launch reports the launch pr_part_quad makes: 256 threads,
+    the dynamic shared memory, a cluster of 2 blocks per object."""
+    res = (ctypes.c_int * 6)()
+    assert emu_probes.pr_part_quad_launch(o, r, hp, c, res) == 0
+    assert list(res)[1:5] == [256, smem, 2 * o, 2]
+
+
+def test_emulated_part_quad_rejects_bad_arguments(emu_probes):
+    """Hp outside 1..64 is refused."""
+    buf = np.zeros(1, np.float32)
+    for hp in (0, 65):
+        assert emu_probes.pr_part_quad(*[_ptr(buf)] * 3, 1, 1, hp, 1, None) != 0
+
+
 def test_k1_phases_stamps_every_barrier(tmp_path, monkeypatch):
     """openobj_torch.scripts.k1_phases builds a copy of the source in which
     every barrier books its cycles, with the stamps ahead of the kernels."""
@@ -808,3 +871,42 @@ def test_step_chain_parts_edits_the_chain(tmp_path, monkeypatch):
     assert chain(nosine).count("mma_step<false, NB>") == 2
     for text in (noproduct, nosine):   # the rest of the source is untouched
         assert text.replace(chain(text), "") == whole.replace(chain(whole), "")
+
+
+def test_part_quad_parts_edits_the_kernel(tmp_path, monkeypatch):
+    """openobj_torch.scripts.part_quad_parts builds copies of probes.cu whose
+    quad kernel runs no k-steps and no z (copies), sums its own partial with
+    no cluster barrier or peer read (no_exchange), runs no z (no_z), also
+    copies nothing (empty), or takes clusters of 2 or 8 blocks; each edit
+    falls in the quad kernel's code and leaves the other kernels as they are."""
+    from openobj_torch import kernels
+    from openobj_torch.scripts import part_quad_parts
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    srcs = part_quad_parts.part_sources(parts=part_quad_parts.PARTS)
+    assert srcs["whole"] == CSRC / "probes.cu" and set(srcs) == {"whole", *part_quad_parts.PARTS}
+    text = {k: p.read_text() for k, p in srcs.items()}
+
+    def quad(t):   # the quad kernel and its helpers, where the edits fall
+        return t[t.index("struct QuadSmem {"):t.index("using QuadKernel")]
+
+    def rest(t):   # the source without them and without the block and cluster sizes
+        return re.sub(r"constexpr int QD_(CL = \d|NT = \d+);", "", t.replace(quad(t), ""))
+
+    whole = quad(text["whole"])
+    for part in part_quad_parts.PARTS:
+        assert rest(text[part]) == rest(text["whole"]), part
+        assert (quad(text[part]) == whole) == part.startswith(("cl", "nt")), part
+    assert whole.count("cluster_wait();") == 2 and whole.count("bulk_copy_s2peer(") == 1
+    assert "&& C < 0" not in whole
+    assert quad(text["copies"]).count("&& C < 0") == 2
+    assert quad(text["no_z"]).count("&& C < 0") == 1
+    for part in ("copies", "no_z", "empty"):
+        assert "zo[" not in quad(text[part]), part
+    assert "8 * ks < cw && C < 0" in quad(text["empty"])
+    assert "bulk_copy_g2s(" not in quad(text["empty"]) and "cp_async4(hs" not in quad(text["empty"])
+    ex = quad(text["no_exchange"])
+    assert "cluster_" not in ex and "bulk_copy_s2peer(" not in ex and "gx" not in ex.split("g = ")[-1]
+    for n in (1, 4):
+        assert f"constexpr int QD_CL = {n};" in text[f"cl{n}"]
+    assert "constexpr int QD_NT = 128;" in text["nt128"] and "QD_CL = 4;" in text["cl4_nt128"]

@@ -2,7 +2,8 @@
 PyTorch versions, on a GPU, at ragged shapes: N not a multiple of the tile,
 one object, object counts not a multiple of the object tile, chain depths
 0, 1, 2 and 4 in clusters of 1, 4 and 8 blocks, the no-op and the part
-term's gt on views that are not 16-byte aligned.
+term's gt and hp on views that are not 16-byte aligned, the part term's C
+wider than a quad slice's chunk.
 
 Every test here needs an NVIDIA GPU (sm_90a) and nvcc: the kernels have no
 CPU mode, so without a card they skip. The file imports neither jax nor
@@ -117,24 +118,31 @@ def test_step_chain_matches_plain(cuda_device, depth, s, o, n, dx, k, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("o,r,hp,c,gt_ofs", [
-    (1, 45, 33, 100, 0),          # one object, ragged row block and C chunk
-    (3, 120, 33, 512, 0),         # the probe's widths
-    (2, 7, 64, 70, 0),            # Hp = 64, the widest the kernels take
-    (2, 33, 1, 3, 0),
-    (2, 37, 48, 100, 0),          # dw: ragged 64-column slice, R not a multiple of 8, Hp = 48
-    (2, 1, 33, 512, 0),           # one ray
-    (3, 120, 33, 512, 1),         # gt starts one float past a 16-byte boundary:
+@pytest.mark.parametrize("o,r,hp,c,gt_ofs,h_ofs", [
+    (1, 45, 33, 100, 0, 0),       # one object, ragged row block and C chunk
+    (3, 120, 33, 512, 0, 0),      # the probe's widths
+    (2, 7, 64, 70, 0, 0),         # Hp = 64, the widest the kernels take
+    (2, 33, 1, 3, 0, 0),
+    (2, 37, 48, 100, 0, 0),       # dw: ragged 64-column slice, R not a multiple of 8, Hp = 48
+    (2, 1, 33, 512, 0, 0),        # one ray
+    (3, 120, 33, 512, 1, 0),      # gt starts one float past a 16-byte boundary:
                                   # 4-byte copies although C % 4 == 0
+    (3, 120, 33, 512, 0, 1),      # hp (the quad's rows, dw's dt) one float past it
+    (1, 300, 17, 2100, 0, 0),     # C = 2100: quad's 1056-column slices take nine
+                                  # chunks through two stages; 150 rows per rank,
+                                  # staged in three runs
 ])
-def test_part_term_matches_plain(cuda_device, o, r, hp, c, gt_ofs):
+def test_part_term_matches_plain(cuda_device, o, r, hp, c, gt_ofs, h_ofs):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     base = torch.empty(o * r * c + gt_ofs, device=cuda_device)
     gt = base[gt_ofs:].view(o, r, c)
     gt.copy_(_randn(gen, (o, r, c), cuda_device, 0.1))
     assert (gt.data_ptr() % 16 == 0) == (gt_ofs == 0)
     wb = _randn(gen, (o, hp, c), cuda_device, 0.1)
-    h = _randn(gen, (o, r, hp), cuda_device, 0.1)
+    h_base = torch.empty(o * r * hp + h_ofs, device=cuda_device)
+    h = h_base[h_ofs:].view(o, r, hp)
+    h.copy_(_randn(gen, (o, r, hp), cuda_device, 0.1))
+    assert (h.data_ptr() % 16 == 0) == (h_ofs == 0)
     t, g = probes.part_tg_cuda(gt, wb)
     t_ref, g_ref = probes.part_tg_plain(gt, wb)
     assert _rel(t, t_ref) <= GEMM_RTOL
