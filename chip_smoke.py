@@ -29,14 +29,29 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      one mesh timed stage by stage, and K1 against its plain version at
      the render and mesh shapes (K1's rows of the kernels line gain those
      shapes, each with the launches counted at exactly its dims);
-  4c. the port of examples/run_synthetic_scene.py's stages 2-4 on a scene
-     with ground truth (ground-truth instance ids in place of the
-     association stage): training with hidden_bg 64 (ff_fwd_kernel<64> and
-     ff_bwd_kernel<64>; never the SIMT kernels, never the eager field), a
-     held-out render composited, meshes, with the counts reset before and
-     read after; PSNR > 18, depth MAE < 0.3 m and at least one mesh, the
-     example's gates; then K1/K2/K2r against their plain versions at the
-     h=64 shapes that run launched;
+  4c. the port of examples/run_synthetic_scene.py on a scene with ground
+     truth, with the counts reset before and read after: stage 1, the
+     association (perception.pipeline.associate, its similarity matrices
+     on the card; the same call on the CPU must give the same final ids and
+     instance images, bit for bit; the smallest |weighted - 1.0| over all
+     pairs is printed), whose instance images feed stage 2, training with
+     hidden_bg 64 (ff_fwd_kernel<64> and ff_bwd_kernel<64>; never the SIMT
+     kernels, never the eager field), a held-out render composited, meshes;
+     PSNR > 18, depth MAE < 0.3 m and at least one mesh, the example's
+     gates; then K1/K2/K2r against their plain versions at the h=64 shapes
+     that run launched;
+  4d. room_0 from disk: a raw Replica-layout sequence (synthetic archetype
+     tabletop, 30 frames at room_0's camera, 680x1200) written with
+     data.synthetic.write_raw_scene; masks from its held-aside ground-truth
+     maps associated on the card (and on the CPU: equal) and written as the
+     loader's artifacts; random [136, 240, 512] part maps; then
+     train.main on configs/replica/room_0.json with only dataset.path
+     changed, in process, with the counts reset before and read after:
+     checkpoints for the background and every object, scene_state.npz and
+     timing.json, finite losses, K1/K2/K2r 200 times per trained frame and
+     nothing plain or eager; prints ms per association frame, per loaded
+     frame and per trained frame, and the matched instance mIoU of the
+     written maps against the ground truth;
   5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
      scripts/bench_ensemble_mm.py and scripts/bench_fused_step_probe.py):
      drives the two probe scripts' port (openobj_torch.scripts.*) with the
@@ -45,7 +60,7 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      plain version, beside the times the scripts took of kernel, plain
      version and library call, and the bound;
   6. prints one JSON line with every kernel's numbers (the fused field's
-     launches summed over the counted runs of phases 4, 4b and 4c, and by
+     launches summed over the counted runs of phases 4, 4b, 4c and 4d, and by
      run and shape as counted), the card's nvidia-smi line, and last a
      JSON line {"ok": true, "device": ...}.
 
@@ -737,10 +752,71 @@ def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
 # --------------------------------------------------------------------------- #
 
 
+def _unit(v):
+    v = np.asarray(v, np.float64)
+    return v / np.linalg.norm(v)
+
+
+def warm_matrices(device) -> None:
+    """One call of each similarity matrix on a tiny input, so that the
+    timed association holds no first-call set-up of the card's libraries."""
+    from openobj_torch.perception import similarity
+
+    box = np.asarray([[0.0, 0.0, 1.0, 1.0, 1.0, 2.0]] * 2)
+    similarity.iou3d_matrix(box, device=device)
+    similarity.cosine_matrix(np.eye(2, 4), device=device)
+    similarity.projected_iou2d_matrix([np.ones((4, 4), np.float32)], np.eye(4)[None],
+                                      2.0, 2.0, 2.0, 2.0, box, skip=2, device=device)
+
+
+def closest_to_cut(weighted) -> float:
+    """The smallest |weighted - 1.0| over all pairs (the graph's edge cut)."""
+    w = np.asarray(weighted, np.float64)
+    off = ~np.eye(len(w), dtype=bool)
+    return float(np.abs(w[off] - 1.0).min()) if off.any() else float("inf")
+
+
+def associate_twice(frames, bg_feats, acfg, device, tag):
+    """``pipeline.associate`` on the card, timed (its similarity matrices
+    under their own span), then the same call on the CPU: final ids and
+    instance images must be equal, bit for bit."""
+    import torch
+    from openobj_torch.perception import pipeline
+    from openobj_torch.utils import profiling
+
+    span = "association: similarity matrices"
+    warm_matrices(device)
+    profiling.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assoc = pipeline.associate(frames, bg_feats, acfg, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    spans = profiling.stats()
+    if spans.get(span, {}).get("n") != 1:
+        raise AssertionError(f"associate timed no single '{span}' span: {spans}")
+    card_ms = spans[span]["last_ms"]
+    on_cpu = pipeline.associate(frames, bg_feats, acfg, device="cpu")
+    if on_cpu["final_ids"] != assoc["final_ids"] or not all(
+            np.array_equal(a, b) for a, b in zip(assoc["inst_images"], on_cpu["inst_images"])):
+        raise AssertionError(f"[{tag}] association on the card differs from the CPU's: "
+                             f"{assoc['final_ids']} vs {on_cpu['final_ids']}")
+    gap = closest_to_cut(assoc["weighted"])
+    log(f"[{tag}] association on the card: {assoc['n_objects'] - 4} objects, final ids "
+        f"{assoc['final_ids']}; {1e3 * secs / len(frames):.1f} ms per association frame "
+        f"({len(frames)} frames, {sum(len(f.masks) for f in frames)} masks, the card's "
+        f"libraries warmed first), of which the similarity matrices on the card "
+        f"{card_ms / len(frames):.1f}; equal on the CPU; "
+        f"smallest |weighted - 1.0| over all pairs {gap:.3e}")
+    return assoc, secs / len(frames), gap
+
+
 def run_synthetic_scene(device) -> dict:
-    """Stages 2-4 of examples/run_synthetic_scene.py on the port, with the
-    scene's ground-truth instance ids (room = background 0, spheres 4, 5) in
-    place of its association stage, on ``device``."""
+    """examples/run_synthetic_scene.py on the port: stage 1, the
+    association, on the card (its instance images feed stage 2, remapped as
+    the example does: the wall's reserved id 1 -> background 0, unlabelled
+    -> -1), then stages 2-4 (training, a held-out render composited,
+    meshes), on ``device``."""
     import tempfile
 
     import torch
@@ -750,21 +826,52 @@ def run_synthetic_scene(device) -> dict:
     from openobj_torch.core.scene import Camera, SceneMapper
     from openobj_torch.data import synthetic
     from openobj_torch.ops import fused_field as ff
+    from openobj_torch.perception import pipeline
 
     t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
     cam = Camera(width=80, height=60, fx=50.0, fy=50.0, cx=40.0, cy=30.0)
     dirs = cam.ray_dirs("cpu").numpy()
     scene = synthetic.default_scene(n_spheres=2)
+    torch.cuda.synchronize()
+    ff.reset_counts()
+
+    # ---- stage 1: the association over the sequence, on the card ----
+    feats = {
+        4: (_unit(rng.normal(size=384)), _unit(rng.normal(size=512)), "a red ball"),
+        5: (_unit(rng.normal(size=384)), _unit(rng.normal(size=512)), "a blue ball"),
+        0: (_unit(rng.normal(size=384)), _unit(rng.normal(size=512)), "a wall"),
+    }
+    views = [(synthetic.orbit_pose(a),) + scene.render(synthetic.orbit_pose(a), dirs)
+             for a in np.linspace(-0.6, 0.6, 8)]
+    frames = []
+    for t_wc, rgb, depth, inst in views:
+        masks, caps, capfts, clipfts = [], [], [], []
+        for oid, (capft, clipft, cap) in feats.items():
+            m = inst == oid
+            if m.sum() < 30:
+                continue
+            masks.append(m)
+            caps.append(cap)
+            capfts.append(capft + rng.normal(size=384) * 0.01)
+            clipfts.append(clipft + rng.normal(size=512) * 0.01)
+        frames.append(pipeline.FrameInput(masks=masks, captions=caps, capfeats=capfts,
+                                          clipfeats=clipfts, depth=depth, rgb=rgb, t_wc=t_wc))
+    acfg = pipeline.AssociationConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                                      min_component_px=20, dbscan_min_points=10,
+                                      dbscan_eps=0.2)
+    assoc, assoc_s, gap = associate_twice(frames, {"wall": feats[0][0][None]}, acfg, device,
+                                          "synthetic")
+
+    # ---- stage 2: incremental mapping on the associated instances ----
     tcfg = trainer.TrainConfig(
         n_iters_per_frame=25, win_size=2, n_samples_per_frame=24,
         win_size_bg=2, n_samples_per_frame_bg=64, hidden=32, hidden_bg=64, clip_size=16)
     mapper = SceneMapper(cam, tcfg, frame_capacity=16, initial_bucket=4, device=device)
-    torch.cuda.synchronize()
-    ff.reset_counts()
-    for a in np.linspace(-0.6, 0.6, 8):
-        t_wc = synthetic.orbit_pose(a)
-        rgb, depth, inst = scene.render(t_wc, dirs)
-        losses = mapper.process_frame(rgb, depth, inst, t_wc)
+    for (t_wc, rgb, depth, _), inst_img in zip(views, assoc["inst_images"]):
+        inst_m = np.where(inst_img == 1, 0, inst_img)
+        inst_m = np.where(inst_img == 0, -1, inst_m)
+        losses = mapper.process_frame(rgb, depth, inst_m.astype(np.int32), t_wc)
     mapper.finish()
     losses = losses.cpu().numpy()
 
@@ -806,7 +913,8 @@ def run_synthetic_scene(device) -> dict:
     res = {"objects": mapper.n_objects, "loss_first": float(losses[0]),
            "loss_last": float(losses[-1]), "pixels": int(hit.sum()), "psnr": psnr,
            "depth_mae": derr, "iou": iou, "meshes": n_meshes, "counts": counts,
-           "by_shape": by_shape, "seconds": time.perf_counter() - t0}
+           "by_shape": by_shape, "assoc_ms_per_frame": 1e3 * assoc_s, "cut_gap": gap,
+           "final_ids": assoc["final_ids"], "seconds": time.perf_counter() - t0}
     log(f"[synthetic] {res['objects']} objects + bg; last frame loss {res['loss_first']:.3f} "
         f"-> {res['loss_last']:.3f}; held-out object-pixel PSNR {psnr:.2f} dB, depth MAE "
         f"{derr:.4f} m, silhouette IoU {iou:.3f} over {res['pixels']} pixels; {n_meshes} "
@@ -828,6 +936,153 @@ def run_synthetic_scene(device) -> dict:
         f"{ff.kernel_names(tcfg.hidden_bg)['fused_field_bwd']}: "
         f"{sum(v for key, v in by_shape.items() if key[3] == tcfg.hidden_bg)}")
     return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 4d: room_0 from disk
+# --------------------------------------------------------------------------- #
+
+# room_0's camera (configs/replica/room_0.json) and the cut of the sequence
+ROOM0_CAM = dict(width=1200, height=680, fx=600.0, fy=600.0, cx=599.5, cy=339.5)
+RAW_FRAMES, ASSOC_STRIDE = 30, 10
+
+
+def run_room0_from_disk(device) -> dict:
+    """A raw Replica-layout sequence on disk (synthetic archetype
+    ``tabletop``: a table and three objects in a room, at room_0's camera),
+    associated on the card into the artifacts the loader reads, then
+    ``train.main`` on a copy of configs/replica/room_0.json whose only
+    change is ``dataset.path``, in process, with the counts reset just
+    before it and read just after. The temporary tree is removed
+    afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+    from openobj_torch import config as oconfig
+    from openobj_torch import eval as oeval
+    from openobj_torch import train
+    from openobj_torch.core.scene import Camera
+    from openobj_torch.data import loaders, synthetic
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.perception import merge, pipeline
+    from openobj_torch.utils.png import read_png
+
+    t_all = time.perf_counter()
+    cam = Camera(**ROOM0_CAM)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="room0_disk_", dir=os.path.join(ROOT, "build"))
+    try:
+        root = os.path.join(tmp, "scene")
+        scene, orbit = synthetic.archetype_scene("tabletop")
+        t0 = time.perf_counter()
+        gt_maps = synthetic.write_raw_scene(root, scene, cam.ray_dirs("cpu").numpy(),
+                                            n_frames=RAW_FRAMES, orbit_kwargs=orbit,
+                                            assoc_stride=ASSOC_STRIDE)
+        write_s = time.perf_counter() - t0
+
+        # ---- association on the card, from the raw frames on disk ----
+        rng = np.random.default_rng(0)
+        ids = sorted({int(i) for g in gt_maps for i in np.unique(g)})
+        feats = {i: (_unit(rng.normal(size=384)), _unit(rng.normal(size=512)),
+                     "a wall" if i == 0 else f"object {i}") for i in ids}
+        poses = np.loadtxt(os.path.join(root, "traj_w_c.txt")).reshape(-1, 4, 4)
+        frames = []
+        for k, gt in enumerate(gt_maps):
+            i = k * ASSOC_STRIDE
+            masks, caps, capfts, clipfts = [], [], [], []
+            for oid in ids:     # the room is the wall
+                m = gt == oid
+                if m.sum() < 100:
+                    continue
+                masks.append(m)
+                caps.append(feats[oid][2])
+                capfts.append(feats[oid][0] + rng.normal(size=384) * 0.01)
+                clipfts.append(feats[oid][1] + rng.normal(size=512) * 0.01)
+            frames.append(pipeline.FrameInput(
+                masks=masks, captions=caps, capfeats=capfts, clipfeats=clipfts,
+                depth=read_png(os.path.join(root, "depth", f"depth_{i}.png")).astype(
+                    np.float32) * 1e-3,
+                rgb=read_png(os.path.join(root, "rgb", f"rgb_{i}.png")), t_wc=poses[i]))
+        acfg = pipeline.AssociationConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
+        assoc, assoc_s, gap = associate_twice(frames, {"wall": feats[0][0][None]}, acfg,
+                                              device, "room_0 disk")
+        merge.write_artifacts(root, assoc["masks"], assoc["final_ids"], assoc["clipfeats"],
+                              assoc["capfeats"], assoc["captions"], (cam.height, cam.width),
+                              inst_images=assoc["inst_images"])
+        written = [read_png(os.path.join(root, "instance_our", f"semantic_instance_{k}.png"))
+                   for k in range(len(gt_maps))]
+        score = oeval.matched_instance_miou([w.astype(np.int32) for w in written], gt_maps)
+
+        # ---- the training command line on room_0.json, path changed ----
+        with open(os.path.join(ROOT, "configs", "replica", "room_0.json")) as f:
+            cfg = json.load(f)
+        cfg["dataset"]["path"] = root
+        cfg_path = os.path.join(tmp, "room_0.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f, indent=1)
+        scfg = oconfig.load_scene_config(cfg_path)
+        part = (cam.height // scfg.train.part_down, cam.width // scfg.train.part_down,
+                scfg.train.clip_size)
+        os.makedirs(os.path.join(root, "partlevel"), exist_ok=True)
+        prng = np.random.default_rng(1)
+        for i in range(0, RAW_FRAMES, scfg.stride):        # the frames that are read
+            np.save(os.path.join(root, "partlevel", f"{i}.npy"),
+                    prng.normal(size=part).astype(np.float32))
+        dataset = loaders.make_dataset(scfg)
+        load_ms, want_ckpts = [], {"0"}     # the background and every object loaded
+        for i in range(len(dataset)):
+            t0 = time.perf_counter()
+            sample = dataset[i]
+            load_ms.append(1e3 * (time.perf_counter() - t0))
+            want_ckpts |= {str(k) for k in sample.bboxes}
+
+        logdir = os.path.join(tmp, "logs")
+        torch.cuda.synchronize()
+        ff.reset_counts()
+        t0 = time.perf_counter()
+        mapper = train.main(["--config", cfg_path, "--logdir", logdir])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = dict(ff.COUNTS)
+        by_shape = dict(ff.COUNTS_BY_SHAPE)
+        ckpts = set(os.listdir(os.path.join(logdir, "ckpt")))
+        with open(os.path.join(logdir, "timing.json")) as f:
+            timing = json.load(f)
+        trained = [timing[f"frame {i}"] for i in range(1, len(dataset))]
+        losses = mapper.loss_history
+        res = {"objects": mapper.n_objects, "ckpts": sorted(ckpts, key=int),
+               "counts": counts, "by_shape": by_shape, "assoc_ms_per_frame": 1e3 * assoc_s,
+               "load_ms_per_frame": float(np.mean(load_ms)),
+               "train_ms_per_frame": float(np.mean(trained)), "losses": losses,
+               "inst_miou": score["inst_miou"], "bg_iou": score["bg_iou"], "cut_gap": gap,
+               "write_s": write_s, "train_s": train_s}
+        log(f"[room_0 disk] {RAW_FRAMES} raw frames at {cam.height}x{cam.width} written in "
+            f"{write_s:.1f} s; matched instance mIoU of the written maps against the ground "
+            f"truth {score['inst_miou']:.4f} (background IoU {score['bg_iou']:.4f}; "
+            f"{score['matches']}); ms per loaded frame {res['load_ms_per_frame']:.1f} "
+            f"({[round(x, 1) for x in load_ms]}); train.main {train_s:.1f} s, ms per trained "
+            f"frame (frames 2-{len(dataset)}, timing.json) {res['train_ms_per_frame']:.1f} "
+            f"({trained}); {mapper.n_objects} objects + bg, checkpoints {res['ckpts']}; "
+            f"last-step losses {[round(x, 4) for x in losses]}; counts {counts}")
+        if not ckpts >= want_ckpts or mapper.n_objects < 1:
+            raise AssertionError(f"checkpoints {sorted(ckpts)}, expected {sorted(want_ckpts)}")
+        for name in ("scene_state.npz", "timing.json"):
+            if not os.path.exists(os.path.join(logdir, name)):
+                raise AssertionError(f"train.main wrote no {name}")
+        if len(losses) != len(dataset) or not np.isfinite(losses).all():
+            raise AssertionError(f"losses {losses} over {len(dataset)} frames")
+        steps = 2 * scfg.train.n_iters_per_frame * len(dataset)   # fg + bg per step
+        for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce"):
+            if counts[k] != steps:
+                raise AssertionError(f"{k} launched {counts[k]} times, expected {steps}")
+        if counts["field_eager"] or counts["fused_field_plain"]:
+            raise AssertionError(f"room_0 from disk left the kernels: {counts}")
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"[room_0 disk] phase 4d took {time.perf_counter() - t_all:.1f} s "
+            "(temporary tree removed)")
 
 
 # --------------------------------------------------------------------------- #
@@ -920,6 +1175,7 @@ def main(argv=None) -> int:
                     help="after the main path, profile one more frame")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -955,6 +1211,7 @@ def main(argv=None) -> int:
     del mapper, frames
     torch.cuda.empty_cache()
     syn = run_synthetic_scene(device)
+    disk = run_room0_from_disk(device)
     # the synthetic scene's trained shapes at widths other than the main
     # path's (its bg field, h=64)
     other = sorted({(o, n, h) for (k, o, n, h) in syn["by_shape"]
@@ -970,7 +1227,7 @@ def main(argv=None) -> int:
     }
     # launches as counted in each run, by (count, O, N, h)
     paths = {"room_0 training": by_shape_main, "room_0 outputs": by_shape_out,
-             "synthetic scene": syn["by_shape"]}
+             "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"]}
 
     def launches_at(name, dims):
         return sum(bs.get((name, *dims), 0) for bs in paths.values())
@@ -1010,6 +1267,7 @@ def main(argv=None) -> int:
                               for p, bs in paths.items()},
         })
     rows += probe_rows
+    log(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,25 @@
-"""A run's outputs: per-object checkpoints, whole-dataset renders, meshes.
+"""Training entry point: config-driven incremental multi-object mapping.
 
-Port of the output functions of the JAX package's ``train``:
+Port of ``openobj_tpu.train``:
+
+    python -m openobj_torch.train --config configs/replica/room_0.json \
+        --logdir logs/room_0 [--class-features class_feats.npz] [--device cpu]
+
+Per frame: the loader's sample (numpy) goes to ``SceneMapper.process_frame``
+on the mapper's device (the card unless ``--device`` says otherwise), which
+trains it through K1/K2/K2r. At the end: open-vocabulary semantic
+assignment, per-object checkpoints + camera pose, the resumable scene
+snapshot, and, as the config's ``vis`` block gates them, whole-dataset
+rendering (``if_render``) and meshing (``if_obj``); ``timing.json`` holds
+the mean time per frame (on the card each frame's span waits for the
+frame's device work; the JAX package's does not wait).
+
+The command line is the JAX package's but for two flags that only make
+sense there: ``--prng`` (the JAX PRNG implementation) and
+``--compilation-cache`` (XLA's persistent cache; the port compiles its
+kernels once per checkout into ``build/kernels/``). ``--device`` is added.
+
+The run's outputs:
 
   * ``save_checkpoints``: one ``obj_<id>.npz`` per object (and the
     background model) under ``<log_dir>/ckpt/<id>/``, each object's
@@ -13,17 +32,61 @@ Port of the output functions of the JAX package's ``train``:
     points as a PLY) under ``<log_dir>/scene_mesh/``.
 
 The field evaluations run on the mapper's device, through K1 on the card.
-The training entry point (``main`` and its command line) is not ported yet:
-it waits for the dataset loaders.
+Class-name CLIP/SBERT features come from a precomputed .npz (names,
+clipfeat [C, 512], capfeat [C, 384]).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import shutil
 
 import numpy as np
 import torch
+
+
+def load_class_features(path: str | None):
+    if path is None:
+        return None
+    z = np.load(path, allow_pickle=True)
+    return {
+        "names": list(z["names"]),
+        "clipfeat": z["clipfeat"].astype(np.float32),
+        "capfeat": z["capfeat"].astype(np.float32),
+    }
+
+
+def assign_all_semantics(mapper, class_feats):
+    """Reference train.py:497-526: reserved ids 0/2/3 -> wall/floor/ceiling
+    class indices; others via DBSCAN-majority features + caption-confident
+    argmax."""
+    from openobj_torch.viz.query import assign_semantics
+
+    names = class_feats["names"]
+    mapping = {}
+    reserved = {0: "wall", 2: "floor", 3: "ceiling"}
+    for inst_id, cname in reserved.items():
+        if cname in names:
+            mapping[inst_id] = names.index(cname)
+    for inst_id, slot in mapper.registry.inst_to_slot.items():
+        if inst_id in mapping:
+            mapper.registry.slots[slot].semantic_id = mapping[inst_id]
+            continue
+        st = mapper.registry.slots[slot]
+        if not st.clip_feats:
+            continue
+        cid = assign_semantics(
+            np.stack(st.clip_feats), np.stack(st.caption_feats),
+            class_feats["clipfeat"], class_feats["capfeat"],
+        )
+        mapping[inst_id] = cid
+        st.semantic_id = cid
+    if mapper.registry.bg is not None and "wall" in names:
+        mapper.registry.bg.semantic_id = names.index("wall")
+        mapping[0] = names.index("wall")
+    return mapping
 
 
 def _keyframe_bound(mapper, kfs, inst_id: int):
@@ -249,3 +312,143 @@ def export_meshes(mapper, log_dir: str, grid_dim: int, live_voxel_size: float,
                 ).export_ply(os.path.join(mesh_dir, f"obj{inst_id}_pcd.ply"))
         n += 1
     return n
+
+
+def main(argv=None):
+    """The training command line; returns the trained ``SceneMapper``."""
+    parser = argparse.ArgumentParser(description="openobj_torch training")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--logdir", default="./logs/debug")
+    parser.add_argument("--class-features", default=None,
+                        help=".npz with names/clipfeat/capfeat")
+    parser.add_argument("--max-frames", type=int, default=None)
+    parser.add_argument("--frame-capacity", type=int, default=256,
+                        help="device frame-store slots; sequences longer "
+                             "than this train in constant memory via "
+                             "keyframe-ring eviction (SceneMapper)")
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="log per-frame scalars via tensorboardX")
+    parser.add_argument("--ckpt-every", type=int, default=None,
+                        help="also checkpoint every N frames (the reference's "
+                             "n_vis_iter cadence; default: end of run only)")
+    parser.add_argument("--render-two-pass", action="store_true",
+                        help="empty-space-skipping render (probe pass + "
+                             "tightened refine pass)")
+    parser.add_argument("--render-refine-bins", type=int, default=None,
+                        help="bin count for the two-pass refine pass "
+                             "(default: max(render n_bins // 2, 48)); only "
+                             "used with --render-two-pass")
+    parser.add_argument("--render-adaptive-bins", action="store_true",
+                        help="per-object render bin counts (density anchored "
+                             "at the largest object, bucketed static sizes); "
+                             "composes with --render-two-pass")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from <logdir>/scene_state.npz (full "
+                             "training state incl. optimizer); already-seen "
+                             "frames are re-ingested into the frame store "
+                             "without re-training")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the mapper (default cuda: the "
+                             "card; cpu runs the plain versions of the kernels)")
+    args = parser.parse_args(argv)
+
+    from openobj_torch.config import load_scene_config, make_mapper
+    from openobj_torch.core.checkpoint import load_scene, save_scene
+    from openobj_torch.core.frame_store import append_frame
+    from openobj_torch.data.loaders import init_loader, make_dataset
+    from openobj_torch.utils.profiling import performance_measure, reset_stats, stats
+
+    reset_stats()  # timing.json covers THIS run only (the dict is thread-local)
+    os.makedirs(args.logdir, exist_ok=True)
+    shutil.copy(args.config, args.logdir)
+    cfg = load_scene_config(args.config)
+    dataset = make_dataset(cfg)
+    n_frames = len(dataset)
+    if args.max_frames:
+        n_frames = min(n_frames, args.max_frames)
+    mapper = make_mapper(cfg, frame_capacity=min(n_frames + 1, args.frame_capacity),
+                         device=args.device)
+    class_feats = load_class_features(args.class_features)
+
+    resume_from = 0
+    if args.resume:
+        load_scene(args.logdir, mapper)
+        resume_from = mapper.frame_count
+        print(f"resuming after frame {resume_from}")
+
+    tb = None
+    if args.tensorboard:
+        try:
+            from tensorboardX import SummaryWriter
+
+            tb = SummaryWriter(os.path.join(args.logdir, "tb"))
+        except Exception as e:  # pragma: no cover
+            print(f"tensorboard logging unavailable: {e}")
+
+    t_wc_last = np.eye(4)
+    for i, sample in enumerate(init_loader(dataset)):
+        if i >= n_frames:
+            break
+        if args.resume and i < resume_from:
+            # store-only re-ingest: keyframe tables index into the store by
+            # frame slot, so each frame lands in the SAME slot it had
+            # (frame_slots replays the eviction mapping); the registry and
+            # optimizer state came from the snapshot
+            at = mapper.frame_slots[i] if i < len(mapper.frame_slots) else None
+            mapper.store, _ = append_frame(
+                mapper.store, sample.rgb, sample.depth, sample.inst,
+                sample.t_wc, sample.part_feat, at=at,
+            )
+            t_wc_last = sample.t_wc
+            continue
+        # blocking on the card: the span holds this frame's device work
+        # rather than the wait for the frame before it
+        with performance_measure(f"frame {i}", verbose=False,
+                                 block=mapper.device.type == "cuda"):
+            losses = mapper.process_frame(
+                sample.rgb, sample.depth, sample.inst, sample.t_wc,
+                bboxes=sample.bboxes, partfeat=sample.part_feat,
+                obj_clip=sample.obj_clip, obj_cap=sample.obj_cap,
+            )
+        t_wc_last = sample.t_wc
+        if losses is not None and i % 10 == 0:
+            lv = losses.cpu().numpy()
+            print(f"frame {i}/{n_frames}: loss {lv[0]:.3f} -> "
+                  f"{lv[-1]:.3f}, objects {mapper.n_objects}")
+        if tb is not None and losses is not None:
+            tb.add_scalar("train/frame_loss", float(losses[-1]), i)
+            tb.add_scalar("train/n_objects", mapper.n_objects, i)
+        if args.ckpt_every and (i + 1) % args.ckpt_every == 0:
+            save_checkpoints(mapper, args.logdir, t_wc_last)
+    mapper.finish()   # drain the pipeline (validates the last frame)
+    save_scene(args.logdir, mapper)   # full resumable snapshot
+    if tb is not None:
+        tb.close()
+
+    mapping_class = {}
+    if class_feats is not None:
+        mapping_class = assign_all_semantics(mapper, class_feats)
+    save_checkpoints(mapper, args.logdir, t_wc_last)
+    vis = cfg.raw.get("vis", {})
+    if bool(vis.get("if_render", 0)):
+        render_dataset(mapper, dataset, args.logdir, mapping_class,
+                       bg_ids=cfg.bg_ids,
+                       two_pass=args.render_two_pass or bool(vis.get("two_pass", 0)),
+                       refine_bins=args.render_refine_bins,
+                       adaptive_bins=args.render_adaptive_bins)
+    # reference gate: meshing runs iff if_obj (train.py:617-652); save_mesh
+    # only selects the output kind inside the block (room_0 ships
+    # if_obj: 0, save_mesh: 1 and exports nothing)
+    if bool(vis.get("if_obj", 0)):
+        n = export_meshes(mapper, args.logdir, cfg.grid_dim,
+                          cfg.live_voxel_size, cfg.save_mesh, cfg.save_pcd)
+        print(f"exported {n} meshes")
+    summary = {k: round(v["mean_ms"], 1) for k, v in stats().items()}
+    with open(os.path.join(args.logdir, "timing.json"), "w") as f:
+        json.dump(summary, f)
+    print("done:", args.logdir)
+    return mapper
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing any of its modules (or
 chip_smoke.py, which drives it on the card) pulls in neither jax nor
-openobj_tpu, nor OpenCV, which the card's machine does not have."""
+openobj_tpu, nor OpenCV, scikit-learn or networkx, which the card's machine
+does not have. networkx may be imported only inside perception/graph.py's
+branch for the non-default Greedy/GNewman methods."""
 
 import ast
 import os
@@ -32,6 +34,8 @@ def test_import_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['openobj_tpu'] = None\n"
         "sys.modules['cv2'] = None\n"
+        "sys.modules['sklearn'] = None\n"
+        "sys.modules['networkx'] = None\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
@@ -46,9 +50,22 @@ def test_import_without_jax():
     assert out.stdout.startswith("ok")
 
 
+def _in_networkx_branch(node, parents) -> bool:
+    """Whether ``node`` lies inside an ``if`` whose test names both
+    non-default graph methods (perception/graph.py's Greedy/GNewman branch)."""
+    while node in parents:
+        node = parents[node]
+        if isinstance(node, ast.If):
+            test = ast.unparse(node.test)
+            if "'Greedy'" in test and "'GNewman'" in test:
+                return True
+    return False
+
+
 @pytest.mark.parametrize("name,path", list(_modules()), ids=lambda x: str(x))
 def test_no_forbidden_imports(name, path):
     tree = ast.parse(path.read_text(), filename=str(path))
+    parents = {c: p for p in ast.walk(tree) for c in ast.iter_child_nodes(p)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods = [a.name for a in node.names]
@@ -58,5 +75,8 @@ def test_no_forbidden_imports(name, path):
             continue
         for m in mods:
             top = m.split(".")[0]
-            assert top not in ("jax", "jaxlib", "openobj_tpu", "flax", "optax", "cv2"), (
-                f"{name} imports {m}")
+            assert top not in ("jax", "jaxlib", "openobj_tpu", "flax", "optax", "cv2",
+                               "sklearn"), f"{name} imports {m}"
+            if top == "networkx":
+                assert name == "openobj_torch.perception.graph" and \
+                    _in_networkx_branch(node, parents), f"{name} imports {m}"
