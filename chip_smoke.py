@@ -41,17 +41,32 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      gates; then K1/K2/K2r against their plain versions at the h=64 shapes
      that run launched;
   4d. room_0 from disk: a raw Replica-layout sequence (synthetic archetype
-     tabletop, 30 frames at room_0's camera, 680x1200) written with
-     data.synthetic.write_raw_scene; masks from its held-aside ground-truth
-     maps associated on the card (and on the CPU: equal) and written as the
-     loader's artifacts; random [136, 240, 512] part maps; then
-     train.main on configs/replica/room_0.json with only dataset.path
-     changed, in process, with the counts reset before and read after:
-     checkpoints for the background and every object, scene_state.npz and
-     timing.json, finite losses, K1/K2/K2r 200 times per trained frame and
-     nothing plain or eager; prints ms per association frame, per loaded
-     frame and per trained frame, and the matched instance mIoU of the
-     written maps against the ground truth;
+     tabletop, 30 frames at room_0's camera, 680x1200) written once with
+     data.synthetic.write_raw_scene (phases 4d and 4e read it); masks from
+     its held-aside ground-truth maps associated on the card (and on the
+     CPU: equal) and written as the loader's artifacts; random
+     [136, 240, 512] part maps; then train.main on
+     configs/replica/room_0.json with only dataset.path changed, in
+     process, with the counts reset before and read after: checkpoints for
+     the background and every object, scene_state.npz and timing.json,
+     finite losses, K1/K2/K2r 200 times per trained frame and nothing plain
+     or eager; prints ms per association frame, per loaded frame and per
+     trained frame, and the matched instance mIoU of the written maps
+     against the ground truth;
+  4e. room_0 auto perception: the same raw frames alone (a fresh root with
+     rgb/, depth/ and traj_w_c.txt) through
+     perception.auto.run_auto_perception on the card with room_0.json's
+     settings (part mode on; 15 keyframes at skip 2): weights-free
+     segmentation, captions and descriptors, association, part maps painted
+     on the card; gates: mask_init_all.pkl with every keyframe and its five
+     fields, instance_our/ and class_our/ per keyframe, object_*.pkl, a
+     float32 [136, 240, 512] part map for every trained frame, and frame
+     0's part map painted on the card equal to numpy's painting (and to the
+     written map) bit for bit; then train.main on those artifacts with 4d's
+     gates; prints ms per keyframe of maskgen, association (and its
+     similarity matrices) and partfeat (and its painting), the painting
+     alone, masks per keyframe, the matched instance mIoU at frames 0, 10,
+     20 against the ground truth, and 4d's training numbers;
   5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
      scripts/bench_ensemble_mm.py and scripts/bench_fused_step_probe.py):
      drives the two probe scripts' port (openobj_torch.scripts.*) with the
@@ -60,7 +75,7 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      plain version, beside the times the scripts took of kernel, plain
      version and library call, and the bound;
   6. prints one JSON line with every kernel's numbers (the fused field's
-     launches summed over the counted runs of phases 4, 4b, 4c and 4d, and by
+     launches summed over the counted runs of phases 4 to 4e, and by
      run and shape as counted), the card's nvidia-smi line, and last a
      JSON line {"ok": true, "device": ...}.
 
@@ -75,8 +90,10 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -555,7 +572,6 @@ def k1_shape_row(name, wflat, pts, h, launches) -> dict:
 def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
     """Phase 4b. Returns K1's rows for the render and mesh shapes, and the
     launches by shape that the outputs made."""
-    import shutil
     from types import SimpleNamespace
 
     import torch
@@ -817,8 +833,6 @@ def run_synthetic_scene(device) -> dict:
     the example does: the wall's reserved id 1 -> background 0, unlabelled
     -> -1), then stages 2-4 (training, a held-out render composited,
     meshes), on ``device``."""
-    import tempfile
-
     import torch
     from openobj_torch import eval as oeval
     from openobj_torch import train
@@ -947,142 +961,291 @@ ROOM0_CAM = dict(width=1200, height=680, fx=600.0, fy=600.0, cx=599.5, cy=339.5)
 RAW_FRAMES, ASSOC_STRIDE = 30, 10
 
 
-def run_room0_from_disk(device) -> dict:
-    """A raw Replica-layout sequence on disk (synthetic archetype
-    ``tabletop``: a table and three objects in a room, at room_0's camera),
-    associated on the card into the artifacts the loader reads, then
-    ``train.main`` on a copy of configs/replica/room_0.json whose only
-    change is ``dataset.path``, in process, with the counts reset just
-    before it and read just after. The temporary tree is removed
-    afterwards."""
-    import shutil
-    import tempfile
-
-    import torch
-    from openobj_torch import config as oconfig
-    from openobj_torch import eval as oeval
-    from openobj_torch import train
+def write_room0_raw(tmp) -> dict:
+    """The raw Replica-layout sequence that phases 4d and 4e read: the
+    synthetic archetype ``tabletop`` (a table and three objects in a room)
+    at room_0's camera, RAW_FRAMES frames written once, with the ground-truth
+    instance maps of every ASSOC_STRIDE-th frame held aside."""
     from openobj_torch.core.scene import Camera
-    from openobj_torch.data import loaders, synthetic
+    from openobj_torch.data import synthetic
+
+    cam = Camera(**ROOM0_CAM)
+    root = os.path.join(tmp, "scene")
+    scene, orbit = synthetic.archetype_scene("tabletop")
+    t0 = time.perf_counter()
+    gt_maps = synthetic.write_raw_scene(root, scene, cam.ray_dirs("cpu").numpy(),
+                                        n_frames=RAW_FRAMES, orbit_kwargs=orbit,
+                                        assoc_stride=ASSOC_STRIDE)
+    write_s = time.perf_counter() - t0
+    log(f"[room_0 raw] {RAW_FRAMES} raw frames at {cam.height}x{cam.width} written in "
+        f"{write_s:.1f} s (phases 4d and 4e read them)")
+    return {"root": root, "gt_maps": gt_maps, "cam": cam, "write_s": write_s}
+
+
+def room0_config(tmp, root):
+    """A copy of configs/replica/room_0.json whose only change is
+    ``dataset.path``: (its path, the loaded SceneConfig)."""
+    from openobj_torch import config as oconfig
+
+    with open(os.path.join(ROOT, "configs", "replica", "room_0.json")) as f:
+        cfg = json.load(f)
+    cfg["dataset"]["path"] = root
+    cfg_path = os.path.join(tmp, "room_0.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return cfg_path, oconfig.load_scene_config(cfg_path)
+
+
+def train_room0(scfg, cfg_path, logdir, tag) -> dict:
+    """``train.main`` on ``cfg_path``, in process, with the counts reset
+    just before it and read just after. Gates: checkpoints for the background
+    and every object loaded, scene_state.npz and timing.json, finite losses,
+    K1/K2/K2r 2 x n_iters launches per trained frame and nothing plain or
+    eager."""
+    import torch
+    from openobj_torch import train
+    from openobj_torch.data import loaders
     from openobj_torch.ops import fused_field as ff
+
+    dataset = loaders.make_dataset(scfg)
+    load_ms, want_ckpts = [], {"0"}     # the background and every object loaded
+    for i in range(len(dataset)):
+        t0 = time.perf_counter()
+        sample = dataset[i]
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+        want_ckpts |= {str(k) for k in sample.bboxes}
+
+    torch.cuda.synchronize()
+    ff.reset_counts()
+    t0 = time.perf_counter()
+    mapper = train.main(["--config", cfg_path, "--logdir", logdir])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(ff.COUNTS)
+    by_shape = dict(ff.COUNTS_BY_SHAPE)
+    ckpts = set(os.listdir(os.path.join(logdir, "ckpt")))
+    with open(os.path.join(logdir, "timing.json")) as f:
+        timing = json.load(f)
+    trained = [timing[f"frame {i}"] for i in range(1, len(dataset))]
+    losses = mapper.loss_history
+    res = {"objects": mapper.n_objects, "ckpts": sorted(ckpts, key=int), "counts": counts,
+           "by_shape": by_shape, "load_ms_per_frame": float(np.mean(load_ms)),
+           "train_ms_per_frame": float(np.mean(trained)), "losses": losses,
+           "train_s": train_s}
+    log(f"[{tag}] ms per loaded frame {res['load_ms_per_frame']:.1f} "
+        f"({[round(x, 1) for x in load_ms]}); train.main {train_s:.1f} s, ms per trained "
+        f"frame (frames 2-{len(dataset)}, timing.json) {res['train_ms_per_frame']:.1f} "
+        f"({trained}); {mapper.n_objects} objects + bg, checkpoints {res['ckpts']}; "
+        f"last-step losses {[round(x, 4) for x in losses]}; counts {counts}")
+    if not ckpts >= want_ckpts or mapper.n_objects < 1:
+        raise AssertionError(f"[{tag}] checkpoints {sorted(ckpts)}, expected {sorted(want_ckpts)}")
+    for name in ("scene_state.npz", "timing.json"):
+        if not os.path.exists(os.path.join(logdir, name)):
+            raise AssertionError(f"[{tag}] train.main wrote no {name}")
+    if len(losses) != len(dataset) or not np.isfinite(losses).all():
+        raise AssertionError(f"[{tag}] losses {losses} over {len(dataset)} frames")
+    steps = 2 * scfg.train.n_iters_per_frame * len(dataset)   # fg + bg per step
+    for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce"):
+        if counts[k] != steps:
+            raise AssertionError(f"[{tag}] {k} launched {counts[k]} times, expected {steps}")
+    if counts["field_eager"] or counts["fused_field_plain"]:
+        raise AssertionError(f"[{tag}] training left the kernels: {counts}")
+    return res
+
+
+def written_miou(root, keyframes, gt_maps) -> dict:
+    """Matched instance mIoU of the written instance maps at ``keyframes``
+    against the ground truth held aside for them."""
+    from openobj_torch import eval as oeval
+    from openobj_torch.utils.png import read_png
+
+    written = [read_png(os.path.join(root, "instance_our", f"semantic_instance_{k}.png"))
+               .astype(np.int32) for k in keyframes]
+    return oeval.matched_instance_miou(written, gt_maps)
+
+
+def run_room0_from_disk(device, raw) -> dict:
+    """Phase 4d: the raw sequence's ground-truth masks with seeded features,
+    associated on the card into the artifacts the loader reads, random part
+    maps, then ``train.main`` on room_0.json with only ``dataset.path``
+    changed."""
     from openobj_torch.perception import merge, pipeline
     from openobj_torch.utils.png import read_png
 
+    root, gt_maps, cam = raw["root"], raw["gt_maps"], raw["cam"]
     t_all = time.perf_counter()
-    cam = Camera(**ROOM0_CAM)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="room0_disk_", dir=os.path.join(ROOT, "build"))
-    try:
-        root = os.path.join(tmp, "scene")
-        scene, orbit = synthetic.archetype_scene("tabletop")
-        t0 = time.perf_counter()
-        gt_maps = synthetic.write_raw_scene(root, scene, cam.ray_dirs("cpu").numpy(),
-                                            n_frames=RAW_FRAMES, orbit_kwargs=orbit,
-                                            assoc_stride=ASSOC_STRIDE)
-        write_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="room0_disk_", dir=os.path.dirname(root))
 
-        # ---- association on the card, from the raw frames on disk ----
-        rng = np.random.default_rng(0)
-        ids = sorted({int(i) for g in gt_maps for i in np.unique(g)})
-        feats = {i: (_unit(rng.normal(size=384)), _unit(rng.normal(size=512)),
-                     "a wall" if i == 0 else f"object {i}") for i in ids}
-        poses = np.loadtxt(os.path.join(root, "traj_w_c.txt")).reshape(-1, 4, 4)
-        frames = []
-        for k, gt in enumerate(gt_maps):
-            i = k * ASSOC_STRIDE
-            masks, caps, capfts, clipfts = [], [], [], []
-            for oid in ids:     # the room is the wall
-                m = gt == oid
-                if m.sum() < 100:
-                    continue
-                masks.append(m)
-                caps.append(feats[oid][2])
-                capfts.append(feats[oid][0] + rng.normal(size=384) * 0.01)
-                clipfts.append(feats[oid][1] + rng.normal(size=512) * 0.01)
-            frames.append(pipeline.FrameInput(
-                masks=masks, captions=caps, capfeats=capfts, clipfeats=clipfts,
-                depth=read_png(os.path.join(root, "depth", f"depth_{i}.png")).astype(
-                    np.float32) * 1e-3,
-                rgb=read_png(os.path.join(root, "rgb", f"rgb_{i}.png")), t_wc=poses[i]))
-        acfg = pipeline.AssociationConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
-        assoc, assoc_s, gap = associate_twice(frames, {"wall": feats[0][0][None]}, acfg,
-                                              device, "room_0 disk")
-        merge.write_artifacts(root, assoc["masks"], assoc["final_ids"], assoc["clipfeats"],
-                              assoc["capfeats"], assoc["captions"], (cam.height, cam.width),
-                              inst_images=assoc["inst_images"])
-        written = [read_png(os.path.join(root, "instance_our", f"semantic_instance_{k}.png"))
-                   for k in range(len(gt_maps))]
-        score = oeval.matched_instance_miou([w.astype(np.int32) for w in written], gt_maps)
+    # ---- association on the card, from the raw frames on disk ----
+    rng = np.random.default_rng(0)
+    ids = sorted({int(i) for g in gt_maps for i in np.unique(g)})
+    feats = {i: (_unit(rng.normal(size=384)), _unit(rng.normal(size=512)),
+                 "a wall" if i == 0 else f"object {i}") for i in ids}
+    poses = np.loadtxt(os.path.join(root, "traj_w_c.txt")).reshape(-1, 4, 4)
+    frames = []
+    for k, gt in enumerate(gt_maps):
+        i = k * ASSOC_STRIDE
+        masks, caps, capfts, clipfts = [], [], [], []
+        for oid in ids:     # the room is the wall
+            m = gt == oid
+            if m.sum() < 100:
+                continue
+            masks.append(m)
+            caps.append(feats[oid][2])
+            capfts.append(feats[oid][0] + rng.normal(size=384) * 0.01)
+            clipfts.append(feats[oid][1] + rng.normal(size=512) * 0.01)
+        frames.append(pipeline.FrameInput(
+            masks=masks, captions=caps, capfeats=capfts, clipfeats=clipfts,
+            depth=read_png(os.path.join(root, "depth", f"depth_{i}.png")).astype(
+                np.float32) * 1e-3,
+            rgb=read_png(os.path.join(root, "rgb", f"rgb_{i}.png")), t_wc=poses[i]))
+    acfg = pipeline.AssociationConfig(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy)
+    assoc, assoc_s, gap = associate_twice(frames, {"wall": feats[0][0][None]}, acfg,
+                                          device, "room_0 disk")
+    merge.write_artifacts(root, assoc["masks"], assoc["final_ids"], assoc["clipfeats"],
+                          assoc["capfeats"], assoc["captions"], (cam.height, cam.width),
+                          inst_images=assoc["inst_images"])
+    score = written_miou(root, range(len(gt_maps)), gt_maps)
 
-        # ---- the training command line on room_0.json, path changed ----
-        with open(os.path.join(ROOT, "configs", "replica", "room_0.json")) as f:
-            cfg = json.load(f)
-        cfg["dataset"]["path"] = root
-        cfg_path = os.path.join(tmp, "room_0.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f, indent=1)
-        scfg = oconfig.load_scene_config(cfg_path)
-        part = (cam.height // scfg.train.part_down, cam.width // scfg.train.part_down,
-                scfg.train.clip_size)
-        os.makedirs(os.path.join(root, "partlevel"), exist_ok=True)
-        prng = np.random.default_rng(1)
-        for i in range(0, RAW_FRAMES, scfg.stride):        # the frames that are read
-            np.save(os.path.join(root, "partlevel", f"{i}.npy"),
-                    prng.normal(size=part).astype(np.float32))
-        dataset = loaders.make_dataset(scfg)
-        load_ms, want_ckpts = [], {"0"}     # the background and every object loaded
-        for i in range(len(dataset)):
-            t0 = time.perf_counter()
-            sample = dataset[i]
-            load_ms.append(1e3 * (time.perf_counter() - t0))
-            want_ckpts |= {str(k) for k in sample.bboxes}
+    # ---- the training command line on room_0.json, path changed ----
+    cfg_path, scfg = room0_config(tmp, root)
+    part = (cam.height // scfg.train.part_down, cam.width // scfg.train.part_down,
+            scfg.train.clip_size)
+    os.makedirs(os.path.join(root, "partlevel"), exist_ok=True)
+    prng = np.random.default_rng(1)
+    for i in range(0, RAW_FRAMES, scfg.stride):        # the frames that are read
+        np.save(os.path.join(root, "partlevel", f"{i}.npy"),
+                prng.normal(size=part).astype(np.float32))
+    log(f"[room_0 disk] matched instance mIoU of the written maps against the ground "
+        f"truth {score['inst_miou']:.4f} (background IoU {score['bg_iou']:.4f}; "
+        f"{score['matches']})")
+    res = train_room0(scfg, cfg_path, os.path.join(tmp, "logs"), "room_0 disk")
+    res.update({"assoc_ms_per_frame": 1e3 * assoc_s, "inst_miou": score["inst_miou"],
+                "bg_iou": score["bg_iou"], "cut_gap": gap})
+    log(f"[room_0 disk] phase 4d took {time.perf_counter() - t_all:.1f} s")
+    return res
 
-        logdir = os.path.join(tmp, "logs")
+
+def run_room0_auto(device, raw) -> dict:
+    """Phase 4e: the raw sequence alone (a fresh root holding only rgb/,
+    depth/ and traj_w_c.txt) through ``perception.auto.run_auto_perception``
+    on the card with room_0.json's settings (part mode on), then
+    ``train.main`` on the artifacts it wrote, with no ground truth. Gates:
+    the artifact contract, one frame's part map painted on the card equal
+    to its numpy painting bit for bit, and ``train_room0``'s."""
+    import pickle
+
+    import torch
+    from openobj_torch.perception import auto, cli, partfeat
+    from openobj_torch.perception import encoders as enc
+    from openobj_torch.perception.segmentation import GraphSegmenter
+    from openobj_torch.utils import profiling
+
+    t_all = time.perf_counter()
+    cam = raw["cam"]
+    tmp = tempfile.mkdtemp(prefix="room0_auto_", dir=os.path.dirname(raw["root"]))
+    root = os.path.join(tmp, "scene")
+    for d in ("rgb", "depth"):
+        shutil.copytree(os.path.join(raw["root"], d), os.path.join(root, d))
+    shutil.copy(os.path.join(raw["root"], "traj_w_c.txt"), root)
+    cfg_path, scfg = room0_config(tmp, root)
+    if not scfg.train.part_mode:
+        raise AssertionError("room_0.json has part mode off")
+
+    # ---- perception on the card, timed by the stages' own spans ----
+    warm_matrices(device)
+    profiling.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    auto.run_auto_perception(scfg, device=device)
+    torch.cuda.synchronize()
+    perception_s = time.perf_counter() - t0
+    spans = profiling.stats()
+
+    # ---- the artifact contract ----
+    skip = auto.keyframe_skip(RAW_FRAMES, scfg.stride)
+    keyframes = list(range(0, RAW_FRAMES, skip))
+    mask_init = enc.load_mask_init(os.path.join(root, "mask_init_all.pkl"))
+    fields = ("mask", "bbox", "caption", "capfeat", "clipfeat")
+    if sorted(mask_init) != keyframes or any(set(mask_init[k]) != set(fields)
+                                             for k in keyframes):
+        raise AssertionError(f"mask_init_all.pkl holds {sorted(mask_init)}, expected "
+                             f"{keyframes} with {fields}")
+    for k in range(len(keyframes)):
+        for d, name in (("instance_our", "semantic_instance"), ("class_our", "semantic_class")):
+            if not os.path.exists(os.path.join(root, d, f"{name}_{k}.png")):
+                raise AssertionError(f"no {d}/{name}_{k}.png")
+    for name in ("clipfeat", "capfeat", "caption"):
+        with open(os.path.join(root, f"object_{name}.pkl"), "rb") as f:
+            if len(pickle.load(f)) != len(keyframes):
+                raise AssertionError(f"object_{name}.pkl is not per keyframe")
+    part_shape = (cam.height // scfg.train.part_down, cam.width // scfg.train.part_down,
+                  scfg.train.clip_size)
+    trained_frames = list(range(0, RAW_FRAMES, scfg.stride))
+    for i in trained_frames:
+        pf = np.load(os.path.join(root, "partlevel", f"{i}.npy"), mmap_mode="r")
+        if pf.shape != part_shape or pf.dtype != np.float32:
+            raise AssertionError(f"partlevel/{i}.npy is {pf.dtype} {pf.shape}, "
+                                 f"expected float32 {part_shape}")
+
+    # ---- one frame's part map: on the card against numpy, and as written ----
+    knobs = auto.scaled_knobs(cam, scfg.max_depth)
+    segmenter = GraphSegmenter(k=1.0, min_size=max(8, knobs["seg_min"] // 2),
+                               stride=knobs["seg_stride"])     # partfeat's, as auto runs it
+    rgb, depth, _ = cli.RawFrames(root, depth_scale=scfg.depth_scale,
+                                  max_depth=scfg.max_depth)[0]
+    masks, feats, scores = cli.part_map_inputs(
+        rgb, depth, segmenter, enc.VisualDescriptorEncoder(dim=scfg.train.clip_size))
+    card = partfeat.build_part_feature_map(masks, feats, scores, scfg.train.part_down,
+                                           device=device)
+    plain = partfeat.build_part_feature_map_plain(masks, feats, scores, scfg.train.part_down)
+    written = np.load(os.path.join(root, "partlevel", "0.npy"))
+    if not (np.array_equal(card, plain) and np.array_equal(written, plain)):
+        raise AssertionError("the part map painted on the card differs from numpy's")
+    paint_ms = []
+    for _ in range(5):
         torch.cuda.synchronize()
-        ff.reset_counts()
         t0 = time.perf_counter()
-        mapper = train.main(["--config", cfg_path, "--logdir", logdir])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        counts = dict(ff.COUNTS)
-        by_shape = dict(ff.COUNTS_BY_SHAPE)
-        ckpts = set(os.listdir(os.path.join(logdir, "ckpt")))
-        with open(os.path.join(logdir, "timing.json")) as f:
-            timing = json.load(f)
-        trained = [timing[f"frame {i}"] for i in range(1, len(dataset))]
-        losses = mapper.loss_history
-        res = {"objects": mapper.n_objects, "ckpts": sorted(ckpts, key=int),
-               "counts": counts, "by_shape": by_shape, "assoc_ms_per_frame": 1e3 * assoc_s,
-               "load_ms_per_frame": float(np.mean(load_ms)),
-               "train_ms_per_frame": float(np.mean(trained)), "losses": losses,
-               "inst_miou": score["inst_miou"], "bg_iou": score["bg_iou"], "cut_gap": gap,
-               "write_s": write_s, "train_s": train_s}
-        log(f"[room_0 disk] {RAW_FRAMES} raw frames at {cam.height}x{cam.width} written in "
-            f"{write_s:.1f} s; matched instance mIoU of the written maps against the ground "
-            f"truth {score['inst_miou']:.4f} (background IoU {score['bg_iou']:.4f}; "
-            f"{score['matches']}); ms per loaded frame {res['load_ms_per_frame']:.1f} "
-            f"({[round(x, 1) for x in load_ms]}); train.main {train_s:.1f} s, ms per trained "
-            f"frame (frames 2-{len(dataset)}, timing.json) {res['train_ms_per_frame']:.1f} "
-            f"({trained}); {mapper.n_objects} objects + bg, checkpoints {res['ckpts']}; "
-            f"last-step losses {[round(x, 4) for x in losses]}; counts {counts}")
-        if not ckpts >= want_ckpts or mapper.n_objects < 1:
-            raise AssertionError(f"checkpoints {sorted(ckpts)}, expected {sorted(want_ckpts)}")
-        for name in ("scene_state.npz", "timing.json"):
-            if not os.path.exists(os.path.join(logdir, name)):
-                raise AssertionError(f"train.main wrote no {name}")
-        if len(losses) != len(dataset) or not np.isfinite(losses).all():
-            raise AssertionError(f"losses {losses} over {len(dataset)} frames")
-        steps = 2 * scfg.train.n_iters_per_frame * len(dataset)   # fg + bg per step
-        for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce"):
-            if counts[k] != steps:
-                raise AssertionError(f"{k} launched {counts[k]} times, expected {steps}")
-        if counts["field_eager"] or counts["fused_field_plain"]:
-            raise AssertionError(f"room_0 from disk left the kernels: {counts}")
-        return res
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        log(f"[room_0 disk] phase 4d took {time.perf_counter() - t_all:.1f} s "
-            "(temporary tree removed)")
+        partfeat.build_part_feature_map(masks, feats, scores, scfg.train.part_down,
+                                        device=device)
+        paint_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    partfeat.build_part_feature_map_plain(masks, feats, scores, scfg.train.part_down)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+
+    gt_keys = [k for k in keyframes if k % ASSOC_STRIDE == 0]
+    score = written_miou(root, [keyframes.index(k) for k in gt_keys], raw["gt_maps"])
+    n_masks = [len(mask_init[k]["mask"]) for k in keyframes]
+
+    def per_frame(name):
+        st = spans.get(name)
+        if st is None:
+            raise AssertionError(f"no '{name}' span: {sorted(spans)}")
+        return st["mean_ms"] * st["n"] / len(keyframes)
+
+    res = {"perception_s": perception_s, "keyframes": len(keyframes),
+           "maskgen_ms": per_frame("maskgen: frame"),
+           "assoc_ms": per_frame("associate: association"),
+           "sim_ms": per_frame("association: similarity matrices"),
+           "partfeat_ms": per_frame("partfeat: frame"),
+           "paint_run_ms": per_frame("partfeat: part map painting"),
+           "paint_ms": float(np.median(paint_ms)), "paint_plain_ms": plain_ms,
+           "masks_per_keyframe": float(np.mean(n_masks)), "part_masks_frame0": len(masks),
+           "inst_miou": score["inst_miou"], "bg_iou": score["bg_iou"]}
+    log(f"[room_0 auto] run_auto_perception {perception_s:.1f} s over {len(keyframes)} "
+        f"keyframes (skip {skip}); ms per keyframe: maskgen {res['maskgen_ms']:.1f}, "
+        f"association {res['assoc_ms']:.1f} (similarity matrices on the card "
+        f"{res['sim_ms']:.1f}), partfeat {res['partfeat_ms']:.1f} (painting on the card "
+        f"{res['paint_run_ms']:.1f}); masks per keyframe {res['masks_per_keyframe']:.2f} "
+        f"({n_masks}); frame 0's part map ({len(masks)} masks) painted on the card "
+        f"{res['paint_ms']:.2f} ms (median of 5, to numpy), numpy's loop {plain_ms:.2f} ms, "
+        f"equal bit for bit and to the written map; matched instance mIoU at frames "
+        f"{gt_keys} (keyframes {[keyframes.index(k) for k in gt_keys]}) against the ground "
+        f"truth {score['inst_miou']:.4f} (background IoU "
+        f"{score['bg_iou']:.4f}; {score['matches']})")
+    res.update(train_room0(scfg, cfg_path, os.path.join(tmp, "logs"), "room_0 auto"))
+    log(f"[room_0 auto] phase 4e took {time.perf_counter() - t_all:.1f} s")
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -1211,7 +1374,14 @@ def main(argv=None) -> int:
     del mapper, frames
     torch.cuda.empty_cache()
     syn = run_synthetic_scene(device)
-    disk = run_room0_from_disk(device)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    raw_dir = tempfile.mkdtemp(prefix="room0_raw_", dir=os.path.join(ROOT, "build"))
+    try:
+        raw = write_room0_raw(raw_dir)
+        disk = run_room0_from_disk(device, raw)
+        auto = run_room0_auto(device, raw)
+    finally:
+        shutil.rmtree(raw_dir, ignore_errors=True)
     # the synthetic scene's trained shapes at widths other than the main
     # path's (its bg field, h=64)
     other = sorted({(o, n, h) for (k, o, n, h) in syn["by_shape"]
@@ -1227,7 +1397,8 @@ def main(argv=None) -> int:
     }
     # launches as counted in each run, by (count, O, N, h)
     paths = {"room_0 training": by_shape_main, "room_0 outputs": by_shape_out,
-             "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"]}
+             "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"],
+             "room_0 auto perception": auto["by_shape"]}
 
     def launches_at(name, dims):
         return sum(bs.get((name, *dims), 0) for bs in paths.values())

@@ -9,7 +9,43 @@ version on the CPU. The design probes of the fused-step and part-term
 plans (``ops/probes.py``, ``csrc/probes.cu``) run as ``python -m
 openobj_torch.scripts.<name>`` on a CUDA device.
 
+The top-level API resolves lazily, as the JAX package's does:
+``openobj_torch.SceneMapper``, ``.Camera``, ``.TrainConfig``,
+``.load_scene_config``, ``.make_mapper``, ``.associate``,
+``.AssociationConfig``, ``.GraphSegmenter`` and ``.OnlineInstanceTracker``.
+
 This package imports neither ``jax`` nor ``openobj_tpu``.
 """
 
 __version__ = "0.1.0"
+
+from openobj_torch import ops  # noqa: F401
+
+_LAZY = {
+    "SceneMapper": ("openobj_torch.core.scene", "SceneMapper"),
+    "Camera": ("openobj_torch.core.scene", "Camera"),
+    "TrainConfig": ("openobj_torch.core.trainer", "TrainConfig"),
+    "load_scene_config": ("openobj_torch.config", "load_scene_config"),
+    "make_mapper": ("openobj_torch.config", "make_mapper"),
+    "GraphSegmenter": ("openobj_torch.perception.segmentation", "GraphSegmenter"),
+    "OnlineInstanceTracker": ("openobj_torch.perception.tracking", "OnlineInstanceTracker"),
+    "associate": ("openobj_torch.perception.pipeline", "associate"),
+    "AssociationConfig": ("openobj_torch.perception.pipeline", "AssociationConfig"),
+}
+# the JAX package's checkpoint interop (openobj_tpu.interop), not ported yet
+_NOT_PORTED = {"import_torch_checkpoint", "export_torch_checkpoint"}
+
+
+def __getattr__(name):
+    """Lazy top-level API: the names above without importing the whole
+    stack at package-import time."""
+    from importlib import import_module
+
+    if name in _LAZY:
+        mod, attr = _LAZY[name]
+        return getattr(import_module(mod), attr)
+    if name in _NOT_PORTED:
+        raise AttributeError(
+            f"openobj_torch.{name}: the checkpoint interop (openobj_tpu.interop) is "
+            "not ported yet; it is ROADMAP item A10b")
+    raise AttributeError(f"module 'openobj_torch' has no attribute {name!r}")

@@ -1,1 +1,3 @@
 """Host-side frame preprocessing."""
+
+from openobj_torch.data import synthetic, transforms  # noqa: F401

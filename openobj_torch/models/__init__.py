@@ -1,1 +1,3 @@
 """Per-object neural fields."""
+
+from openobj_torch.models import object_field  # noqa: F401

@@ -4,9 +4,10 @@ The port's counterpart of ``openobj_tpu.native``. ``geometry.cc`` and
 ``louvain.cc`` beside this file are copies of the JAX package's sources:
 
   * ``geometry.cc``: ``marching_tetrahedra`` (meshing), ``voxel_downsample``
-    (object bounds), and the largest-cluster DBSCAN denoise of the
+    (object bounds), the largest-cluster DBSCAN denoise of the
     association's mask point clouds (``dbscan_largest_raw``,
-    ``dbscan_largest_cluster``);
+    ``dbscan_largest_cluster``) and the segmenter's Felzenszwalb merge pass
+    (``felz_union_find``);
   * ``louvain.cc``: Louvain community detection over the association graph
     (``louvain_labels``).
 
@@ -16,8 +17,8 @@ the flags, so an edited source is rebuilt and a stale library is never
 loaded. Nothing is built at import. Where ``g++`` is missing or the build
 fails, the meshing and bounds entry points fall back to their numpy
 versions (``ops.marching``, ``utils.geometry``), as the reference does, and
-``load()`` returns None; the association's entry points (DBSCAN, Louvain)
-have no such fallback here and raise instead.
+``load()`` returns None; the perception's entry points (DBSCAN, Louvain, the
+union-find) have no such fallback here and raise instead.
 """
 
 from __future__ import annotations
@@ -93,6 +94,8 @@ def _declare_geometry(lib) -> None:
     for fn in (lib.grid_dbscan_largest, lib.voxel_flood_largest):
         fn.restype = c_i64
         fn.argtypes = [p_d, c_i64, c_d, c_i64, p_u8]
+    lib.felz_union_find.restype = ctypes.c_int
+    lib.felz_union_find.argtypes = [p_i64, p_i64, p_d, c_i64, c_i64, c_d, c_i64, p_i64]
 
 
 def _declare_louvain(lib) -> None:
@@ -114,7 +117,7 @@ def _require(lib, what: str):
     if lib is None:
         raise RuntimeError(
             f"native {what} library could not be built (g++ {' '.join(CXX_FLAGS)} "
-            f"into {BUILD_DIR}); the association has no fallback for it")
+            f"into {BUILD_DIR}); the perception stages have no fallback for it")
     return lib
 
 
@@ -171,6 +174,32 @@ def voxel_downsample(points: np.ndarray, voxel: float) -> np.ndarray:
     if n < 0:
         raise RuntimeError("voxel_downsample overflow")
     return out[:n].astype(points.dtype)
+
+
+def felz_union_find(edges_a: np.ndarray, edges_b: np.ndarray,
+                    weights: np.ndarray, n_px: int, k: float,
+                    min_size: int) -> np.ndarray:
+    """Felzenszwalb merge pass over edges pre-sorted by weight -> [n_px]
+    int64 root label per pixel (the MInt merge rule, then the min_size
+    cleanup). Raises when the library cannot be built: the segmenter's
+    Python loop (``perception.segmentation._union_find_python``) is kept
+    only as the plain version that tests hold this one against."""
+    lib = _require(load(), "geometry")
+    ea = np.ascontiguousarray(edges_a, np.int64)
+    eb = np.ascontiguousarray(edges_b, np.int64)
+    ws = np.ascontiguousarray(weights, np.float64)
+    if not len(ea) == len(eb) == len(ws):
+        raise ValueError(f"felz_union_find: {len(ea)}, {len(eb)}, {len(ws)} edge ends and weights")
+    if len(ea) and (min(ea.min(), eb.min()) < 0 or max(ea.max(), eb.max()) >= n_px):
+        raise ValueError(f"felz_union_find: an edge end outside [0, {n_px})")
+    labels = np.empty(n_px, np.int64)
+    r = lib.felz_union_find(
+        ea.ctypes.data_as(p_i64), eb.ctypes.data_as(p_i64), ws.ctypes.data_as(p_d),
+        len(ea), n_px, ctypes.c_double(k), min_size, labels.ctypes.data_as(p_i64),
+    )
+    if r != 0:
+        raise RuntimeError(f"felz_union_find returned {r}")
+    return labels
 
 
 def dbscan_largest_raw(points: np.ndarray, eps: float, min_points: int,

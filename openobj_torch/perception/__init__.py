@@ -1,9 +1,13 @@
-"""Cross-frame instance association: mask -> 3D evidence projection,
-multi-cue similarity graph (the matrices on a torch device), Louvain
-clustering, global merge, reprojection healing and artifact IO. The
-perception front end (segmentation, encoders, part-level features) is not
-ported yet."""
+"""Perception front end + cross-frame instance association: weights-free
+RGB-D segmentation (``segmentation``), pluggable encoders and captioners
+(``encoders``), per-frame mask generation (``mask_generation``), part-level
+feature maps painted on a torch device (``partfeat``), online tracking
+(``tracking``); mask -> 3D evidence projection, the multi-cue similarity
+graph (the matrices on a torch device), Louvain clustering, global merge,
+reprojection healing and artifact IO (``pipeline`` and the modules under
+it); the three perception CLIs (``cli``) and ``auto``, which runs them over
+a raw scene. ``class_features`` is not ported yet (ROADMAP A17b)."""
 
 from openobj_torch.perception import (  # noqa: F401
-    graph, healing, merge, pipeline, projection, similarity,
+    encoders, graph, merge, partfeat, pipeline, projection, similarity,
 )

@@ -15,7 +15,7 @@ with the reference's stage order (maskclustering/mask_graph.py:897-1280):
     -> instance/class PNGs + per-frame feature pickles.
 
 The perception MODELS (CropFormer/TAP/SAM/CLIP/SBERT) are pluggable
-encoders (``openobj_tpu.perception.encoders``; not ported yet); this
+encoders (``perception.encoders``, ``perception.mask_generation``); this
 pipeline consumes their outputs: precomputed artifacts (reference
 contract) or live encoder calls.
 """

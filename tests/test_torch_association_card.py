@@ -1,5 +1,6 @@
 """The association's similarity matrices and ``associate`` on the card
-against the same port on the CPU.
+against the same port on the CPU, and the part maps painted on the card
+against numpy's painting.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 neither jax nor openobj_tpu, so it runs where JAX is not installed:
@@ -7,7 +8,8 @@ neither jax nor openobj_tpu, so it runs where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_association_card.py
 
 Tolerances: the matrices within 1e-6 (FP32 on both; the card's sums may run
-in another order); hit boxes, final ids and instance images equal.
+in another order); hit boxes, final ids, instance images and part maps
+equal.
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ torch = pytest.importorskip("torch")
 
 from openobj_torch.core.scene import Camera  # noqa: E402
 from openobj_torch.data import synthetic  # noqa: E402
-from openobj_torch.perception import pipeline, similarity  # noqa: E402
+from openobj_torch.perception import partfeat, pipeline, similarity  # noqa: E402
 
 SIM_ATOL = 1e-6
 
@@ -102,3 +104,17 @@ def test_associate_on_the_card(name, cuda_device):
     assert got["final_ids"] == want["final_ids"]
     for a, b in zip(got["inst_images"], want["inst_images"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("down", [1, 5])
+def test_part_feature_map_on_the_card(down, cuda_device):
+    rng = np.random.default_rng(down)
+    h, w = 136, 241
+    masks = [rng.random((h, w)) < p for p in (0.6, 0.3, 0.1, 0.02)] + [np.zeros((h, w), bool)]
+    feats = [rng.normal(size=512).astype(np.float32) for _ in masks]
+    scores = list(rng.uniform(0.3, 1.0, len(masks)))
+    got = partfeat.build_part_feature_map(masks, feats, scores, down=down, device=cuda_device)
+    want = partfeat.build_part_feature_map_plain(masks, feats, scores, down=down)
+    assert got.dtype == np.float32 and got.shape == (h // down, w // down, 512)
+    np.testing.assert_array_equal(got, want)

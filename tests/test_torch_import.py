@@ -1,8 +1,11 @@
 """The PyTorch port stands alone: importing any of its modules (or
 chip_smoke.py, which drives it on the card) pulls in neither jax nor
-openobj_tpu, nor OpenCV, scikit-learn or networkx, which the card's machine
-does not have. networkx may be imported only inside perception/graph.py's
-branch for the non-default Greedy/GNewman methods."""
+openobj_tpu, nor OpenCV, scikit-learn, networkx, PyYAML, PIL or transformers,
+which the card's machine does not have. networkx may be imported only inside
+perception/graph.py's branch for the non-default Greedy/GNewman methods, and
+transformers only in the constructors of perception/encoders.py's
+transformers-based encoders. The package's lazy top-level names resolve to
+their modules' objects without jax."""
 
 import ast
 import os
@@ -36,6 +39,9 @@ def test_import_without_jax():
         "sys.modules['cv2'] = None\n"
         "sys.modules['sklearn'] = None\n"
         "sys.modules['networkx'] = None\n"
+        "sys.modules['yaml'] = None\n"
+        "sys.modules['PIL'] = None\n"
+        "sys.modules['transformers'] = None\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
@@ -62,6 +68,59 @@ def _in_networkx_branch(node, parents) -> bool:
     return False
 
 
+PERCEPTION = ("openobj_torch.perception", "openobj_torch.scripts.perception_matrix")
+
+
+def _in_hf_constructor(node, parents) -> bool:
+    """Whether ``node`` lies inside a ``__post_init__`` (the constructors of
+    perception/encoders.py's transformers-based encoders)."""
+    while node in parents:
+        node = parents[node]
+        if isinstance(node, ast.FunctionDef) and node.name == "__post_init__":
+            return True
+    return False
+
+
+LAZY = {
+    "SceneMapper": "openobj_torch.core.scene", "Camera": "openobj_torch.core.scene",
+    "TrainConfig": "openobj_torch.core.trainer", "load_scene_config": "openobj_torch.config",
+    "make_mapper": "openobj_torch.config", "associate": "openobj_torch.perception.pipeline",
+    "AssociationConfig": "openobj_torch.perception.pipeline",
+    "GraphSegmenter": "openobj_torch.perception.segmentation",
+    "OnlineInstanceTracker": "openobj_torch.perception.tracking",
+}
+
+
+def test_lazy_top_level_names_without_jax():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['openobj_tpu'] = None\n"
+        "import openobj_torch\n"
+        f"for name, mod in {LAZY!r}.items():\n"
+        "    assert getattr(openobj_torch, name) is getattr(importlib.import_module(mod), name)\n"
+        "for name in ('import_torch_checkpoint', 'export_torch_checkpoint'):\n"
+        "    try:\n"
+        "        getattr(openobj_torch, name)\n"
+        "    except AttributeError as e:\n"
+        "        assert 'A10b' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(name)\n"
+        "try:\n"
+        "    openobj_torch.no_such_name\n"
+        "except AttributeError:\n"
+        "    pass\n"
+        "import openobj_torch.core as c, openobj_torch.perception as p\n"
+        "assert c.scene and c.trainer and p.encoders and p.partfeat\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("name,path", list(_modules()), ids=lambda x: str(x))
 def test_no_forbidden_imports(name, path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -77,6 +136,13 @@ def test_no_forbidden_imports(name, path):
             top = m.split(".")[0]
             assert top not in ("jax", "jaxlib", "openobj_tpu", "flax", "optax", "cv2",
                                "sklearn"), f"{name} imports {m}"
+            # the perception modules use none of these, not even lazily (the
+            # import check above holds the rest of the package at import)
+            if name.startswith(PERCEPTION):
+                assert top not in ("yaml", "PIL"), f"{name} imports {m}"
+            if top == "transformers":
+                assert name == "openobj_torch.perception.encoders" and \
+                    _in_hf_constructor(node, parents), f"{name} imports {m}"
             if top == "networkx":
                 assert name == "openobj_torch.perception.graph" and \
                     _in_networkx_branch(node, parents), f"{name} imports {m}"

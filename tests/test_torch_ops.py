@@ -48,8 +48,14 @@ PE_ATOL = {"direct": 1e-6, "recurrence": 1e-5}
 @pytest.mark.parametrize("impl", ["recurrence", "direct"])
 def test_positional_encoding_matches_jax(impl):
     rng = np.random.default_rng(0)
-    x = (rng.normal(size=(256, 3)) * 0.8).astype(np.float32)
-    dirs = (jemb.ICOSPHERE_DIRS + 0.01 * rng.normal(size=(21, 3))).astype(np.float32)
+    # points on a 2^-8 grid and directions on a 2^-10 grid: every product
+    # t_i d_i and every partial sum of the projection is exact in float32,
+    # so the projection is the same bits however it is rounded (XLA's CPU
+    # dot contracts it to FMAs or not, in an order of its code generation's
+    # choosing, and the doublings amplify one ulp of it ~32x past PE_ATOL)
+    x = np.round(rng.normal(size=(256, 3)) * 0.8 * 256).astype(np.float32) / 256
+    dirs = np.round((jemb.ICOSPHERE_DIRS + 0.01 * rng.normal(size=(21, 3))) * 1024
+                    ).astype(np.float32) / 1024
     ct = rng.normal(size=(256, 129)).astype(np.float32)
 
     def jf(d):
