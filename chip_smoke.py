@@ -67,6 +67,25 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      similarity matrices) and partfeat (and its painting), the painting
      alone, masks per keyframe, the matched instance mIoU at frames 0, 10,
      20 against the ground truth, and 4d's training numbers;
+  4f. room_0 export and query, on 4e's checkpoint tree (background h=128,
+     objects h=32, 512-d clip head): perception.class_features.main on the
+     replica vocabulary (read back by train.load_class_features), the
+     replica class table written and read back by ClassColorMap.from_yaml
+     without PyYAML, interop.convert_checkpoint_dir (host work) to a
+     reference .pth tree and back (every param, box and feature
+     bit-identical); then, with the counts reset before and read after
+     each, viz.export._main on the .pth tree at grid 128 and
+     export_from_checkpoints on the npz tree: bundles equal bit for bit,
+     K1 carrying every field evaluation (as many launches
+     as the code implies, nothing else); one object's vertex part features
+     through K1 against the plain field on the card; viewer.main with
+     --query, --part-query, --class-colors replica and --ply-dir (the HTML
+     holds viewer_math's JS, a PLY per object); the query server on
+     127.0.0.1 (a free port): GET /, /objects and 18 /query requests equal
+     to the direct calls, object colourings equal to bake_object_query's;
+     prints ms per exported object by stage (utils.profiling spans), K1's
+     launches and shapes, the bundle's bytes, write and load times, ms per
+     converted checkpoint, the HTML's bytes and the median ms per HTTP query;
   5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
      scripts/bench_ensemble_mm.py and scripts/bench_fused_step_probe.py):
      drives the two probe scripts' port (openobj_torch.scripts.*) with the
@@ -75,7 +94,7 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      plain version, beside the times the scripts took of kernel, plain
      version and library call, and the bound;
   6. prints one JSON line with every kernel's numbers (the fused field's
-     launches summed over the counted runs of phases 4 to 4e, and by
+     launches summed over the counted runs of phases 4 to 4f, and by
      run and shape as counted), the card's nvidia-smi line, and last a
      JSON line {"ok": true, "device": ...}.
 
@@ -88,6 +107,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
+import importlib.util
 import json
 import os
 import shutil
@@ -1244,8 +1265,259 @@ def run_room0_auto(device, raw) -> dict:
         f"truth {score['inst_miou']:.4f} (background IoU "
         f"{score['bg_iou']:.4f}; {score['matches']})")
     res.update(train_room0(scfg, cfg_path, os.path.join(tmp, "logs"), "room_0 auto"))
+    res["logdir"] = os.path.join(tmp, "logs")
     log(f"[room_0 auto] phase 4e took {time.perf_counter() - t_all:.1f} s")
     return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 4f: room_0 export and query
+# --------------------------------------------------------------------------- #
+
+# the viewer's and the server's queries (object text, part text, top-k)
+QUERIES = (("a chair", None, None), ("a table", None, 1), ("a wall", None, 3),
+           ("a chair", "leg", None), ("a table", "top", 2), ("a cup", "handle", 1))
+# the server's queries are timed over this many rounds of QUERIES
+HTTP_ROUNDS = 3
+
+
+def run_room0_export(device, logdir) -> dict:
+    """Phase 4f: phase 4e's checkpoint tree (the background at h=128, the
+    objects at h=32, the 512-d clip head) through the map's consumers: the
+    class features and the class table (read back without PyYAML), the
+    interop to a reference .pth tree and back (bit-identical), the export of
+    the .pth tree by its CLI and of the npz tree (counted, equal bit for bit,
+    K1 only), one object's vertex part features through K1 against the plain
+    field, the viewer CLI, and the query server over HTTP on 127.0.0.1."""
+    import pickle
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    import torch
+    from openobj_torch import interop, train
+    from openobj_torch.core import checkpoint, meshing
+    from openobj_torch.models import object_field
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.perception import class_features
+    from openobj_torch.utils import profiling
+    from openobj_torch.viz import class_tables, colors, export, query, server, viewer
+    from openobj_torch.viz import viewer_math
+
+    t_all = time.perf_counter()
+    ckpt = os.path.join(logdir, "ckpt")
+    tmp = tempfile.mkdtemp(prefix="room0_export_", dir=os.path.dirname(logdir))
+    npz_paths = sorted(glob.glob(os.path.join(ckpt, "*", "obj_*.npz")))
+    rel = [os.path.relpath(p, ckpt) for p in npz_paths]
+
+    # ---- class features and the class table, without PyYAML ----
+    cf_path = os.path.join(tmp, "class_features.npz")
+    class_features.main(["--dataset", "replica", "--encoders", "fake", cf_path])
+    feats = train.load_class_features(cf_path)
+    names = class_tables.class_names("replica")
+    norms = np.linalg.norm(np.concatenate([feats["clipfeat"], feats["capfeat"]], 1), axis=1)
+    if (feats["names"] != names or feats["clipfeat"].shape != (len(names), 512)
+            or feats["capfeat"].shape != (len(names), 384)
+            or not np.allclose(norms, np.sqrt(2.0), atol=1e-5)):
+        raise AssertionError(f"class features: {len(feats['names'])} names, clip "
+                             f"{feats['clipfeat'].shape}, caption {feats['capfeat'].shape}")
+    yml = os.path.join(tmp, "replica_colors.yaml")
+    class_tables.write_yaml("replica", yml)
+    table = colors.ClassColorMap.from_yaml(yml)
+    want = class_tables.for_dataset("replica")
+    col_err = max(float(np.abs(table.colors[k] - want.colors[k]).max()) for k in want.colors)
+    if (table.mapping != want.mapping or table.names != want.names
+            or table.colors.keys() != want.colors.keys() or col_err > 5e-5 + 1e-12
+            or any(not np.array_equal(table.color_of(k), want.color_of(k)) for k in want.mapping)):
+        raise AssertionError("the replica class table read back differs from for_dataset's")
+    have_yaml = importlib.util.find_spec("yaml") is not None
+    log(f"[room_0 export] class features {feats['clipfeat'].shape} + "
+        f"{feats['capfeat'].shape} for {len(names)} replica names; class table "
+        f"{os.path.getsize(yml)} bytes read back by utils.yaml_subset (PyYAML installed "
+        f"here: {have_yaml}): mapping and names equal, colours within {col_err:.1e} (4 "
+        f"decimals written), uint8 colours equal")
+
+    # ---- the interop (host work): the npz tree to reference .pth files and back ----
+    pth, back = os.path.join(tmp, "pth"), os.path.join(tmp, "npz")
+    t0 = time.perf_counter()
+    to_pth = interop.convert_checkpoint_dir(ckpt, pth, reverse=True)
+    t1 = time.perf_counter()
+    to_npz = interop.convert_checkpoint_dir(pth, back)
+    t2 = time.perf_counter()
+    if sorted(os.path.relpath(p, back) for p in to_npz) != rel or len(to_pth) != len(rel):
+        raise AssertionError(f"the interop wrote {to_pth} and {to_npz} for {rel}")
+    for r in rel:
+        with np.load(os.path.join(ckpt, r)) as za, np.load(os.path.join(back, r)) as zb:
+            if sorted(za.files) != sorted(zb.files) or not all(
+                    za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+                    for k in za.files):
+                raise AssertionError(f"{r}: npz -> .pth -> npz changed it")
+    conv_ms = (1e3 * (t1 - t0) / len(rel), 1e3 * (t2 - t1) / len(rel))
+    log(f"[room_0 export] interop: {len(rel)} checkpoints ({rel}) npz -> .pth -> npz, every "
+        f"param, box and feature bit-identical; ms per converted checkpoint on the host "
+        f"{conv_ms[0]:.1f} (to .pth), {conv_ms[1]:.1f} (to npz)")
+
+    # ---- the export, counted: the .pth tree by the CLI, then the npz tree ----
+    bundle = os.path.join(tmp, "map_vis.pkl.gz")
+    runs = []
+    for how in ("cli", "npz"):
+        torch.cuda.synchronize()
+        ff.reset_counts()
+        profiling.reset_stats()
+        t0 = time.perf_counter()
+        # (the second run's bundle is compared in memory: the gzip of the
+        # 512-d vertex part features costs seconds and is the same code)
+        if how == "cli":
+            export._main([pth, "--out", bundle, "--grid-dim", "128", "--device", str(device)])
+        else:
+            b = export.export_from_checkpoints(ckpt, "", grid_dim=128, device=device)
+        torch.cuda.synchronize()
+        runs.append({"s": time.perf_counter() - t0, "counts": dict(ff.COUNTS),
+                     "by_shape": dict(ff.COUNTS_BY_SHAPE), "spans": profiling.stats()})
+    # equal bit for bit: the same bytes of every array and value, in order
+    t0 = time.perf_counter()
+    a = export.load_map_bundle(bundle)
+    load_s = time.perf_counter() - t0
+    if not a or pickle.dumps(a) != pickle.dumps(export.normalize_bundle(b)):
+        raise AssertionError("the exports of the .pth and the npz trees differ")
+    # the launches the code implies: per object, its grid chunks, and per
+    # meshed object its vertex chunks (both through K1)
+    want_k1, n_boxed = 0, 0
+    for p in npz_paths:
+        with np.load(p) as z:
+            if "bbox_extent" not in z:
+                continue
+            dim = int(min(np.max(z["bbox_extent"].astype(np.float64)) // 0.005 + 1, 128))
+        n_boxed += 1
+        want_k1 += -(-dim ** 3 // min(MESH_CHUNK, dim ** 3))
+    want_k1 += sum(-(-len(e["mesh"]["vertices"]) // MESH_CHUNK) for e in a.values())
+    for run in runs:
+        c = run["counts"]
+        if c["fused_field_fwd"] != want_k1 or any(v for k, v in c.items()
+                                                  if k != "fused_field_fwd"):
+            raise AssertionError(f"the export launched {c}; the code implies {want_k1} K1 "
+                                 "launches and nothing else")
+        if sum(run["by_shape"].values()) != want_k1:
+            raise AssertionError(f"launches by shape {run['by_shape']} do not add up")
+    by_shape = {}
+    for run in runs:
+        for k, v in run["by_shape"].items():
+            by_shape[k] = by_shape.get(k, 0) + v
+    spans = runs[0]["spans"]
+
+    def per_object(name):
+        st = spans.get(name)
+        if st is None:
+            raise AssertionError(f"no '{name}' span: {sorted(spans)}")
+        return st["mean_ms"] * st["n"] / n_boxed
+
+    stages = {k: per_object(k) for k in ("export: checkpoint load", "export: mesh")}
+    conv_run = spans["export: reference checkpoint conversion"]["mean_ms"] / len(rel)
+    n_v = {oid: len(e["mesh"]["vertices"]) for oid, e in a.items()}
+    write_s = spans["export: bundle write"]["mean_ms"] / 1e3
+    log(f"[room_0 export] export of the .pth tree (viz.export._main, grid 128) "
+        f"{runs[0]['s']:.2f} s (with its bundle's write, {write_s:.2f} s for "
+        f"{os.path.getsize(bundle)} bytes; load_map_bundle {load_s:.2f} s), of the npz tree "
+        f"{runs[1]['s']:.2f} s (in memory); bundles equal bit for "
+        f"bit; {len(a)} meshed of {n_boxed} boxed objects, vertices {n_v}; ms per exported "
+        f"object: " + ", ".join(f"{k.split(': ')[1]} {v:.1f}" for k, v in stages.items())
+        + f" (the .pth tree's conversion {conv_run:.1f} ms per checkpoint); K1 launches "
+        f"{want_k1} per run, no other launch; shapes [O, N, h]: launches "
+        f"{[[*k[1:], v] for k, v in sorted(runs[0]['by_shape'].items())]}")
+
+    # ---- one object's vertex part features: K1 against the plain field ----
+    oid = min(o for o in a if o != 0) if len(a) > 1 else min(a)
+    h = 128 if oid == 0 else 32
+    template = object_field.init_field_params(torch.Generator(device=device).manual_seed(0),
+                                              hidden=h, clip_size=512, scale=1.0,
+                                              device=device)
+    ck = checkpoint.load_object_checkpoint(os.path.join(ckpt, str(oid), f"obj_{oid}.npz"),
+                                           template)
+    pts = torch.as_tensor(a[oid]["mesh"]["vertices"] - ck["obj_center"], device=device)
+    _, col_k, pf_k = meshing.eval_points_chunked(ck["params"], pts, do_clip=True)
+    with plain_field_on_card():
+        _, col_p, pf_p = meshing.eval_points_chunked(ck["params"], pts, do_clip=True)
+    pf_err = float((pf_k - pf_p).abs().max())
+    col_err = float((col_k - col_p).abs().max())
+    unit = pf_p / pf_p.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    bundle_err = float(np.abs(a[oid]["part_feat"] - unit.cpu().numpy()).max())
+    log(f"[room_0 export] object {oid} (h={h}), {len(pts)} vertices, K1 vs plain on the card: "
+        f"part features max abs {pf_err:.2e}, colour {col_err:.2e}, the bundle's unit part "
+        f"features from the plain field's {bundle_err:.2e} (limit {FWD_ATOL})")
+    if not max(pf_err, col_err, bundle_err) <= FWD_ATOL:
+        raise AssertionError("K1's vertex part features disagree with the plain field")
+
+    # ---- the viewer CLI ----
+    html = os.path.join(tmp, "map.html")
+    plys = os.path.join(tmp, "plys")
+    t0 = time.perf_counter()
+    viewer.main([bundle, "--out-html", html, "--query", QUERIES[0][0], "--part-query",
+                 "leg", "--class-colors", "replica", "--ply-dir", plys, "--encoders", "fake"])
+    viewer_s = time.perf_counter() - t0
+    with open(html) as f:
+        page = f.read()
+    if viewer_math.JS_MAT4 not in page or viewer_math.JS_ORBIT_EYE not in page:
+        raise AssertionError("the viewer HTML lacks viewer_math's JS")
+    written = sorted(os.listdir(plys))
+    if written != sorted(f"obj_{o}.ply" for o in a) or not all(
+            os.path.getsize(os.path.join(plys, f)) > 0 for f in written):
+        raise AssertionError(f"the viewer wrote PLYs {written} for objects {sorted(a)}")
+    html_bytes = os.path.getsize(html)
+    log(f"[room_0 export] viewer.main: {html_bytes} bytes of HTML (viewer_math's JS "
+        f"verbatim), {len(written)} PLYs, {viewer_s:.2f} s")
+
+    # ---- the query server over HTTP ----
+    clip_enc, sbert_enc = viewer.make_encoders("fake")
+    service = server.QueryService(a, clip_enc, sbert_enc, class_colors=table)
+    httpd = server.make_server(service, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=600) as r:
+            if r.status != 200:
+                raise AssertionError(f"GET {path}: {r.status}")
+            return r.read()
+
+    query_ms = []
+    try:
+        if get("/").decode() != service.html():
+            raise AssertionError("GET / differs from QueryService.html()")
+        if json.loads(get("/objects")) != service.objects():
+            raise AssertionError("GET /objects differs from QueryService.objects()")
+        for _ in range(HTTP_ROUNDS):
+            for text, part, topk in QUERIES:
+                path = f"/query?text={urllib.parse.quote(text)}" + \
+                    (f"&part={urllib.parse.quote(part)}" if part else "") + \
+                    (f"&topk={topk}" if topk else "")
+                t0 = time.perf_counter()
+                got = json.loads(get(path))
+                query_ms.append(1e3 * (time.perf_counter() - t0))
+                if got != service.query(text, part=part, topk=topk):
+                    raise AssertionError(f"GET {path} differs from QueryService.query")
+                if part is None:
+                    scores = query.query_objects(text, a, clip_enc, sbert_enc)
+                    baked = viewer.bake_object_query(a, scores, top_k=topk)
+                    if got["colors"] != {str(o): viewer._b64(c) for o, c in baked.items()}:
+                        raise AssertionError(f"GET {path}: colouring differs from "
+                                             "bake_object_query's")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the query server did not stop")
+    log(f"[room_0 export] query server on 127.0.0.1: GET / ({len(service.html())} bytes) and "
+        f"/objects equal to the direct calls; {len(query_ms)} GET /query "
+        f"({len(QUERIES)} queries x {HTTP_ROUNDS}, with &part= and &topk=) equal to "
+        f"QueryService.query, object colourings equal to bake_object_query's; ms per HTTP "
+        f"query median {float(np.median(query_ms)):.1f} (min {min(query_ms):.1f}, max "
+        f"{max(query_ms):.1f})")
+    log(f"[room_0 export] phase 4f took {time.perf_counter() - t_all:.1f} s")
+    return {"by_shape": by_shape, "k1_per_run": want_k1, "objects": len(a),
+            "stages_ms": stages, "conv_ms": conv_ms, "html_bytes": html_bytes,
+            "query_ms": float(np.median(query_ms))}
 
 
 # --------------------------------------------------------------------------- #
@@ -1380,6 +1652,7 @@ def main(argv=None) -> int:
         raw = write_room0_raw(raw_dir)
         disk = run_room0_from_disk(device, raw)
         auto = run_room0_auto(device, raw)
+        exported = run_room0_export(device, auto["logdir"])
     finally:
         shutil.rmtree(raw_dir, ignore_errors=True)
     # the synthetic scene's trained shapes at widths other than the main
@@ -1398,7 +1671,8 @@ def main(argv=None) -> int:
     # launches as counted in each run, by (count, O, N, h)
     paths = {"room_0 training": by_shape_main, "room_0 outputs": by_shape_out,
              "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"],
-             "room_0 auto perception": auto["by_shape"]}
+             "room_0 auto perception": auto["by_shape"],
+             "room_0 export": exported["by_shape"]}
 
     def launches_at(name, dims):
         return sum(bs.get((name, *dims), 0) for bs in paths.values())

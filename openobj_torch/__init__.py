@@ -12,7 +12,8 @@ openobj_torch.scripts.<name>`` on a CUDA device.
 The top-level API resolves lazily, as the JAX package's does:
 ``openobj_torch.SceneMapper``, ``.Camera``, ``.TrainConfig``,
 ``.load_scene_config``, ``.make_mapper``, ``.associate``,
-``.AssociationConfig``, ``.GraphSegmenter`` and ``.OnlineInstanceTracker``.
+``.AssociationConfig``, ``.GraphSegmenter``, ``.OnlineInstanceTracker``,
+``.import_torch_checkpoint`` and ``.export_torch_checkpoint``.
 
 This package imports neither ``jax`` nor ``openobj_tpu``.
 """
@@ -31,9 +32,9 @@ _LAZY = {
     "OnlineInstanceTracker": ("openobj_torch.perception.tracking", "OnlineInstanceTracker"),
     "associate": ("openobj_torch.perception.pipeline", "associate"),
     "AssociationConfig": ("openobj_torch.perception.pipeline", "AssociationConfig"),
+    "import_torch_checkpoint": ("openobj_torch.interop", "import_torch_checkpoint"),
+    "export_torch_checkpoint": ("openobj_torch.interop", "export_torch_checkpoint"),
 }
-# the JAX package's checkpoint interop (openobj_tpu.interop), not ported yet
-_NOT_PORTED = {"import_torch_checkpoint", "export_torch_checkpoint"}
 
 
 def __getattr__(name):
@@ -44,8 +45,4 @@ def __getattr__(name):
     if name in _LAZY:
         mod, attr = _LAZY[name]
         return getattr(import_module(mod), attr)
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"openobj_torch.{name}: the checkpoint interop (openobj_tpu.interop) is "
-            "not ported yet; it is ROADMAP item A10b")
     raise AttributeError(f"module 'openobj_torch' has no attribute {name!r}")

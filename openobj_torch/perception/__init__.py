@@ -6,7 +6,8 @@ feature maps painted on a torch device (``partfeat``), online tracking
 graph (the matrices on a torch device), Louvain clustering, global merge,
 reprojection healing and artifact IO (``pipeline`` and the modules under
 it); the three perception CLIs (``cli``) and ``auto``, which runs them over
-a raw scene. ``class_features`` is not ported yet (ROADMAP A17b)."""
+a raw scene; and ``class_features``, the class-name feature table that
+training reads."""
 
 from openobj_torch.perception import (  # noqa: F401
     encoders, graph, merge, partfeat, pipeline, projection, similarity,

@@ -10,7 +10,7 @@ perception stress matrix, notebooks) share the exact CLI-path behavior.
 
 Port of ``openobj_tpu.perception.auto``: the stages' device work runs on
 ``device`` (the card unless the caller asks for the CPU), and the
-association YAML is written without PyYAML (``cli.dump_assoc_yaml``).
+association YAML is written without PyYAML (``utils.yaml_subset.dump_flat``).
 """
 
 from __future__ import annotations
@@ -83,6 +83,7 @@ def run_auto_perception(cfg, device="cuda") -> None:
     SceneConfig; intrinsics/stride/depth-scale come from it so the stages
     and the trainer agree. The stages' device work runs on ``device``."""
     from openobj_torch.perception import cli as pcli
+    from openobj_torch.utils import yaml_subset
 
     root, cam = cfg.dataset_dir, cfg.camera
     k = scaled_knobs(cam, cfg.max_depth)
@@ -120,7 +121,7 @@ def run_auto_perception(cfg, device="cuda") -> None:
     )
     ypath = os.path.join(root, "assoc_generated.yaml")
     with open(ypath, "w") as f:
-        f.write(pcli.dump_assoc_yaml(ycfg))
+        f.write(yaml_subset.dump_flat(ycfg))
     pcli.associate_main([
         root, "--config", ypath, "--format", cfg.dataset_format,
         "--max-depth", str(cfg.max_depth), "--device", str(device),

@@ -25,9 +25,10 @@ association's similarity matrices, the part maps' painting and the
 transformers models run there. Frames are read with the port's PNG codec
 (``utils.png``); ScanNet's ``.jpg`` colour frames are refused (ROADMAP
 A14b). The association YAML is read and written without PyYAML
-(``load_assoc_yaml``, ``dump_assoc_yaml``), for the subset the reference
-schema and ``perception.auto`` use. Each stage is timed under
-``utils.profiling`` spans ("maskgen: frame", "associate: association",
+(``load_assoc_yaml`` here, ``utils.yaml_subset.dump_flat`` in
+``perception.auto``), for the subset the reference schema and
+``perception.auto`` use. Each stage is
+timed under ``utils.profiling`` spans ("maskgen: frame", "associate: association",
 "partfeat: frame", "partfeat: part map painting"). Run a stage as
 ``python -m openobj_torch.perception.cli {maskgen,associate,partfeat}
 scene_dir [options]``.
@@ -37,9 +38,7 @@ from __future__ import annotations
 
 import argparse
 import glob
-import math
 import os
-import re
 
 import numpy as np
 import torch
@@ -53,6 +52,7 @@ from openobj_torch.perception.mask_generation import (
     generate_frame_masks, min_rect_bbox, save_mask_init,
 )
 from openobj_torch.perception.segmentation import GraphSegmenter
+from openobj_torch.utils import yaml_subset
 from openobj_torch.utils.png import read_png
 from openobj_torch.utils.profiling import performance_measure
 
@@ -256,171 +256,8 @@ def load_assoc_yaml(path: str | None) -> dict:
     cfg = dict(_YAML_DEFAULTS)
     if path:
         with open(path) as f:
-            cfg.update(parse_assoc_yaml(f.read()))
+            cfg.update(yaml_subset.parse_flat(f.read()))
     return cfg
-
-
-# PyYAML's implicit scalar types (yaml.resolver.Resolver, YAML 1.1), but for
-# the sexagesimal forms, which the reference schema never uses
-_YAML_BOOL = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"),
-                              True),
-              **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"),
-                              False)}
-_YAML_NULL = ("", "~", "null", "Null", "NULL")
-_YAML_INT = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|0|[1-9][0-9_]*|0x[0-9a-fA-F_]+)")
-_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
-                         r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?")
-_YAML_SPECIAL = {".inf": math.inf, ".Inf": math.inf, ".INF": math.inf,
-                 "+.inf": math.inf, "+.Inf": math.inf, "+.INF": math.inf,
-                 "-.inf": -math.inf, "-.Inf": -math.inf, "-.INF": -math.inf,
-                 ".nan": math.nan, ".NaN": math.nan, ".NAN": math.nan}
-
-
-def _yaml_scalar(text: str):
-    """One plain or quoted YAML scalar, typed as ``yaml.safe_load`` types it."""
-    t = text.strip()
-    if len(t) >= 2 and t[0] == t[-1] == "'":
-        return t[1:-1].replace("''", "'")
-    if len(t) >= 2 and t[0] == t[-1] == '"':
-        return bytes(t[1:-1], "utf-8").decode("unicode_escape")
-    if t in _YAML_NULL:
-        return None
-    if t in _YAML_BOOL:
-        return _YAML_BOOL[t]
-    if t in _YAML_SPECIAL:
-        return _YAML_SPECIAL[t]
-    if _YAML_INT.fullmatch(t):
-        v = t.replace("_", "")
-        sign = -1 if v[0] == "-" else 1
-        v = v.lstrip("+-")
-        if v.startswith("0b"):
-            return sign * int(v[2:], 2)
-        if v.startswith("0x"):
-            return sign * int(v[2:], 16)
-        if len(v) > 1 and v[0] == "0":
-            return sign * int(v, 8)
-        return sign * int(v)
-    if _YAML_FLOAT.fullmatch(t):
-        return float(t.replace("_", ""))
-    return t
-
-
-def _strip_comment(line: str) -> str:
-    """The line without its comment: a ``#`` at its start or after a blank,
-    outside quotes."""
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
-            return line[:i]
-    return line
-
-
-def _split_flow(body: str) -> list[str]:
-    """The items of a flow sequence's body (``a, 'b, c', d``)."""
-    items, cur, quote = [], "", None
-    for ch in body:
-        if quote:
-            cur += ch
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-            cur += ch
-        elif ch == ",":
-            items.append(cur)
-            cur = ""
-        else:
-            cur += ch
-    if cur.strip():
-        items.append(cur)
-    return items
-
-
-def parse_assoc_yaml(text: str) -> dict:
-    """The association YAML's subset -> dict, as ``yaml.safe_load`` reads
-    it: flat ``key: scalar`` lines, flow (``[a, b]``) and block (``- a``)
-    sequences of scalars, ``#`` comments and a ``---`` start. Anything else
-    (nested mappings, multi-line scalars) raises ``ValueError``."""
-    out: dict = {}
-    key = None                      # a key whose block sequence may follow
-    for n, raw in enumerate(text.splitlines(), 1):
-        line = _strip_comment(raw).rstrip()
-        if not line.strip() or line.strip() in ("---", "..."):
-            continue
-        stripped = line.lstrip()
-        if stripped.startswith("- ") or stripped == "-":
-            if key is None:
-                raise ValueError(f"line {n}: a sequence item outside a key: {raw!r}")
-            if out[key] is None:
-                out[key] = []
-            out[key].append(_yaml_scalar(stripped[1:]))
-            continue
-        if line[0] in " \t":
-            raise ValueError(f"line {n}: nested YAML is not supported: {raw!r}")
-        m = re.fullmatch(r"([^:#'\"\[\]{}]+?)\s*:(?:\s+(.*))?", line)
-        if m is None:
-            raise ValueError(f"line {n}: not a 'key: value' line: {raw!r}")
-        key, value = m.group(1), (m.group(2) or "").strip()
-        if value.startswith("["):
-            if not value.endswith("]"):
-                raise ValueError(f"line {n}: unterminated flow sequence: {raw!r}")
-            out[key] = [_yaml_scalar(v) for v in _split_flow(value[1:-1])]
-            key = None
-        elif value.startswith(("{", "|", ">", "&", "*", "!")):
-            raise ValueError(f"line {n}: unsupported YAML value: {raw!r}")
-        else:
-            out[key] = _yaml_scalar(value)
-            if value:
-                key = None
-    return out
-
-
-def _yaml_plain_ok(s: str) -> bool:
-    """Whether ``s`` may be written unquoted and read back as itself."""
-    return (bool(re.fullmatch(r"[A-Za-z_/][A-Za-z0-9_ ./'-]*", s)) and s == s.strip()
-            and _yaml_scalar(s) == s)
-
-
-def _yaml_value(v) -> str:
-    if isinstance(v, bool):
-        return "true" if v else "false"
-    if v is None:
-        return "null"
-    if isinstance(v, int):
-        return str(v)
-    if isinstance(v, float):
-        if math.isnan(v):
-            return ".nan"
-        if math.isinf(v):
-            return ".inf" if v > 0 else "-.inf"
-        r = repr(v).lower()
-        # PyYAML's float representer: an exponent without a dot gains one
-        return r.replace("e", ".0e", 1) if "." not in r and "e" in r else r
-    if isinstance(v, str):
-        return v if _yaml_plain_ok(v) else "'" + v.replace("'", "''") + "'"
-    raise TypeError(f"cannot write {type(v).__name__} {v!r} as an association YAML scalar")
-
-
-def dump_assoc_yaml(cfg: dict) -> str:
-    """A flat dict of scalars and lists of scalars -> YAML text, keys
-    sorted and sequences in block style, as ``yaml.safe_dump`` writes it;
-    ``parse_assoc_yaml`` and ``yaml.safe_load`` read it back to ``cfg``."""
-    lines = []
-    for k in sorted(cfg):
-        if not _yaml_plain_ok(k):
-            raise ValueError(f"association YAML key {k!r} is not a plain word")
-        v = cfg[k]
-        if isinstance(v, (list, tuple)):
-            lines.append(f"{k}:" if v else f"{k}: []")
-            lines += [f"- {_yaml_value(x)}" for x in v]
-        else:
-            lines.append(f"{k}: {_yaml_value(v)}")
-    return "\n".join(lines) + "\n"
 
 
 def _assoc_config_from_yaml(y: dict) -> pipeline.AssociationConfig:

@@ -1,8 +1,9 @@
 """Color utilities for map visualization.
 
-A copy of ``openobj_tpu.viz.colors`` (numpy); ``perception.merge`` and
-``viz.query`` use it. ``ClassColorMap.from_yaml`` needs PyYAML, which it
-imports only when called.
+A copy of ``openobj_tpu.viz.colors`` (numpy); ``perception.merge``,
+``viz.query``, ``viz.class_tables`` and the viewer use it.
+``ClassColorMap.from_yaml`` reads the colour map with ``utils.yaml_subset``,
+not PyYAML.
 
 Covers the reference viewer's three coloring sources
 (reference visualization/vis_interaction.py):
@@ -24,6 +25,8 @@ from __future__ import annotations
 import colorsys
 
 import numpy as np
+
+from openobj_torch.utils import yaml_subset
 
 
 def distinct_colors(n: int, seed: int = 0) -> np.ndarray:
@@ -57,10 +60,8 @@ class ClassColorMap:
 
     @classmethod
     def from_yaml(cls, path: str) -> "ClassColorMap":
-        import yaml
-
         with open(path) as f:
-            data = yaml.safe_load(f)
+            data = yaml_subset.load(f.read())
         return cls(data["mapping"], data["mapped_class"], data["mapped_colors"])
 
     @classmethod

@@ -1,10 +1,17 @@
 """Map export: checkpoints -> per-object mesh + feature bundle.
 
 Port of the JAX package's ``viz.export``; meshing runs through the port's
-``core.meshing`` (K1 on the card). Reading a reference training run's
-``.pth`` checkpoints (``interop``) is not ported: ``export_from_checkpoints``
-takes ``obj_<id>.npz`` directories, as either package's ``save_checkpoints``
-writes them.
+``core.meshing`` (K1 on the card). ``export_from_checkpoints`` takes an
+``obj_<id>.npz`` tree, as either package's ``save_checkpoints`` writes it,
+or a reference training run's ``obj_<id>.pth`` tree, which it converts
+through ``interop`` first. Its stages are timed under ``utils.profiling``
+spans: "export: reference checkpoint conversion" (the whole .pth tree), and
+per object "export: checkpoint load" and "export: mesh" (the grid, the
+marching and the vertex colours and part features, each ending in a copy to
+the host), and "export: bundle write".
+
+    python -m openobj_torch.viz.export <logdir>/ckpt --out map_vis.pkl.gz \
+        [--grid-dim 128] [--device cuda]
 
 Parity with the reference visualization/gen_map_vis.py: load every
 object's field, mesh it at grid 128 with vertex colors and vertex part
@@ -53,21 +60,14 @@ def export_object_entry(
     }
 
 
-class _BagUnpickler(pickle.Unpickler):
-    """Unpickler that turns unimportable classes (the reference's trimesh
-    meshes and box objects where those packages are missing) into attribute
-    bags; pickle sets their ``__dict__`` as usual."""
-
-    def find_class(self, module, name):
-        try:
-            return super().find_class(module, name)
-        except (ImportError, AttributeError):
-            return type(name, (), {"__module__": module})
-
-
 def save_map_bundle(path: str, objects: dict[int, dict]):
-    """Write map_vis bundle: {obj_id: entry} gzipped pickle."""
-    with gzip.open(path, "wb") as f:
+    """Write map_vis bundle: {obj_id: entry} gzipped pickle.
+
+    Written at compression level 0 (stored deflate blocks): still a gzip
+    file that every reader of the format opens as before, but the bulk of a
+    bundle is float32 vertex part features, which deflate barely shrinks
+    at any level, at a cost in time far above the bytes it saves."""
+    with gzip.open(path, "wb", compresslevel=0) as f:
         pickle.dump(objects, f)
 
 
@@ -78,6 +78,8 @@ def load_map_bundle(path: str, normalize: bool = True) -> dict[int, dict]:
     deserialize as attribute bags, and ``normalize`` rewrites every entry
     into this package's schema (dict mesh, [V,3] color, numpy features) —
     see ``normalize_bundle``."""
+    from openobj_torch.interop import _BagUnpickler
+
     with gzip.open(path, "rb") as f:
         bundle = _BagUnpickler(f).load()
     return normalize_bundle(bundle) if normalize else bundle
@@ -186,43 +188,85 @@ def export_from_checkpoints(
     mesh with vertex colors + part features, bundle).
 
     ``ckpt_root`` is the training CLI's <logdir>/ckpt with one
-    subdirectory per object id. The fields are loaded onto ``device``.
+    subdirectory per object id, or a reference run's tree of
+    ``obj_<id>.pth`` files (converted into a temporary npz tree, removed
+    after). The fields are loaded onto ``device``.
     """
     import glob as _glob
     import re
+    import tempfile
 
     import torch
 
     from openobj_torch.core import checkpoint
     from openobj_torch.models import object_field
+    from openobj_torch.utils.profiling import performance_measure
 
-    paths = sorted(_glob.glob(os.path.join(ckpt_root, "*", "obj_*.npz")))
-    if not paths:
-        raise FileNotFoundError(
-            f"no obj_<id>.npz checkpoints under {ckpt_root} (converting a "
-            "reference run's obj_<id>.pth files is not ported)")
     out: dict[int, dict] = {}
     templates = {}
-    for p in paths:
-        oid = int(re.search(r"obj_(\d+)\.npz$", p).group(1))
-        is_bg = oid == bg_id
-        h = hidden_bg if is_bg else hidden
-        if h not in templates:
-            templates[h] = object_field.init_field_params(
-                torch.Generator(device=device).manual_seed(0), hidden=h,
-                clip_size=clip_size, scale=1.0, max_deg=max_deg, device=device,
-            )
-        ck = checkpoint.load_object_checkpoint(p, templates[h])
-        if ck["bbox"] is None:
-            continue
-        dim = meshing.adaptive_grid_dim(ck["bbox"], live_voxel_size, grid_dim)
-        entry = export_object_entry(
-            ck["params"], ck["bbox"], ck["obj_center"],
-            ck["clip_feats"], ck["caption_feats"], ck["semantic_id"],
-            grid_dim=dim, is_bg=is_bg, max_deg=max_deg,
-        )
-        if entry is not None:
-            out[oid] = entry
+    with tempfile.TemporaryDirectory(prefix="openobj_ref_ckpt_") as conv:
+        paths = sorted(_glob.glob(os.path.join(ckpt_root, "*", "obj_*.npz")))
+        if not paths:
+            # a reference training run (torch obj_<id>.pth tree,
+            # vmap.py:556-576)? convert it into a scratch tree and continue
+            if not _glob.glob(os.path.join(ckpt_root, "**", "obj_*.pth"), recursive=True):
+                raise FileNotFoundError(
+                    f"no obj_<id>.npz (or reference obj_<id>.pth) checkpoints "
+                    f"under {ckpt_root}"
+                )
+            from openobj_torch import interop
+
+            with performance_measure("export: reference checkpoint conversion",
+                                     verbose=False):
+                paths = sorted(interop.convert_checkpoint_dir(ckpt_root, conv))
+        for p in paths:
+            oid = int(re.search(r"obj_(\d+)\.npz$", p).group(1))
+            is_bg = oid == bg_id
+            h = hidden_bg if is_bg else hidden
+            if h not in templates:
+                templates[h] = object_field.init_field_params(
+                    torch.Generator(device=device).manual_seed(0), hidden=h,
+                    clip_size=clip_size, scale=1.0, max_deg=max_deg, device=device,
+                )
+            with performance_measure("export: checkpoint load", verbose=False):
+                ck = checkpoint.load_object_checkpoint(p, templates[h])
+            if ck["bbox"] is None:
+                continue
+            dim = meshing.adaptive_grid_dim(ck["bbox"], live_voxel_size, grid_dim)
+            with performance_measure("export: mesh", verbose=False):
+                entry = export_object_entry(
+                    ck["params"], ck["bbox"], ck["obj_center"],
+                    ck["clip_feats"], ck["caption_feats"], ck["semantic_id"],
+                    grid_dim=dim, is_bg=is_bg, max_deg=max_deg,
+                )
+            if entry is not None:
+                out[oid] = entry
     if out_path:
-        save_map_bundle(out_path, out)
+        with performance_measure("export: bundle write", verbose=False):
+            save_map_bundle(out_path, out)
     return out
+
+
+def _main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="checkpoints -> map_vis bundle (reference gen_map_vis.py)")
+    ap.add_argument("ckpt_root", help="<logdir>/ckpt directory (npz, or reference .pth)")
+    ap.add_argument("--out", default="map_vis.pkl.gz")
+    ap.add_argument("--grid-dim", type=int, default=128)
+    ap.add_argument("--hidden", type=int, default=32)
+    ap.add_argument("--hidden-bg", type=int, default=128)
+    ap.add_argument("--clip-size", type=int, default=512)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the fields are meshed on (default: the card)")
+    args = ap.parse_args(argv)
+    out = export_from_checkpoints(
+        args.ckpt_root, args.out, hidden=args.hidden, hidden_bg=args.hidden_bg,
+        clip_size=args.clip_size, grid_dim=args.grid_dim, device=args.device,
+    )
+    print(f"wrote {args.out} with {len(out)} objects")
+
+
+if __name__ == "__main__":
+    _main()

@@ -34,6 +34,7 @@ from openobj_torch.core.trainer import TrainConfig  # noqa: E402
 from openobj_torch.data import synthetic  # noqa: E402
 from openobj_torch.perception import auto as tauto  # noqa: E402
 from openobj_torch.perception import cli as tcli  # noqa: E402
+from openobj_torch.utils import yaml_subset  # noqa: E402
 
 W, H, N_FRAMES = 64, 48, 20
 CAM = dict(width=W, height=H, fx=0.65 * W, fy=0.65 * W, cx=W / 2.0, cy=H / 2.0)
@@ -193,7 +194,7 @@ def test_load_assoc_yaml_equals_safe_load(tmp_path):
     assert tcli.load_assoc_yaml(None) == jcli.load_assoc_yaml(None)
     for bad in ("a:\n  b: 1\n", "key: {a: 1}\n", "- x\n"):
         with pytest.raises(ValueError):
-            tcli.parse_assoc_yaml(bad)
+            yaml_subset.parse_flat(bad)
 
 
 def test_dump_assoc_yaml_reads_back():
@@ -201,8 +202,8 @@ def test_dump_assoc_yaml_reads_back():
            "weight_pc": 0.4, "contact_pc": 0.02, "tiny": 1e-05, "huge": 1e20, "neg": -3,
            "flag": True, "none": None, "captions_wall": ["wall", "door frame"],
            "odd": ["yes", "1.5", "a: b", "it's", ""], "empty": [], "inf": float("inf")}
-    text = tcli.dump_assoc_yaml(cfg)
-    assert yaml.safe_load(text) == cfg == tcli.parse_assoc_yaml(text)
+    text = yaml_subset.dump_flat(cfg)
+    assert yaml.safe_load(text) == cfg == yaml_subset.parse_flat(text)
     assert text == yaml.safe_dump(cfg)
 
 
