@@ -86,6 +86,24 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      prints ms per exported object by stage (utils.profiling spans), K1's
      launches and shapes, the bundle's bytes, write and load times, ms per
      converted checkpoint, the HTML's bytes and the median ms per HTTP query;
+  4g. a ScanNet scan on disk: 4d's first 21 raw frames laid out as ScanNet's
+     scene0011_01 (colour resized to 968x1296 and written as baseline 4:2:0
+     q95 JPEGs by this script's numpy encoder, each decoded by the port and
+     gated > 35 dB against its source; depth resized nearest to 480x640; the
+     depth camera's intrinsics; the ground-truth maps held aside); the
+     committed JPEG fixtures (tests/data/jpeg/) decoded equal to their
+     digests of OpenCV's decode; then scripts.run_scenes on an unedited copy
+     of configs/scannet/scene0011_01.json with --perception auto,
+     --max-frames 3, --device cuda and --distributed as a group of one
+     (NCCL's init and a barrier on the card), counts reset around it: auto
+     perception from the JPEG and PNG frames, train.main (K1/K2/K2r 600
+     each, nothing plain or eager), the export (K1 only, as many launches as
+     the code implies), summary.json; multislice.run_parallel on one device
+     group (the worker's current card); the matched instance mIoU at frames
+     0, 10, 20 within 0.02 of the CPU rehearsal's (rehearse_scannet); prints
+     ms per decoded JPEG (entropy decode and the rest), per loaded and per
+     trained frame, per keyframe of each perception stage, the export's and
+     the phase's seconds;
   5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
      scripts/bench_ensemble_mm.py and scripts/bench_fused_step_probe.py):
      drives the two probe scripts' port (openobj_torch.scripts.*) with the
@@ -94,7 +112,7 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      plain version, beside the times the scripts took of kernel, plain
      version and library call, and the bound;
   6. prints one JSON line with every kernel's numbers (the fused field's
-     launches summed over the counted runs of phases 4 to 4f, and by
+     launches summed over the counted runs of phases 4 to 4g, and by
      run and shape as counted), the card's nvidia-smi line, and last a
      JSON line {"ok": true, "device": ...}.
 
@@ -1281,6 +1299,23 @@ QUERIES = (("a chair", None, None), ("a table", None, 1), ("a wall", None, 3),
 HTTP_ROUNDS = 3
 
 
+def export_k1_launches(npz_paths, bundle) -> tuple[int, int]:
+    """The K1 launches an export of these checkpoints implies, and the
+    number of boxed objects: per object its occupancy grid's chunks (grid
+    128 at voxel 0.005, at most MESH_CHUNK points a launch), and per meshed
+    object its vertex chunks."""
+    want, n_boxed = 0, 0
+    for p in npz_paths:
+        with np.load(p) as z:
+            if "bbox_extent" not in z:
+                continue
+            dim = int(min(np.max(z["bbox_extent"].astype(np.float64)) // 0.005 + 1, 128))
+        n_boxed += 1
+        want += -(-dim ** 3 // min(MESH_CHUNK, dim ** 3))
+    want += sum(-(-len(e["mesh"]["vertices"]) // MESH_CHUNK) for e in bundle.values())
+    return want, n_boxed
+
+
 def run_room0_export(device, logdir) -> dict:
     """Phase 4f: phase 4e's checkpoint tree (the background at h=128, the
     objects at h=32, the 512-d clip head) through the map's consumers: the
@@ -1380,17 +1415,7 @@ def run_room0_export(device, logdir) -> dict:
     load_s = time.perf_counter() - t0
     if not a or pickle.dumps(a) != pickle.dumps(export.normalize_bundle(b)):
         raise AssertionError("the exports of the .pth and the npz trees differ")
-    # the launches the code implies: per object, its grid chunks, and per
-    # meshed object its vertex chunks (both through K1)
-    want_k1, n_boxed = 0, 0
-    for p in npz_paths:
-        with np.load(p) as z:
-            if "bbox_extent" not in z:
-                continue
-            dim = int(min(np.max(z["bbox_extent"].astype(np.float64)) // 0.005 + 1, 128))
-        n_boxed += 1
-        want_k1 += -(-dim ** 3 // min(MESH_CHUNK, dim ** 3))
-    want_k1 += sum(-(-len(e["mesh"]["vertices"]) // MESH_CHUNK) for e in a.values())
+    want_k1, n_boxed = export_k1_launches(npz_paths, a)
     for run in runs:
         c = run["counts"]
         if c["fused_field_fwd"] != want_k1 or any(v for k, v in c.items()
@@ -1518,6 +1543,459 @@ def run_room0_export(device, logdir) -> dict:
     return {"by_shape": by_shape, "k1_per_run": want_k1, "objects": len(a),
             "stages_ms": stages, "conv_ms": conv_ms, "html_bytes": html_bytes,
             "query_ms": float(np.median(query_ms))}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4g: a ScanNet scan on disk, through run_scenes
+# --------------------------------------------------------------------------- #
+
+# ITU-T T.81 Annex K: the example quantisation tables (natural order) and
+# Huffman tables (BITS, HUFFVAL), which libjpeg writes by default
+ANNEX_K_Q = (np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4
+             + [24, 26, 56] + [99] * 5 + [47, 66] + [99] * 38))
+ANNEX_K_HUFF = {   # (class, slot): (BITS, HUFFVAL)
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], bytes(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], bytes(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125], bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+        "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+        "535455565758595a636465666768696a737475767778797a838485868788898a"
+        "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+        "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119], bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+        "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+        "494a535455565758595a636465666768696a737475767778797a828384858687"
+        "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+        "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+ZIGZAG = np.array([    # zigzag index -> natural index (jpeg_natural_order)
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_BITLEN = np.array([int(i).bit_length() for i in range(1 << 12)])
+
+
+def jpeg_quant_tables(quality: int) -> list[np.ndarray]:
+    """Annex K's tables scaled as libjpeg's jpeg_set_quality does (forced
+    to baseline: each entry in [1, 255])."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [np.clip((q * scale + 50) // 100, 1, 255) for q in ANNEX_K_Q]
+
+
+def _huff_codes(bits, vals):
+    """(code, length) of every symbol of a canonical table (T.81 C.2)."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(bits, 1):
+        for _ in range(n):
+            code_of[vals[k]], len_of[vals[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """Baseline JFIF JPEG of a uint8 [H, W, 3] RGB image: 4:2:0 (Y 2x2, Cb and
+    Cr 1x1), Annex K's tables scaled to ``quality``, a float DCT. The chip's
+    machine has no JPEG writer; this one writes the colour frames of phase
+    4g's ScanNet scan, in numpy (the Huffman coding vectorised over tokens)."""
+    h, w = rgb.shape[:2]
+    my, mx = -(-h // 16), -(-w // 16)
+    x = np.pad(rgb.astype(np.float64), ((0, 16 * my - h), (0, 16 * mx - w), (0, 0)), mode="edge")
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    ycc = [0.299 * r + 0.587 * g + 0.114 * b,
+           -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0,
+           0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0]
+    ycc[1:] = [c.reshape(8 * my, 2, 8 * mx, 2).mean(axis=(1, 3)) for c in ycc[1:]]
+    u = np.arange(8)
+    dct = np.sqrt(np.where(u == 0, 1.0, 2.0) / 8)[:, None] * np.cos(
+        (2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
+    qts = jpeg_quant_tables(quality)
+    blocks = []
+    for c, plane in enumerate(ycc):
+        bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+        f = (plane - 128.0).reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        coef = (dct @ f @ dct.T).reshape(bh, bw, 64)
+        zz = np.round(coef / qts[min(c, 1)])[..., ZIGZAG].astype(np.int64)
+        if c == 0:      # the four Y blocks of each MCU, in raster order
+            zz = zz.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
+        blocks.append(zz.reshape(my * mx, -1, 64))
+    seq = np.concatenate(blocks, axis=1).reshape(-1, 64)       # stream order
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    codes = {k: _huff_codes(*v) for k, v in ANNEX_K_HUFF.items()}
+    dc_code = np.stack([codes[(0, min(c, 1))][0] for c in range(3)])[comp]
+    dc_len = np.stack([codes[(0, min(c, 1))][1] for c in range(3)])[comp]
+    ac_code = np.stack([codes[(1, min(c, 1))][0] for c in range(3)])[comp]
+    ac_len = np.stack([codes[(1, min(c, 1))][1] for c in range(3)])[comp]
+
+    def extra(v):            # magnitude category and its extra bits
+        s = _BITLEN[np.abs(v)]
+        return s, np.where(v >= 0, v, v + (1 << s) - 1)
+
+    keys, vals, lens = [], [], []
+    nb = np.arange(len(seq))
+    dc = seq[:, 0].copy()
+    for c in range(3):
+        sel = comp == c
+        dc[sel] = np.diff(seq[sel, 0], prepend=0)
+    s, e = extra(dc)
+    keys.append(nb * 4096)
+    vals.append((dc_code[nb, s] << s) | e)
+    lens.append(dc_len[nb, s] + s)
+    bi, ki = np.nonzero(seq[:, 1:])
+    ki = ki + 1
+    first = np.r_[True, bi[1:] != bi[:-1]]
+    prev = np.where(first, 0, np.r_[0, ki[:-1]])
+    run = ki - prev - 1
+    s, e = extra(seq[bi, ki])
+    for z in range(3):      # ZRL (16 zeros) before a coefficient, up to 3
+        sel = run // 16 > z
+        keys.append(bi[sel] * 4096 + ki[sel] * 16 + z)
+        vals.append(ac_code[bi[sel], 0xF0])
+        lens.append(ac_len[bi[sel], 0xF0])
+    sym = (run % 16) * 16 + s
+    keys.append(bi * 4096 + ki * 16 + 15)
+    vals.append((ac_code[bi, sym] << s) | e)
+    lens.append(ac_len[bi, sym] + s)
+    last = np.zeros(len(seq), np.int64)
+    last[bi] = ki                          # nonzero order is ascending k
+    eob = nb[last < 63]
+    keys.append(eob * 4096 + 4095)
+    vals.append(ac_code[eob, 0x00])
+    lens.append(ac_len[eob, 0x00])
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    vals, lens = np.concatenate(vals)[order], np.concatenate(lens)[order]
+    tok = np.repeat(np.arange(len(lens)), lens)
+    pos = np.arange(len(tok)) - np.repeat(np.cumsum(lens) - lens, lens)
+    stream = ((vals[tok] >> (lens[tok] - 1 - pos)) & 1).astype(np.uint8)
+    stream = np.r_[stream, np.ones(-len(stream) % 8, np.uint8)]   # pad with 1s
+    data = np.packbits(stream)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)  # byte stuffing
+
+    def segment(marker, payload):
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
+
+    head = segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t, q in enumerate(qts):
+        head += segment(0xDB, bytes([t]) + bytes(q[ZIGZAG].astype(np.uint8)))
+    head += segment(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+                    + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for (tc, th), (bits, hv) in ANNEX_K_HUFF.items():
+        head += segment(0xC4, bytes([tc << 4 | th]) + bytes(bits) + hv)
+    head += segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return b"\xff\xd8" + head + data.tobytes() + b"\xff\xd9"
+
+
+# the scan: ScanNet's colour and depth cameras, the raw frames it holds
+# (frames 0, 10 and 20 train at scene0011_01.json's stride 10), the phase's
+# gate on each frame's decode against its source, and the matched instance
+# mIoU of the CPU rehearsal of its perception (rehearse_scannet, below)
+SCANNET_SCENE = "scene0011_01"
+SCANNET_COLOUR, SCANNET_DEPTH = (968, 1296), (480, 640)
+SCANNET_RAW_FRAMES, SCANNET_PSNR_DB = 21, 35.0
+SCANNET_CPU_MIOU, SCANNET_MIOU_TOL = 0.9827623919138745, 0.02
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 free at the time of the call."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_scannet_scan(raw, dest) -> dict:
+    """Phase 4d's raw tabletop frames laid out as the ScanNet scan
+    ``scene0011_01`` under ``dest``: colour resized to 968x1296 with the
+    port's resize and written as baseline 4:2:0 q95 JPEGs by encode_jpeg,
+    depth resized nearest to 480x640 (uint16 PNG), the depth camera's
+    intrinsics scaled from room_0's, the poses, and the ground-truth
+    instance maps (frames 0, 10, 20) resized nearest and held aside. Each
+    JPEG decoded by the port is gated against its source frame (PSNR)."""
+    from openobj_torch.data.transforms import resize
+    from openobj_torch.utils import jpeg
+    from openobj_torch.utils.png import read_png, write_png
+
+    cam, src = raw["cam"], raw["root"]
+    root = os.path.join(dest, SCANNET_SCENE)
+    for d in ("color", "depth", "intrinsic"):
+        os.makedirs(os.path.join(root, d))
+    (hc, wc), (hd, wd) = SCANNET_COLOUR, SCANNET_DEPTH
+    enc_ms, psnr, nbytes = [], [], 0
+    for i in range(SCANNET_RAW_FRAMES):
+        colour = resize(read_png(os.path.join(src, "rgb", f"rgb_{i}.png")), (wc, hc))
+        t0 = time.perf_counter()
+        data = encode_jpeg(colour, quality=95)
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+        path = os.path.join(root, "color", f"{i}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        nbytes += len(data)
+        err = jpeg.read_jpeg(path).astype(np.float64) - colour
+        psnr.append(float(10 * np.log10(255.0 ** 2 / max(np.mean(err ** 2), 1e-12))))
+        depth = read_png(os.path.join(src, "depth", f"depth_{i}.png"))
+        write_png(os.path.join(root, "depth", f"{i}.png"), resize(depth, (wd, hd), nearest=True))
+    poses = np.loadtxt(os.path.join(src, "traj_w_c.txt")).reshape(-1, 16)
+    np.savetxt(os.path.join(root, "traj_w_c.txt"), poses[:SCANNET_RAW_FRAMES], delimiter=" ")
+    sx, sy = wd / cam.width, hd / cam.height
+    k = np.eye(4)
+    k[0, 0], k[1, 1] = cam.fx * sx, cam.fy * sy
+    k[0, 2], k[1, 2] = (cam.cx + 0.5) * sx - 0.5, (cam.cy + 0.5) * sy - 0.5
+    np.savetxt(os.path.join(root, "intrinsic", "intrinsic_depth.txt"), k)
+    gt = [resize(g.astype(np.uint16), (wd, hd), nearest=True).astype(np.int32)
+          for g in raw["gt_maps"]]
+    if min(psnr) <= SCANNET_PSNR_DB:
+        raise AssertionError(f"[scannet] a decoded frame {min(psnr):.2f} dB from its source, "
+                             f"gate {SCANNET_PSNR_DB}")
+    log(f"[scannet] {SCANNET_RAW_FRAMES} frames laid out as ScanNet {SCANNET_SCENE}: colour "
+        f"{hc}x{wc} baseline 4:2:0 q95 by encode_jpeg ({nbytes / SCANNET_RAW_FRAMES / 1e3:.1f} "
+        f"kB, {np.median(enc_ms):.1f} ms a frame), decoded by the port {min(psnr):.2f}-"
+        f"{max(psnr):.2f} dB from the source (gate > {SCANNET_PSNR_DB}); depth {hd}x{wd}")
+    return {"root": root, "gt_maps": gt, "gt_frames": [ASSOC_STRIDE * j for j in range(len(gt))],
+            "psnr_min": min(psnr)}
+
+
+def check_jpeg_decoder(root) -> dict:
+    """The committed fixtures decoded to the stored SHA-256 of OpenCV's
+    decode (shape too), then ms per decoded 968x1296 JPEG, entropy decode
+    (native) and the rest (IDCT, upsampling, colour; numpy), medians over
+    the scan's frames."""
+    import hashlib
+
+    from openobj_torch.utils import jpeg
+
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        want = json.load(f)
+    for name, entry in want.items():
+        rgb = jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, name))
+        got = hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
+        if list(rgb.shape) != entry["shape"] or got != entry["sha256"]:
+            raise AssertionError(f"[scannet] fixture {name}: {rgb.shape} {got}, OpenCV's decode "
+                                 f"{entry['shape']} {entry['sha256']}")
+    entropy_ms, rest_ms = [], []
+    for i in range(SCANNET_RAW_FRAMES):
+        with open(os.path.join(root, "color", f"{i}.jpg"), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        frame = jpeg.parse(data)
+        coefs = jpeg.entropy_decode(frame, data)
+        t1 = time.perf_counter()
+        jpeg.reconstruct(frame, coefs)
+        t2 = time.perf_counter()
+        entropy_ms.append(1e3 * (t1 - t0))
+        rest_ms.append(1e3 * (t2 - t1))
+    res = {"entropy_ms": float(np.median(entropy_ms)), "rest_ms": float(np.median(rest_ms))}
+    log(f"[scannet] JPEG fixtures {sorted(want)} decoded equal to their digests of OpenCV's "
+        f"decode; ms per decoded {SCANNET_COLOUR[0]}x{SCANNET_COLOUR[1]} JPEG (median of "
+        f"{SCANNET_RAW_FRAMES}): {res['entropy_ms'] + res['rest_ms']:.1f} = entropy decode "
+        f"{res['entropy_ms']:.1f} + the rest {res['rest_ms']:.1f}")
+    return res
+
+
+def scannet_miou(root, scan) -> dict:
+    """Matched instance mIoU of the written instance maps at the frames
+    with held-aside ground truth (every raw frame is a keyframe here)."""
+    return written_miou(root, scan["gt_frames"], scan["gt_maps"])
+
+
+def run_scannet(device, raw) -> dict:
+    """Phase 4g: a ScanNet scan on disk through the port's run_scenes, on
+    an unedited copy of configs/scannet/scene0011_01.json: auto perception
+    from the JPEG and PNG frames, train.main through K1/K2/K2r, the export
+    through K1 and summary.json, joined by NCCL as a group of one (its
+    barrier on the card after); then multislice.run_parallel on one device
+    group. Counts reset around run_scenes; the perception and the export
+    are timed and counted by wrapping the functions run_scenes calls."""
+    import torch
+    import torch.distributed as dist
+    from openobj_torch import config as oconfig
+    from openobj_torch.data import loaders
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.parallel import distributed, multislice
+    from openobj_torch.scripts import run_scenes
+    from openobj_torch.utils import profiling
+    from openobj_torch.viz import export
+
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="scannet_", dir=os.path.dirname(raw["root"]))
+    scan = write_scannet_scan(raw, os.path.join(tmp, "data"))
+    dec = check_jpeg_decoder(scan["root"])
+    cfg_dir = os.path.join(tmp, "configs")
+    os.makedirs(cfg_dir)
+    shutil.copy(os.path.join(ROOT, "configs", "scannet", f"{SCANNET_SCENE}.json"), cfg_dir)
+    out = os.path.join(tmp, "runs")
+
+    seen = {}
+    run_perception, export_from_checkpoints = run_scenes.run_perception, export.export_from_checkpoints
+
+    def timed_perception(cfg_path, args):
+        profiling.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_perception(cfg_path, args)
+        torch.cuda.synchronize()
+        seen["perception_s"] = time.perf_counter() - t0
+        seen["spans"] = profiling.stats()
+        seen["counts_perception"] = dict(ff.COUNTS)
+
+    def counted_export(*a, **kw):
+        torch.cuda.synchronize()
+        seen["counts_train"] = dict(ff.COUNTS)
+        t0 = time.perf_counter()
+        bundle = export_from_checkpoints(*a, **kw)
+        torch.cuda.synchronize()
+        seen["export_s"] = time.perf_counter() - t0
+        seen["counts_export"] = {k: v - seen["counts_train"][k] for k, v in ff.COUNTS.items()}
+        seen["bundle"] = bundle
+        return bundle
+
+    port = free_port()
+    run_scenes.run_perception, export.export_from_checkpoints = timed_perception, counted_export
+    try:
+        torch.cuda.synchronize()
+        ff.reset_counts()
+        t0 = time.perf_counter()
+        summary = run_scenes.main([
+            cfg_dir, "--data-root", os.path.dirname(scan["root"]), "--out", out,
+            "--perception", "auto", "--max-frames", "3", "--device", "cuda",
+            "--distributed", f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        by_shape = dict(ff.COUNTS_BY_SHAPE)
+        if dist.get_backend() != "nccl" or distributed.process_scene_shard() != "0:1":
+            raise AssertionError(f"[scannet] process group {dist.get_backend()}, shard "
+                                 f"{distributed.process_scene_shard()}")
+        distributed.barrier("scannet")
+    finally:
+        run_scenes.run_perception, export.export_from_checkpoints = (run_perception,
+                                                                     export_from_checkpoints)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    # ---- one device group: the worker thread's current card ----
+    groups = multislice.device_groups(1)
+    [probe] = multislice.run_parallel(
+        [("probe", lambda devs: (torch.cuda.current_device(), torch.zeros(1, device="cuda").device,
+                                 devs))], groups=groups)
+    if not probe.ok or probe.result[0] != groups[0][0].index or \
+            probe.result[1] != groups[0][0] or probe.result[2] != groups[0]:
+        raise AssertionError(f"[scannet] run_parallel over {groups}: {probe}")
+
+    # ---- gates ----
+    entry = summary.get(SCANNET_SCENE, {})
+    logdir = os.path.join(out, SCANNET_SCENE)
+    with open(os.path.join(logdir, "summary.json")) as f:
+        written = json.load(f)
+    frames = sorted(k for k in written.get("timing", {}) if k.startswith("frame "))
+    if entry.get("status") != "ok" or written != entry or entry.get("objects", 0) < 1 \
+            or frames != ["frame 0", "frame 1", "frame 2"] \
+            or not os.path.exists(os.path.join(logdir, "map_vis.pkl.gz")):
+        raise AssertionError(f"[scannet] summary {entry.get('status')}, objects "
+                             f"{entry.get('objects')}, frames {frames}")
+    if any(seen["counts_perception"].values()):
+        raise AssertionError(f"[scannet] the perception launched {seen['counts_perception']}")
+    c_train, c_export = seen["counts_train"], seen["counts_export"]
+    steps = 2 * 100 * 3
+    for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce"):
+        if c_train[k] != steps:
+            raise AssertionError(f"[scannet] training launched {k} {c_train[k]} times, "
+                                 f"expected {steps}")
+    if c_train["field_eager"] or c_train["fused_field_plain"]:
+        raise AssertionError(f"[scannet] training left the kernels: {c_train}")
+    npz_paths = sorted(glob.glob(os.path.join(logdir, "ckpt", "*", "obj_*.npz")))
+    want_k1, n_boxed = export_k1_launches(npz_paths, seen["bundle"])
+    if c_export["fused_field_fwd"] != want_k1 or any(
+            v for k, v in c_export.items() if k != "fused_field_fwd"):
+        raise AssertionError(f"[scannet] the export launched {c_export}; the code implies "
+                             f"{want_k1} K1 launches and nothing else")
+    score = scannet_miou(scan["root"], scan)
+    if abs(score["inst_miou"] - SCANNET_CPU_MIOU) > SCANNET_MIOU_TOL:
+        raise AssertionError(f"[scannet] instance mIoU {score['inst_miou']:.4f}, the CPU "
+                             f"rehearsal's {SCANNET_CPU_MIOU} (tolerance {SCANNET_MIOU_TOL})")
+
+    # ---- frames loaded and trained ----
+    scfg = oconfig.load_scene_config(os.path.join(logdir, "config.json"))
+    dataset = loaders.make_dataset(scfg)
+    load_ms = []
+    for i in range(len(dataset)):
+        t0 = time.perf_counter()
+        dataset[i]
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+    trained = [written["timing"][f"frame {i}"] for i in (1, 2)]
+    spans = seen["spans"]
+    n_kf = SCANNET_RAW_FRAMES       # count_raw_frames reads rgb/*.png: skip 1
+
+    def per_keyframe(name):
+        st = spans.get(name)
+        if st is None:
+            raise AssertionError(f"[scannet] no '{name}' span: {sorted(spans)}")
+        return st["mean_ms"] * st["n"] / n_kf
+
+    res = {"by_shape": by_shape, "objects": entry["objects"], "run_s": run_s,
+           "perception_s": seen["perception_s"], "export_s": seen["export_s"],
+           "export_k1": want_k1, "maskgen_ms": per_keyframe("maskgen: frame"),
+           "assoc_ms": per_keyframe("associate: association"),
+           "sim_ms": per_keyframe("association: similarity matrices"),
+           "load_ms_per_frame": float(np.mean(load_ms)),
+           "train_ms_per_frame": float(np.mean(trained)), "inst_miou": score["inst_miou"],
+           "bg_iou": score["bg_iou"], **dec}
+    log(f"[scannet] run_scenes {run_s:.1f} s (NCCL group of one, shard 0:1, barrier on the "
+        f"card): perception {seen['perception_s']:.1f} s over {n_kf} keyframes (skip 1: "
+        f"count_raw_frames reads rgb/*.png), ms per keyframe: maskgen {res['maskgen_ms']:.1f}, "
+        f"association {res['assoc_ms']:.1f} (similarity matrices on the card "
+        f"{res['sim_ms']:.1f}); ms per loaded frame {res['load_ms_per_frame']:.1f} "
+        f"({[round(x, 1) for x in load_ms]}), per trained frame (frames 2-3, timing.json) "
+        f"{res['train_ms_per_frame']:.1f} ({trained}); K1/K2/K2r {steps} each in training, "
+        f"nothing plain or eager; export {seen['export_s']:.2f} s, {entry['objects']} objects "
+        f"({n_boxed} boxed), K1 {want_k1} launches as the code implies; matched instance "
+        f"mIoU at frames {scan['gt_frames']} {score['inst_miou']:.4f} (CPU rehearsal "
+        f"{SCANNET_CPU_MIOU}; background IoU {score['bg_iou']:.4f}; {score['matches']}); "
+        f"run_parallel over {[[str(d) for d in g] for g in groups]}: the worker's current "
+        f"card {probe.result[0]}")
+    log(f"[scannet] phase 4g took {time.perf_counter() - t_all:.1f} s")
+    return res
+
+
+def rehearse_scannet() -> float:
+    """The CPU rehearsal of phase 4g's perception: phase 4d's raw frames
+    written again, laid out as the same scan, ``run_auto_perception`` with
+    scene0011_01.json's settings on the CPU, and the matched instance mIoU
+    it gives (SCANNET_CPU_MIOU above). Run from the root of a checkout:
+    ``python3 -c "import chip_smoke; chip_smoke.rehearse_scannet()"``."""
+    from openobj_torch import config as oconfig
+    from openobj_torch.perception import auto
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="scannet_rehearsal_", dir=os.path.join(ROOT, "build"))
+    try:
+        raw = write_room0_raw(tmp)
+        scan = write_scannet_scan(raw, os.path.join(tmp, "data"))
+        check_jpeg_decoder(scan["root"])
+        with open(os.path.join(ROOT, "configs", "scannet", f"{SCANNET_SCENE}.json")) as f:
+            cfg = json.load(f)
+        cfg["dataset"]["path"] = scan["root"]
+        cfg_path = os.path.join(tmp, "scannet.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        auto.run_auto_perception(oconfig.load_scene_config(cfg_path), device="cpu")
+        score = scannet_miou(scan["root"], scan)
+        log(f"[scannet rehearsal] perception on the CPU {time.perf_counter() - t0:.1f} s; "
+            f"matched instance mIoU at frames {scan['gt_frames']} {score['inst_miou']!r} "
+            f"(background IoU {score['bg_iou']:.4f}; {score['matches']})")
+        return score["inst_miou"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1653,6 +2131,7 @@ def main(argv=None) -> int:
         disk = run_room0_from_disk(device, raw)
         auto = run_room0_auto(device, raw)
         exported = run_room0_export(device, auto["logdir"])
+        scannet = run_scannet(device, raw)
     finally:
         shutil.rmtree(raw_dir, ignore_errors=True)
     # the synthetic scene's trained shapes at widths other than the main
@@ -1672,7 +2151,7 @@ def main(argv=None) -> int:
     paths = {"room_0 training": by_shape_main, "room_0 outputs": by_shape_out,
              "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"],
              "room_0 auto perception": auto["by_shape"],
-             "room_0 export": exported["by_shape"]}
+             "room_0 export": exported["by_shape"], "scannet": scannet["by_shape"]}
 
     def launches_at(name, dims):
         return sum(bs.get((name, *dims), 0) for bs in paths.values())

@@ -1,11 +1,10 @@
 """Replica / ScanNet sequence loaders.
 
 Port of ``openobj_tpu.data.loaders``. Images are read with the port's PNG
-codec (``utils.png``) and resized with ``data.transforms.resize``, where the
-JAX package uses OpenCV; frames stay numpy here and become tensors at the
-``SceneMapper`` boundary. ScanNet's colour frames are JPEG files, which the
-port cannot decode yet (ROADMAP A14b): a ``.jpg`` colour frame raises,
-and a ScanNet scan whose ``color/`` holds PNG files loads.
+codec (``utils.png``) and ScanNet's ``.jpg`` colour frames with its baseline
+JPEG decoder (``utils.jpeg``, equal to OpenCV's decode), and resized with
+``data.transforms.resize``, where the JAX package uses OpenCV; frames stay
+numpy here and become tensors at the ``SceneMapper`` boundary.
 
 Parity with the reference objnerf/dataset.py (kept in [H, W] layout —
 the reference transposes everything to [W, H]):
@@ -42,6 +41,7 @@ import numpy as np
 from openobj_torch.data.transforms import (
     enlarge_bbox, resize, scale_depth, undistort, undistort_maps,
 )
+from openobj_torch.utils.jpeg import read_jpeg
 from openobj_torch.utils.png import read_png
 
 BACKGROUND_CLS = (1,)  # the association pipeline's wall id (dataset.py:67)
@@ -295,13 +295,14 @@ class _SequenceDataset:
 
 
 def _read_rgb(path: str) -> np.ndarray:
-    """[H, W, 3] uint8 RGB of a PNG colour frame (an alpha channel is
-    dropped, grey is replicated, 16-bit samples keep their high byte, as
-    OpenCV's default colour read does). Other formats raise."""
+    """[H, W, 3] uint8 RGB of a colour frame, as OpenCV's default colour
+    read gives it: a ``.jpg``/``.jpeg`` file through the baseline JPEG
+    decoder, a PNG with its alpha channel dropped, grey replicated and
+    16-bit samples keeping their high byte. Other formats raise."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        return read_jpeg(path)
     if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port reads PNG colour frames only; a JPEG decoder "
-            "for ScanNet's color/*.jpg is ROADMAP item A14b")
+        raise NotImplementedError(f"{path}: the port reads JPEG and PNG colour frames")
     im = read_png(path)
     if im.dtype == np.uint16:
         im = (im >> 8).astype(np.uint8)
@@ -326,9 +327,7 @@ class Replica(_SequenceDataset):
 
 
 class ScanNet(_SequenceDataset):
-    """color/<i>.jpg + depth/<i>.png, natsorted (dataset.py:204-218). The
-    port decodes PNG colour only: a scan with .jpg colour frames loads its
-    file lists, and reading a frame raises (``_read_rgb``)."""
+    """color/<i>.jpg + depth/<i>.png, natsorted (dataset.py:204-218)."""
 
     length_ceil = True  # reference dataset.py:278 (math.ceil)
 
@@ -337,11 +336,8 @@ class ScanNet(_SequenceDataset):
         import glob
 
         color = os.path.join(self.root_dir, "color")
-        self.color_paths = sorted(
-            glob.glob(os.path.join(color, "*.jpg"))
-            or glob.glob(os.path.join(color, "*.png")),
-            key=_natsort_key,
-        )
+        self.color_paths = sorted(glob.glob(os.path.join(color, "*.jpg")),
+                                  key=_natsort_key)
         self.depth_paths = sorted(
             glob.glob(os.path.join(self.root_dir, "depth", "*.png")),
             key=_natsort_key,
@@ -359,8 +355,8 @@ class ScanNet(_SequenceDataset):
 
 def init_loader(dataset, prefetch: int = 2):
     """Background-thread prefetching iterator (the reference's DataLoader
-    with 4 workers, dataset.py:19-41 — one thread suffices since zlib
-    and numpy release the GIL)."""
+    with 4 workers, dataset.py:19-41 — one thread suffices since zlib,
+    numpy and the native JPEG entropy decode release the GIL)."""
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = object()
 

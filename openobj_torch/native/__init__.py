@@ -9,7 +9,10 @@ The port's counterpart of ``openobj_tpu.native``. ``geometry.cc`` and
     ``dbscan_largest_cluster``) and the segmenter's Felzenszwalb merge pass
     (``felz_union_find``);
   * ``louvain.cc``: Louvain community detection over the association graph
-    (``louvain_labels``).
+    (``louvain_labels``);
+  * ``jpeg.cc`` (the port's own): the Huffman entropy decode of one
+    baseline JPEG scan into coefficient blocks (``jpeg_decode_scan``, for
+    ``utils.jpeg``).
 
 Each is compiled with ``g++ -O3`` at first use into ``build/native/`` at the
 root of the checkout, under a name that carries a digest of the source and
@@ -18,7 +21,8 @@ loaded. Nothing is built at import. Where ``g++`` is missing or the build
 fails, the meshing and bounds entry points fall back to their numpy
 versions (``ops.marching``, ``utils.geometry``), as the reference does, and
 ``load()`` returns None; the perception's entry points (DBSCAN, Louvain, the
-union-find) have no such fallback here and raise instead.
+union-find) and the JPEG decode have no such fallback here and raise
+instead.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent / "geometry.cc"
 LOUVAIN_SRC = Path(__file__).resolve().parent / "louvain.cc"
+JPEG_SRC = Path(__file__).resolve().parent / "jpeg.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
@@ -103,6 +108,13 @@ def _declare_louvain(lib) -> None:
     lib.louvain.argtypes = [p_i64, p_i64, p_d, c_i64, c_i64, c_d, ctypes.c_uint64, p_i64]
 
 
+def _declare_jpeg(lib) -> None:
+    lib.jpeg_decode_scan.restype = ctypes.c_int
+    lib.jpeg_decode_scan.argtypes = [
+        p_u8, c_i64, c_i64, ctypes.c_int, ctypes.POINTER(ctypes.c_int32), p_u8, p_u8,
+        c_i64, c_i64, c_i64, ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)), p_i64]
+
+
 def load():
     """The typed geometry library, or None when it cannot be built."""
     return _load_src(SRC, _declare_geometry)
@@ -113,11 +125,16 @@ def load_louvain():
     return _load_src(LOUVAIN_SRC, _declare_louvain)
 
 
+def load_jpeg():
+    """The typed JPEG entropy decoder, or None when it cannot be built."""
+    return _load_src(JPEG_SRC, _declare_jpeg)
+
+
 def _require(lib, what: str):
     if lib is None:
         raise RuntimeError(
             f"native {what} library could not be built (g++ {' '.join(CXX_FLAGS)} "
-            f"into {BUILD_DIR}); the perception stages have no fallback for it")
+            f"into {BUILD_DIR}); its callers have no fallback for it")
     return lib
 
 
@@ -258,3 +275,39 @@ def louvain_labels(
     if k < 0:
         raise ValueError("louvain: edge index out of range")
     return labels
+
+
+def jpeg_decode_scan(data: np.ndarray, start: int, params: np.ndarray, huff_bits: np.ndarray,
+                     huff_vals: np.ndarray, mcus_x: int, mcus_y: int, restart: int,
+                     coefs: list) -> tuple[int, int]:
+    """Entropy-decode one baseline JPEG scan of ``data`` (uint8) from
+    ``start`` into the int16 [rows, blocks_w, 64] arrays ``coefs`` (one per
+    component of the scan, zeroed): (0 or a negative error code, offset of
+    the marker that ends the scan). ``params`` is [ncomp, 5] int32 {mcu_h,
+    mcu_v, blocks_w, dc slot, ac slot}; ``huff_bits`` [8, 16] and
+    ``huff_vals`` [8, 256] hold the DC tables in rows 0-3 and the AC tables
+    in rows 4-7. Raises when the library cannot be built: the Python loop
+    (``utils.jpeg.entropy_decode_plain``) is kept only as the plain
+    version that tests hold this one against."""
+    lib = _require(load_jpeg(), "JPEG")
+    d = np.ascontiguousarray(data, np.uint8)
+    pr = np.ascontiguousarray(params, np.int32)
+    hb = np.ascontiguousarray(huff_bits, np.uint8)
+    hv = np.ascontiguousarray(huff_vals, np.uint8)
+    if pr.shape != (len(coefs), 5) or hb.shape != (8, 16) or hv.shape != (8, 256):
+        raise ValueError(f"jpeg_decode_scan: params {pr.shape}, tables {hb.shape} {hv.shape}")
+    for c, (_, _, bw, _, _) in zip(coefs, pr):
+        if c.dtype != np.int16 or not c.flags.c_contiguous or c.shape[1:] != (bw, 64):
+            raise ValueError(f"jpeg_decode_scan: a coefficient buffer {c.dtype} {c.shape}")
+    rows = [c.shape[0] for c in coefs]
+    for (mh, mv, bw, _, _), r in zip(pr, rows):
+        if mcus_x * mh > bw or mcus_y * mv > r:
+            raise ValueError("jpeg_decode_scan: the scan's MCUs overrun a coefficient buffer")
+    ptrs = (ctypes.POINTER(ctypes.c_int16) * len(coefs))(
+        *(c.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for c in coefs))
+    end = ctypes.c_int64(0)
+    r = lib.jpeg_decode_scan(
+        d.ctypes.data_as(p_u8), len(d), start, len(coefs),
+        pr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), hb.ctypes.data_as(p_u8),
+        hv.ctypes.data_as(p_u8), mcus_x, mcus_y, restart, ptrs, ctypes.byref(end))
+    return r, end.value

@@ -23,8 +23,8 @@ Port of ``openobj_tpu.perception.cli``, with every flag of the JAX CLIs and
 one more, ``--device`` (the card unless the caller asks for the CPU): the
 association's similarity matrices, the part maps' painting and the
 transformers models run there. Frames are read with the port's PNG codec
-(``utils.png``); ScanNet's ``.jpg`` colour frames are refused (ROADMAP
-A14b). The association YAML is read and written without PyYAML
+(``utils.png``) and ScanNet's ``.jpg`` colour frames with its baseline JPEG
+decoder (``utils.jpeg``), both through ``data.loaders._read_rgb``. The association YAML is read and written without PyYAML
 (``load_assoc_yaml`` here, ``utils.yaml_subset.dump_flat`` in
 ``perception.auto``), for the subset the reference schema and
 ``perception.auto`` use. Each stage is
@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from openobj_torch.data.loaders import _read_rgb
-from openobj_torch.data.transforms import scale_depth
+from openobj_torch.data.transforms import resize, scale_depth
 from openobj_torch.perception import encoders as enc
 from openobj_torch.perception import graph as graph_mod
 from openobj_torch.perception import merge, partfeat, pipeline
@@ -69,7 +69,9 @@ class RawFrames:
     the association artifacts this pipeline produces). Replica layout:
     rgb/rgb_<i>.png + depth/depth_<i>.png (reference dataset.py:86-87);
     ScanNet: color/*.jpg + depth/*.png natsorted (dataset.py:204-218);
-    poses from traj_w_c.txt rows."""
+    poses from traj_w_c.txt rows. Colour larger than its depth frame is
+    resized to it (the JAX package's RawFrames leaves it, and its stages
+    then fail on a real ScanNet scan's 968x1296 colour)."""
 
     def __init__(self, root: str, fmt: str = "Replica",
                  depth_scale: float = 1e-3, max_depth: float = 10.0):
@@ -109,6 +111,11 @@ class RawFrames:
             read_png(self.depth_paths[i]).astype(np.float32),
             self.depth_scale, self.max_depth,
         )
+        if rgb.shape[:2] != depth.shape:
+            # ScanNet's colour (968x1296) is larger than its depth (480x640):
+            # bring it to the depth camera, as data.loaders does, so masks,
+            # depth and the config's (depth) intrinsics agree
+            rgb = resize(rgb, (depth.shape[1], depth.shape[0]))
         pose = self.t_wc[i] if self.t_wc is not None else np.eye(4)
         return rgb.astype(np.uint8), depth, pose.astype(np.float32)
 

@@ -360,7 +360,8 @@ def main(argv=None):
 
     reset_stats()  # timing.json covers THIS run only (the dict is thread-local)
     os.makedirs(args.logdir, exist_ok=True)
-    shutil.copy(args.config, args.logdir)
+    if os.path.abspath(os.path.dirname(args.config)) != os.path.abspath(args.logdir):
+        shutil.copy(args.config, args.logdir)   # (run_scenes writes it there itself)
     cfg = load_scene_config(args.config)
     dataset = make_dataset(cfg)
     n_frames = len(dataset)

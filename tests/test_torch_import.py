@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing any of its modules (or
 chip_smoke.py, which drives it on the card) pulls in neither jax nor
 openobj_tpu, nor OpenCV, scikit-learn, networkx, PyYAML, PIL or transformers,
-which the card's machine does not have. networkx may be imported only inside
+which the card's machine does not have (the image readers, the loaders, the
+scene-level scale-out, the multi-scene runner, the dataset preflight and
+chip_smoke.py do not import PIL even lazily). networkx may be imported only inside
 perception/graph.py's branch for the non-default Greedy/GNewman methods, and
 transformers only in the constructors of perception/encoders.py's
 transformers-based encoders. No module imports PyYAML, not even lazily: the
@@ -70,6 +72,11 @@ def _in_networkx_branch(node, parents) -> bool:
 
 
 PERCEPTION = ("openobj_torch.perception", "openobj_torch.scripts.perception_matrix")
+# modules that read images or drive whole scenes: no PIL either
+NO_PIL = PERCEPTION + ("openobj_torch.utils.jpeg", "openobj_torch.utils.png",
+                       "openobj_torch.data", "openobj_torch.native", "openobj_torch.parallel",
+                       "openobj_torch.scripts.run_scenes", "openobj_torch.scripts.check_dataset",
+                       "chip_smoke")
 
 
 def _in_hf_constructor(node, parents) -> bool:
@@ -137,7 +144,7 @@ def test_no_forbidden_imports(name, path):
                                "sklearn", "yaml"), f"{name} imports {m}"
             # the perception modules use none of these, not even lazily (the
             # import check above holds the rest of the package at import)
-            if name.startswith(PERCEPTION):
+            if name.startswith(NO_PIL):
                 assert top != "PIL", f"{name} imports {m}"
             if top == "transformers":
                 assert name == "openobj_torch.perception.encoders" and \

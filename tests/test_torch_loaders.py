@@ -146,28 +146,111 @@ def _scannet(root, colour_ext, rng_seed=0):
 
 
 def test_scannet_png_colour_and_part_downsample(tmp_path):
-    """part_down=10: the 9x12 part map is downsampled 2x (odd height: the
-    bilinear path, not OpenCV's 2x2 average)."""
+    """.jpg colour decoded by the port equal to the JAX loader's (cv2), the
+    whole sample equal; part_down=10: the 9x12 part map is downsampled 2x
+    (odd height: the bilinear path, not OpenCV's 2x2 average). A scan whose
+    colour frames are PNG files lists no frames, in both packages."""
     _scannet(tmp_path / "png", "png")
     _scannet(tmp_path / "jpg", "jpg")
-    t = tl.ScanNet(str(tmp_path / "png"), stride=10, part_mode=True, part_down=10)
+    assert len(tl.ScanNet(str(tmp_path / "png"), stride=10)) == 0
+    assert len(jl.ScanNet(str(tmp_path / "png"), stride=10)) == 0
+    t = tl.ScanNet(str(tmp_path / "jpg"), stride=10, part_mode=True, part_down=10)
     j = jl.ScanNet(str(tmp_path / "jpg"), stride=10, part_mode=True, part_down=10)
     assert len(t) == len(j) == 3
     for i in range(3):
         a, b = t[i], j[i]
         np.testing.assert_array_equal(
-            a.rgb, cv2.imread(str(tmp_path / "png" / "color" / f"{a.frame_id}.png"))[..., ::-1])
-        b.rgb = a.rgb                 # JPEG is lossy: colour compared above
+            a.rgb, cv2.imread(str(tmp_path / "jpg" / "color" / f"{a.frame_id}.jpg"))[..., ::-1])
         assert a.part_feat.shape == (4, 6, 8)
         assert_samples_equal(a, b)
 
 
 def test_scannet_jpeg_colour_raises(tmp_path):
+    """Every .jpg colour frame decodes as OpenCV decodes it; a progressive
+    one (which ScanNet never holds) raises, naming its ROADMAP item."""
     _scannet(tmp_path / "jpg", "jpg")
-    ds = tl.ScanNet(str(tmp_path / "jpg"), stride=10)
-    assert len(ds) == 3
-    with pytest.raises(NotImplementedError, match="A14b"):
-        ds[0]
+    ds = tl.ScanNet(str(tmp_path / "jpg"), stride=1)
+    assert len(ds) == 30
+    for i in range(len(ds)):
+        np.testing.assert_array_equal(
+            ds[i].rgb, cv2.imread(ds.color_paths[i])[..., ::-1])
+    cv2.imwrite(ds.color_paths[4], cv2.imread(ds.color_paths[4]),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match="progressive.*A14c"):
+        ds[4]
+
+
+def _unit(rng, n):
+    v = rng.normal(size=n)
+    return v / np.linalg.norm(v)
+
+
+def test_scannet_loader_and_intrinsic_file(tmp_path):
+    """The cases of tests/test_dataset_cli.py's TestScanNetLoader in both
+    packages: color/<i>.jpg + depth/<i>.png natsorted, the part_down=10
+    downsample, and the config loader's intrinsics from
+    intrinsic/intrinsic_depth.txt; every sample equal, colour included."""
+    root = tmp_path / "scan"
+    for d in ("color", "depth", "instance_our", "partlevel", "intrinsic"):
+        os.makedirs(root / d)
+    rng = np.random.default_rng(0)
+    h, w, n_raw = 48, 64, 30
+    for i in range(n_raw):
+        cv2.imwrite(str(root / "color" / f"{i}.jpg"),
+                    rng.integers(0, 255, (h, w, 3)).astype(np.uint8))
+        cv2.imwrite(str(root / "depth" / f"{i}.png"),
+                    (rng.uniform(0.5, 3.0, (h, w)) * 1000).astype(np.uint16))
+        np.save(str(root / "partlevel" / f"{i}.npy"),
+                rng.normal(size=(h // 5, w // 5, 8)).astype(np.float32))
+    for ino in range(3):
+        inst = np.ones((h, w), np.uint16)
+        inst[10:30, 20:50] = 4
+        cv2.imwrite(str(root / "instance_our" / f"semantic_instance_{ino}.png"), inst)
+    np.savetxt(str(root / "traj_w_c.txt"), np.stack([np.eye(4).reshape(-1)] * n_raw),
+               delimiter=" ")
+    k = np.eye(4)
+    k[0, 0], k[1, 1], k[0, 2], k[1, 2] = 42.0, 43.0, 31.5, 23.5
+    np.savetxt(str(root / "intrinsic" / "intrinsic_depth.txt"), k)
+    feats = {1: _unit(rng, 512), 4: _unit(rng, 512)}
+    cfeats = {1: _unit(rng, 384), 4: _unit(rng, 384)}
+    with open(root / "object_clipfeat.pkl", "wb") as f:
+        pickle.dump([feats] * 3, f)
+    with open(root / "object_capfeat.pkl", "wb") as f:
+        pickle.dump([cfeats] * 3, f)
+
+    t = tl.ScanNet(str(root), stride=10, part_mode=True, part_down=10)
+    j = jl.ScanNet(str(root), stride=10, part_mode=True, part_down=10)
+    assert len(t) == len(j) == 3
+    for i in range(3):
+        a = t[i]
+        assert a.rgb.shape == (h, w, 3) and a.depth.dtype == np.float32
+        assert 4 in a.bboxes and 0 in a.bboxes
+        assert a.part_feat.shape == (h // 10, w // 10, 8)
+        assert_samples_equal(a, j[i])
+
+    cfg = {
+        "dataset": {"path": str(root), "format": "ScanNet"},
+        "optimizer": {"args": {"lr": 1e-3, "weight_decay": 0.013}},
+        "trainer": {"stride": 10, "scale": 1000.0},
+        "render": {"depth_range": [0.0, 8.0], "n_bins": 9, "n_bins_cam2surface": 1,
+                   "n_bins_cam2surface_bg": 5, "iters_per_frame": 5, "n_per_optim": 24,
+                   "n_per_optim_bg": 24},
+        "model": {"n_unidir_funcs": 5, "obj_scale": 2.0, "bg_scale": 5.0,
+                  "surface_eps": 0.1, "other_eps": 0.05, "keyframe_buffer_size": 4,
+                  "keyframe_step": 25, "keyframe_step_bg": 50, "window_size": 2,
+                  "window_size_bg": 2, "hidden_feature_size": 8,
+                  "hidden_feature_size_bg": 8, "clip_point_feature_size": 8},
+        "camera": {"w": w, "h": h, "mw": 0, "mh": 0},
+    }
+    cfg_path = tmp_path / "scannet.json"
+    cfg_path.write_text(json.dumps(cfg))
+    tc, jc = tload(str(cfg_path)), jload(str(cfg_path))
+    assert (tc.camera.fx, tc.camera.fy, tc.camera.cx, tc.camera.cy) == (42.0, 43.0, 31.5, 23.5)
+    assert (tc.camera.fx, tc.camera.fy, tc.camera.cx, tc.camera.cy) == \
+        (jc.camera.fx, jc.camera.fy, jc.camera.cx, jc.camera.cy)
+    ts, js = tl.make_dataset(tc), jl.make_dataset(jc)
+    assert len(ts) == len(js) == 3
+    assert_samples_equal(ts[2], js[2])
 
 
 # --------------------------------------------------------------------------- #

@@ -138,14 +138,45 @@ def test_clis_default_to_the_card(tmp_path):
 
 
 def test_scannet_jpg_colour_refused(tmp_path):
+    """RawFrames on the ScanNet layout decodes color/*.jpg as the JAX
+    package's (cv2) does; only what ScanNet never holds, a progressive
+    file, is refused."""
     for d in ("color", "depth"):
         os.makedirs(tmp_path / d)
-    cv2.imwrite(str(tmp_path / "color" / "0.jpg"), np.zeros((8, 8, 3), np.uint8))
-    cv2.imwrite(str(tmp_path / "depth" / "0.png"), np.zeros((8, 8), np.uint16))
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        cv2.imwrite(str(tmp_path / "color" / f"{i}.jpg"),
+                    rng.integers(0, 256, (24, 40, 3)).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_PROGRESSIVE, i])
+        cv2.imwrite(str(tmp_path / "depth" / f"{i}.png"),
+                    rng.integers(500, 3000, (24, 40)).astype(np.uint16))
     frames = tcli.RawFrames(str(tmp_path), "ScanNet")
-    assert len(frames) == len(jcli.RawFrames(str(tmp_path), "ScanNet")) == 1
-    with pytest.raises(NotImplementedError, match="A14b"):
-        frames[0]
+    ref = jcli.RawFrames(str(tmp_path), "ScanNet")
+    assert len(frames) == len(ref) == 2
+    for got, want in zip(frames[0], ref[0]):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(NotImplementedError, match="progressive.*A14c"):
+        frames[1]
+
+
+def test_scannet_colour_brought_to_depth_size(tmp_path):
+    """ScanNet's colour frames are larger than its depth frames: RawFrames
+    resizes the colour to the depth camera, as the loader does, so the
+    stages see the colour the trainer sees."""
+    from openobj_torch.data.transforms import resize
+
+    for d in ("color", "depth"):
+        os.makedirs(tmp_path / d)
+    rng = np.random.default_rng(1)
+    cv2.imwrite(str(tmp_path / "color" / "0.jpg"),
+                rng.integers(0, 256, (48, 80, 3)).astype(np.uint8))
+    cv2.imwrite(str(tmp_path / "depth" / "0.png"),
+                rng.integers(500, 3000, (24, 40)).astype(np.uint16))
+    rgb, depth, _ = tcli.RawFrames(str(tmp_path), "ScanNet")[0]
+    assert rgb.shape == (24, 40, 3) and depth.shape == (24, 40)
+    want = resize(cv2.imread(str(tmp_path / "color" / "0.jpg"))[..., ::-1], (40, 24))
+    np.testing.assert_array_equal(rgb, want)
 
 
 # --------------------------------------------------------------------------- #
