@@ -11,6 +11,9 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      at the other widths' shapes: the tensor-core K1/K2 at the room_0 shapes
      with h=64, fg at h=16, 48 and 96, bg at h=80 and 112 (every width they
      are built for), and the SIMT K1/K2/K2r at h=24 (fg-like [8, 1200]);
+     and K1/K2 bf16 (csrc/fused_field_bf16.cu) against the plain version in
+     bf16 at fg and bg (ff.bf16_output_errors for K1, BF16_RATIO per leaf
+     for K2), timed with their bounds;
   3. runs the port of examples/synthetic_convergence.py through the kernels
      and a few training steps on the card against the same steps on the CPU;
   4. drives the main path: SceneMapper.process_frame at the Replica room_0
@@ -21,7 +24,8 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      just before and read just after: train.save_checkpoints (one object
      and the background reloaded, field outputs bit-identical),
      train.render_dataset of one pose (680x1200, 150 bins, chunks of 2048)
-     and train.export_meshes (the config's grid 128, voxel 0.005): K1 must
+     and train.export_meshes of MESH_OBJECTS objects (the config's grid
+     128, voxel 0.005): K1 must
      carry every field evaluation, as many launches as the code implies,
      with no K2, plain or eager call. Then, outside the counted run, one
      chunk of 4 objects rendered through K1 and through the plain field on
@@ -29,6 +33,15 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      one mesh timed stage by stage, and K1 against its plain version at
      the render and mesh shapes (K1's rows of the kernels line gain those
      shapes, each with the launches counted at exactly its dims);
+  4h. room_0 at bf16: phase 4's frames through a mapper whose config has
+     compute_dtype "bf16" (room_0.json otherwise as published), counts reset
+     before and read after: K1/K2 bf16 and K2r 200 times per trained frame,
+     nothing f32, plain or eager; ms per frame; the losses beside phase 4's;
+     a few steps on the card against the same steps on the CPU at bf16
+     (STEP_RTOL_BF16); one render chunk of 4 objects through K1 bf16 against
+     the plain version in bf16 (on the boxes phase 4b fitted); one frame
+     each with z_per_step and sample_per_step through the kernels (finite
+     losses, launch counts);
   4c. the port of examples/run_synthetic_scene.py on a scene with ground
      truth, with the counts reset before and read after: stage 1, the
      association (perception.pipeline.associate, its similarity matrices
@@ -112,9 +125,10 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      plain version, beside the times the scripts took of kernel, plain
      version and library call, and the bound;
   6. prints one JSON line with every kernel's numbers (the fused field's
-     launches summed over the counted runs of phases 4 to 4g, and by
-     run and shape as counted), the card's nvidia-smi line, and last a
-     JSON line {"ok": true, "device": ...}.
+     launches summed over the counted runs of phases 4 to 4h, and by
+     run and shape as counted; K1/K2 bf16 as rows of their own), each
+     phase's seconds, the card's nvidia-smi line, and last a JSON line
+     {"ok": true, "device": ...}.
 
 Each phase raises on failure; the script then exits non-zero and prints no
 result line. Without a CUDA device, or without the repository beside it, it
@@ -155,6 +169,20 @@ OTHER_WIDTHS = (
 
 FWD_ATOL = 1e-4
 GRAD_RTOL = 1e-3
+# bf16 (phase 2's K1/K2 bf16 and phase 4h): the bf16 kernels against the
+# plain version in bf16. K1's outputs by ff.bf16_output_errors over every
+# entry: at most ff.BF16_OFF_FRAC of them off by more than FWD_ATOL, none
+# further off than the plain bf16 is from the plain f32, all finite, and
+# the plain f32 in the kernel's place must fail the share. 4h's render
+# chunk likewise on depth and colour, at FWD_ATOL too (at RENDER_ATOL the
+# plain f32 would pass: 0.4% of its depths are off by more). K2: each
+# gradient leaf's max|d|/max|ref| within BF16_RATIO of that leaf's
+# bf16-vs-f32 distance (at most GRAD_RTOL)
+BF16_RATIO = 0.1
+# card-vs-CPU step losses at bf16 (the f32 gate is 1e-4)
+STEP_RTOL_BF16 = 1e-3
+# phase 4b meshes this many objects (and keeps its one-mesh breakdown)
+MESH_OBJECTS = 4
 # phase 4b: K1's render against the plain field on the card (one chunk of
 # 4 objects, the same jitter): depth and colour where both pick the same
 # winner, and the share of pixels whose winner differs (sharp thresholds:
@@ -328,6 +356,116 @@ def check_kernels(device, shapes) -> dict:
     return per
 
 
+def bf16_leaf_limit(dist: float) -> float:
+    """A gradient leaf's bf16 gate: a tenth of the plain version's own
+    bf16-vs-f32 distance there, at most GRAD_RTOL (GRAD_RTOL where bf16
+    does not move the leaf: b_alpha)."""
+    return min(GRAD_RTOL, BF16_RATIO * dist) if dist > 0 else GRAD_RTOL
+
+
+def bf16_shown(errs: dict) -> str:
+    """ff.bf16_output_errors of several outputs, for the log."""
+    return ", ".join(f"{k} off {e['off']:.2e} (plain f32 {e['control_off']:.2e}) max abs "
+                     f"{e['max_abs']:.2e} (bf16-vs-f32 {e['bf16_max']:.2e})"
+                     for k, e in errs.items())
+
+
+def check_kernels_bf16(device, shapes) -> dict:
+    """K1 and K2 of csrc/fused_field_bf16.cu against the plain version in
+    bf16 at each shape (K1 by ff.bf16_output_errors, K2 by BF16_RATIO per
+    leaf), and their times: kernel, plain version, bound with bf16 products
+    at the dense bf16 rate."""
+    import torch
+    from openobj_torch.models import object_field
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.scripts._benchlib import field_bounds
+
+    per = {"fused_field_fwd_bf16": [], "fused_field_bwd_bf16": []}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    lib = ff._lib("fused_field_bf16")
+    for shape in shapes:
+        o, n, h = shape["o"], shape["n"], shape["h"]
+        params = object_field.init_stacked_fields(
+            gen, o, hidden=h, clip_size=512, scale=2.0, device=device)
+        params = object_field.tree_map(
+            lambda x: x + 0.05 * torch.randn(x.shape, generator=gen, device=device), params)
+        wflat = ff._pack_params(params, h, True).contiguous()
+        pts = (0.5 * torch.randn((o, n, 3), generator=gen, device=device)).contiguous()
+        cts = [torch.randn((o, n, k), generator=gen, device=device) for k in (1, 3, h)]
+
+        outs_k = ff.fused_field_forward_cuda(wflat, pts, h, True, "bf16")
+        g_k = ff.fused_field_backward_cuda(wflat, pts, *cts, h, True, "bf16")
+        plain, w_req = {}, {}
+        for cd in ("bf16", "f32"):
+            w_req[cd] = wflat.detach().requires_grad_(True)
+            outs = ff.fused_field_plain(w_req[cd], pts, h, True, cd)
+            plain[cd + "_obj"] = sum((x * c).sum() for x, c in zip(outs, cts))
+            plain[cd] = [x.detach() for x in outs]
+            (plain[cd + "_grad"],) = torch.autograd.grad(plain[cd + "_obj"], w_req[cd],
+                                                         retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {name: ff.bf16_output_errors(xk, xp, x32, FWD_ATOL)
+                for name, xk, xp, x32 in zip(("alpha", "color", "hclip"), outs_k,
+                                             plain["bf16"], plain["f32"])}
+        fwd_err = max(e["max_abs"] for e in errs.values())
+        dev = ff.leaf_errors(g_k, plain["bf16_grad"], h)
+        dist = ff.leaf_errors(plain["bf16_grad"], plain["f32_grad"], h)
+        worst = max(dev, key=lambda k: dev[k] / bf16_leaf_limit(dist[k]))
+        log(f"[kernels bf16] {shape['name']} K1 vs plain bf16: {bf16_shown(errs)}")
+        bad = [k for k, e in errs.items() if not e["ok"]]
+        bad += [k for k in dev if not dev[k] <= bf16_leaf_limit(dist[k])]
+        if bad:
+            raise AssertionError(f"K1/K2 bf16 {shape['name']}: {bad} outside the gates: "
+                                 f"outputs {errs}; leaves {dev} against bf16-vs-f32 {dist}")
+
+        def fwd_k():
+            err = lib.ff_forward(pts.data_ptr(), wflat.data_ptr(), a_t.data_ptr(),
+                                 c_t.data_ptr(), f_t.data_ptr(), o, n, h, 1, ff._stream(pts))
+            if err:
+                raise RuntimeError(f"ff_forward (bf16): CUDA error {err}")
+
+        tile, n_tiles = ff.bwd_tiling(lib, o, n, h, device)
+        part = torch.empty((o, n_tiles, lib.ff_param_count(h)), device=device)
+
+        def bwd_k():
+            err = lib.ff_backward(pts.data_ptr(), wflat.data_ptr(), cts[0].data_ptr(),
+                                  cts[1].data_ptr(), cts[2].data_ptr(), part.data_ptr(),
+                                  o, n, h, 1, tile, ff._stream(pts))
+            if err:
+                raise RuntimeError(f"ff_backward (bf16): CUDA error {err}")
+
+        a_t, c_t, f_t = (torch.empty_like(x) for x in outs_k)
+        t_fwd = time_ms(fwd_k)
+        with torch.no_grad():
+            t_fwd_plain = time_ms(lambda: ff.fused_field_plain(wflat, pts, h, True, "bf16"))
+        t_bwd = time_ms(bwd_k)
+        t_bwd_plain = time_ms(lambda: torch.autograd.grad(plain["bf16_obj"], w_req["bf16"],
+                                                          retain_graph=True))
+        fb = field_bounds(o, n, h, lib.ff_param_count(h), "bf16")
+        names = ff.kernel_names(h, "bf16")
+        common = dict(shape=shape["name"], dims=[o, n, h], library_ms=None)
+        per["fused_field_fwd_bf16"].append(dict(
+            common, kernel=names["fused_field_fwd_bf16"], ms=t_fwd, plain_ms=t_fwd_plain,
+            bound=fb["fwd"], bound_simt=fb["fwd_simt"][0], err=fwd_err,
+            off={k: e["off"] for k, e in errs.items()}))
+        per["fused_field_bwd_bf16"].append(dict(
+            common, kernel=names["fused_field_bwd_bf16"], ms=t_bwd, plain_ms=t_bwd_plain,
+            bound=fb["bwd"], bound_simt=fb["bwd_simt"][0],
+            err=float((g_k - plain["bf16_grad"]).abs().max()), rel=dev[worst]))
+        log(f"[kernels bf16] {shape['name']} O={o} N={n} h={h} ({names['fused_field_fwd_bf16']}, "
+            f"{names['fused_field_bwd_bf16']}): K1 outputs off by > {FWD_ATOL} at most "
+            f"{max(e['off'] for e in errs.values()):.2e} (limit {ff.BF16_OFF_FRAC}), max abs "
+            f"{fwd_err:.2e}; {t_fwd:.4f} ms (plain {t_fwd_plain:.4f}, bound {fb['fwd'][0]:.4f} "
+            f"{fb['fwd'][1]}) | K2 worst leaf {worst} {dev[worst]:.2e} (bf16-vs-f32 "
+            f"{dist[worst]:.2e}, limit {bf16_leaf_limit(dist[worst]):.2e}); {t_bwd:.4f} ms tile "
+            f"{tile} (plain bwd {t_bwd_plain:.4f}, bound {fb['bwd'][0]:.4f} {fb['bwd'][1]})")
+        log(f"[kernels bf16] {shape['name']} per leaf, K2 vs plain bf16 / plain bf16 vs f32: "
+            + ", ".join(f"{k} {dev[k]:.1e}/{dist[k]:.1e}" for k in dev))
+        del params, wflat, pts, cts, outs_k, g_k, plain, w_req, part, a_t, c_t, f_t
+    return per
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: convergence through the kernels, and steps against the CPU
 # --------------------------------------------------------------------------- #
@@ -345,20 +483,23 @@ def check_convergence(device) -> None:
         f"({time.perf_counter() - t0:.1f} s) CONVERGED OK")
 
 
-def check_steps_vs_cpu(device) -> None:
+def check_steps_vs_cpu(device, compute_dtype: str = "f32") -> list:
     """A few optimizer steps of a small scene on the card (kernels) and on
     the CPU (plain version) from the same state and batches: the per-step
-    losses must agree."""
+    losses must agree (rel 1e-4 in f32, STEP_RTOL_BF16 in bf16). Returns
+    the (card, CPU) loss pairs."""
     import torch
     from openobj_torch import convert
     from openobj_torch.core import trainer
     from openobj_torch.core.frame_store import append_frame, init_frame_store
     from openobj_torch.core.scene import Camera
+    from openobj_torch.ops import fused_field as ff
 
     cfg = trainer.TrainConfig(
         n_iters_per_frame=4, win_size=2, n_samples_per_frame=16,
         win_size_bg=2, n_samples_per_frame_bg=64, hidden=32, hidden_bg=128,
-        clip_size=64, part_mode=True, part_down=4)
+        clip_size=64, part_mode=True, part_down=4, compute_dtype=compute_dtype)
+    limit = STEP_RTOL_BF16 if compute_dtype == "bf16" else 1e-4
     cam = Camera(width=40, height=32, fx=30.0, fy=30.0, cx=20.0, cy=16.0)
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cpu")
@@ -387,7 +528,8 @@ def check_steps_vs_cpu(device) -> None:
     state_gpu = convert.train_state_from_numpy(convert.to_numpy(state_cpu), device)
     pf_gpu = store.partfeat.to(device)
     act_gpu = fg["active"].to(device)
-    worst = 0.0
+    worst, pairs = 0.0, []
+    ff.reset_counts()
     for i in range(cfg.n_iters_per_frame):
         fsl = {k: x[i] for k, x in fg_b.items()}
         bsl = {k: x[i] for k, x in bg_b.items()}
@@ -397,10 +539,17 @@ def check_steps_vs_cpu(device) -> None:
             {k: x.to(device) for k, x in bsl.items()}, act_gpu, cfg, pf_gpu)
         rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
         worst = max(worst, rel)
-        if not (np.isfinite(float(l_gpu)) and rel <= 1e-4):
-            raise AssertionError(f"step {i}: card loss {float(l_gpu)!r} vs CPU {float(l_cpu)!r}")
-    log(f"[steps] {cfg.n_iters_per_frame} steps, card (kernels) vs CPU (plain): "
-        f"worst rel loss diff {worst:.2e} (limit 1e-4)")
+        pairs.append((float(l_gpu), float(l_cpu)))
+        if not (np.isfinite(float(l_gpu)) and rel <= limit):
+            raise AssertionError(f"step {i} ({compute_dtype}): card loss {float(l_gpu)!r} vs "
+                                 f"CPU {float(l_cpu)!r}")
+    fwd = "fused_field_fwd_bf16" if compute_dtype == "bf16" else "fused_field_fwd"
+    if ff.COUNTS[fwd] != 2 * cfg.n_iters_per_frame or ff.COUNTS["field_eager"]:
+        raise AssertionError(f"steps ({compute_dtype}) left the kernels: {ff.COUNTS}")
+    log(f"[steps] {cfg.n_iters_per_frame} steps at {compute_dtype}, h 32/128, card (kernels) vs "
+        f"CPU (plain): losses {[(round(a, 5), round(b, 5)) for a, b in pairs]}, worst rel loss "
+        f"diff {worst:.2e} (limit {limit})")
+    return pairs
 
 
 # --------------------------------------------------------------------------- #
@@ -531,7 +680,7 @@ def run_main_path(device, profile: bool = False):
         f"{[round(t * 1e3, 1) for t in times]} ms (first includes warm-up); "
         f"last-step losses {[round(float(v[-1]), 4) for v in vecs]}; counts {counts}")
     log(f"[main] ms/frame (frames 2-3): {1e3 * float(np.mean(times[1:])):.1f}")
-    return by_shape, cfg, mapper, frames
+    return by_shape, cfg, mapper, frames, vecs
 
 
 # --------------------------------------------------------------------------- #
@@ -566,16 +715,18 @@ def fixed_jitter(u):
         renderer._uniform = draw
 
 
-def k1_shape_row(name, wflat, pts, h, launches) -> dict:
-    """K1 with the clip head off at one render or mesh shape: its max abs
-    error from the plain version, its time, the plain version's and the
-    bound; ``launches`` were counted at exactly this shape."""
+def k1_shape_row(name, wflat, pts, h, launches, compute_dtype: str = "f32") -> dict:
+    """K1 (of the ``compute_dtype`` build) with the clip head off at one
+    render or mesh shape: its error from the plain version (f32: max abs,
+    gated at FWD_ATOL; bf16: ff.bf16_output_errors at FWD_ATOL), its time, the plain version's and the bound; ``launches``
+    were counted at exactly this shape."""
     import torch
     from openobj_torch.ops import fused_field as ff
     from openobj_torch.scripts._benchlib import bound_ms, fwd_macs_noclip
 
     o, n, _ = pts.shape
-    lib = ff._lib()
+    cd = compute_dtype
+    lib = ff._lib(ff._SOURCE[cd])
     alpha = torch.empty((o, n, 1), device=pts.device)
     color = torch.empty((o, n, 3), device=pts.device)
 
@@ -587,22 +738,32 @@ def k1_shape_row(name, wflat, pts, h, launches) -> dict:
 
     fwd_k()
     with torch.no_grad():
-        a_p, c_p, _ = ff.fused_field_plain(wflat, pts, h, False)
+        a_p, c_p, _ = ff.fused_field_plain(wflat, pts, h, False, cd)
         torch.cuda.synchronize()
         err = max(float((alpha - a_p).abs().max()), float((color - c_p).abs().max()))
+        gate = ""
+        if cd == "f32":
+            if not err <= FWD_ATOL:
+                raise AssertionError(f"K1 {name} ({cd}): max abs err {err:.3e} > {FWD_ATOL}")
+        else:
+            a_32, c_32, _ = ff.fused_field_plain(wflat, pts, h, False)
+            errs = {"alpha": ff.bf16_output_errors(alpha, a_p, a_32, FWD_ATOL),
+                    "color": ff.bf16_output_errors(color, c_p, c_32, FWD_ATOL)}
+            del a_32, c_32
+            gate = f" ({bf16_shown(errs)}; off limit {ff.BF16_OFF_FRAC})"
+            if not all(e["ok"] for e in errs.values()):
+                raise AssertionError(f"K1 {name} ({cd}) outside the bf16 gate: {errs}")
         del a_p, c_p
-        if not err <= FWD_ATOL:
-            raise AssertionError(f"K1 {name}: max abs err {err:.3e} > {FWD_ATOL}")
         t_k = time_ms(fwd_k)
-        t_p = time_ms(lambda: ff.fused_field_plain(wflat, pts, h, False), iters=3, warmup=1)
+        t_p = time_ms(lambda: ff.fused_field_plain(wflat, pts, h, False, cd), iters=3, warmup=1)
     macs, mm = fwd_macs_noclip(h)
     npts = o * n
     nbytes = npts * 12 + wflat.numel() * 4 + npts * 4 * (1 + 3)
-    b = bound_ms(2.0 * macs * npts, nbytes, 2.0 * mm * npts)
-    log(f"[outputs] K1 {name} [{o},{n},3] h={h}: err {err:.2e}, {t_k:.4f} ms "
+    b = bound_ms(2.0 * macs * npts, nbytes, 2.0 * mm * npts, cd)
+    log(f"[outputs] K1 {name} [{o},{n},3] h={h} {cd}: err {err:.2e}{gate}, {t_k:.4f} ms "
         f"(plain {t_p:.4f}, bound {b[0]:.4f} {b[1]}, SIMT-only "
         f"{bound_ms(2.0 * macs * npts, nbytes)[0]:.4f}), {launches} launches at this shape")
-    return {"shape": name, "kernel": ff.kernel_names(h)["fused_field_fwd"], "dims": [o, n, h],
+    return {"shape": name, "kernel": ff.kernel_names(h, cd)[ff._FWD[cd]], "dims": [o, n, h],
             "launches": launches, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b[0], "bound_by": b[1],
             "bound_simt_ms": bound_ms(2.0 * macs * npts, nbytes)[0], "library_ms": None}
@@ -641,7 +802,9 @@ def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
                          hit_frac=HIT_FRAC)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    n_meshes = train.export_meshes(mapper, out, cfg.grid_dim, cfg.live_voxel_size)
+    meshed = sorted(mapper.registry.inst_to_slot)[:MESH_OBJECTS]
+    n_meshes = train.export_meshes(mapper, out, cfg.grid_dim, cfg.live_voxel_size,
+                                   inst_ids=meshed)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     counts = dict(ff.COUNTS)
@@ -650,7 +813,8 @@ def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
     # the launches the code implies: one K1 per fg chunk (every object at
     # once), one per chunk of each background-id view (the config's bg ids
     # 0/2/3: the background model and, here, blocks 2 and 3), and per
-    # meshed object its grid chunks plus its vertex chunks
+    # meshed object (the first MESH_OBJECTS) its grid chunks plus its
+    # vertex chunks
     reg = mapper.registry
     ids, params, t_wo, ext, cen = train.render_stack(mapper, cfg.bg_ids)
     n_views = sum(1 for i, s in reg.inst_to_slot.items()
@@ -671,6 +835,8 @@ def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
     bg_launches = (n_views + bg_model) * view_chunks
     mesh_launches = 0
     for i, s in reg.inst_to_slot.items():
+        if i not in meshed:
+            continue
         dim = meshing.adaptive_grid_dim(reg.slots[s].bbox3d, cfg.live_voxel_size, cfg.grid_dim)
         mesh_launches += -(-dim ** 3 // min(MESH_CHUNK, dim ** 3))
         obj = os.path.join(out, "scene_mesh", f"obj{i}.obj")
@@ -697,7 +863,7 @@ def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
         f"{cam.height}x{cam.width}, {RENDER_BINS} bins: {1e3 * (t2 - t1):.1f} ms/frame "
         f"({len(ids)} objects together, cap {cap} rays each, {need} hit at most; "
         f"{n_views} background-id objects and the background model as views); {n_meshes} "
-        f"meshes at grid "
+        f"meshes (objects {meshed}) at grid "
         f"{cfg.grid_dim}: {1e3 * (t3 - t2) / max(n_meshes, 1):.1f} ms/mesh; counts {counts}")
 
     # reload one object and the background: bit-identical field outputs
@@ -800,6 +966,159 @@ def run_outputs(device, cfg, mapper, frames) -> tuple[list[dict], dict]:
         del x
         torch.cuda.empty_cache()
     return rows, by_shape
+
+
+# --------------------------------------------------------------------------- #
+# phase 4h: room_0 at bf16
+# --------------------------------------------------------------------------- #
+
+
+def render_chunk_bf16(device, mapper, boxed, cfg, t_wc) -> dict:
+    """One render chunk of 4 of ``mapper``'s objects (the boxes of
+    ``boxed``, phase 4's mapper, which phase 4b fitted; the same jitter)
+    through K1 bf16, the plain version in bf16 and in f32, on the card:
+    winners that differ
+    between K1 and the plain bf16 on at most WINNER_FLIP_FRAC of the covered
+    pixels; where all three agree, depth and colour by
+    ff.bf16_output_errors at FWD_ATOL."""
+    import torch
+    from openobj_torch import train
+    from openobj_torch.core import renderer
+    from openobj_torch.models import object_field
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.ops import sampling
+
+    cam = cfg.camera
+    ids, _, t_wo, ext, cen = train.render_stack(boxed, cfg.bg_ids)
+    slots = torch.as_tensor([mapper.registry.inst_to_slot[int(i)] for i in ids[:4]],
+                            device=device)
+    params = object_field.tree_map(lambda x: x[slots], mapper.state.fg_params)
+    n_px = cam.height * cam.width
+    tw = torch.as_tensor(t_wc, dtype=torch.float32, device=device)
+    origins, dirs_w = sampling.origin_dirs_w(tw.expand(n_px, 4, 4),
+                                             mapper.cam_dirs.reshape(-1, 3))
+    gen = torch.Generator(device=device).manual_seed(1)
+    sub = slice(0, 4)
+    u = torch.rand((4, RENDER_CHUNK, RENDER_BINS), generator=gen, device=device)
+    args = (params, t_wo[sub], ext[sub], cen[sub],
+            torch.ones(4, dtype=torch.bool, device=device), origins, dirs_w, gen)
+    kw = dict(n_bins=RENDER_BINS, max_hit_rays=RENDER_CHUNK, chunk=RENDER_CHUNK,
+              max_deg=cfg.train.max_deg)
+    with fixed_jitter(u):
+        got = renderer.render_frame_batched(*args, compute_dtype="bf16", **kw)
+        with plain_field_on_card():
+            ref = renderer.render_frame_batched(*args, compute_dtype="bf16", **kw)
+            f32 = renderer.render_frame_batched(*args, compute_dtype="f32", **kw)
+    wk, wp, w32 = got["winner"], ref["winner"], f32["winner"]
+    either = int(((wk >= 0) | (wp >= 0)).sum())
+    flips = int(((wk != wp) & ((wk >= 0) | (wp >= 0))).sum())
+    same = (wk == wp) & (wp == w32) & (wk >= 0)
+    if not int(same.sum()):
+        raise AssertionError("[room_0 bf16] the render chunk hit nothing")
+    errs = {k: ff.bf16_output_errors(got[k][same], ref[k][same], f32[k][same], FWD_ATOL)
+            for k in ("depth", "color")}
+    log(f"[room_0 bf16] render chunk, 4 objects x {RENDER_CHUNK} rays x {RENDER_BINS} bins, K1 "
+        f"bf16 vs plain bf16 on the card: {flips} of {either} covered pixels change winner "
+        f"({flips / max(either, 1):.2e}, limit {WINNER_FLIP_FRAC}); where all three agree "
+        f"({int(same.sum())}), off by > {FWD_ATOL}: {bf16_shown(errs)} (off limit "
+        f"{ff.BF16_OFF_FRAC}); winners bf16 vs f32 differ on "
+        f"{int(((wp != w32) & ((wp >= 0) | (w32 >= 0))).sum())}")
+    if not (flips <= WINNER_FLIP_FRAC * max(either, 1) and all(e["ok"] for e in errs.values())):
+        raise AssertionError("K1 bf16's render chunk disagrees with the plain field in bf16")
+    return {"flips": flips, "errors": errs, "max_abs": max(e["max_abs"] for e in errs.values())}
+
+
+def run_room0_bf16(device, frames, f32_vecs, f32_mapper) -> dict:
+    """Phase 4h: phase 4's main path with the config's compute_dtype "bf16"
+    (room_0.json otherwise unchanged, the same 3 synthetic frames), counts
+    reset before and read after: K1/K2 bf16 and K2r 200 times per trained
+    frame, nothing f32, plain or eager; the card's steps against the CPU's
+    at bf16; one render chunk K1 bf16 vs plain (on the boxes that phase 4b
+    fitted to ``f32_mapper``, phase 4's); one frame each with z_per_step
+    and sample_per_step through the kernels."""
+    import dataclasses
+
+    import torch
+    from openobj_torch.config import load_scene_config, make_mapper
+    from openobj_torch.ops import fused_field as ff
+
+    t_all = time.perf_counter()
+    cfg = load_scene_config(os.path.join(ROOT, "configs", "replica", "room_0.json"))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="bf16"))
+    tc = cfg.train
+    mapper = make_mapper(cfg, frame_capacity=8, device=device)
+    torch.cuda.synchronize()
+    ff.reset_counts()
+    times, vecs = [], []
+    for rgb, depth, inst, t_wc, pf in frames:
+        t0 = time.perf_counter()
+        losses = mapper.process_frame(rgb, depth, inst, t_wc, partfeat=pf)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        vecs.append(None if losses is None else losses.cpu().numpy())
+    mapper.finish()
+    counts, by_shape = dict(ff.COUNTS), dict(ff.COUNTS_BY_SHAPE)
+    if any(v is None or v.shape != (tc.n_iters_per_frame,) or not np.isfinite(v).all()
+           for v in vecs):
+        raise AssertionError(f"[room_0 bf16] loss vectors {vecs}")
+    steps = 2 * tc.n_iters_per_frame * len(vecs)
+    want = {"fused_field_fwd_bf16": steps, "fused_field_bwd_bf16": steps,
+            "fused_field_bwd_reduce": steps}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"[room_0 bf16] counts {counts}, expected {want} and nothing else")
+    ms = 1e3 * float(np.mean(times[1:]))
+    log(f"[room_0 bf16] room_0 envelope at compute_dtype bf16, {mapper.n_objects} objects in a "
+        f"{mapper.state.n_slots}-slot bucket + bg: frame times {[round(t * 1e3, 1) for t in times]}"
+        f" ms; ms/frame (frames 2-3) {ms:.1f}; launches K1 bf16 {counts['fused_field_fwd_bf16']}, "
+        f"K2 bf16 {counts['fused_field_bwd_bf16']}, K2r {counts['fused_field_bwd_reduce']} "
+        f"(the code implies {steps} each), f32 / plain / eager 0")
+    log(f"[room_0 bf16] last-step losses bf16 {[round(float(v[-1]), 4) for v in vecs]} beside "
+        f"f32 (phase 4) {[round(float(v[-1]), 4) for v in f32_vecs]}; mean over the last 10 "
+        f"steps bf16 {[round(float(v[-10:].mean()), 4) for v in vecs]}, f32 "
+        f"{[round(float(v[-10:].mean()), 4) for v in f32_vecs]}")
+    pairs = check_steps_vs_cpu(device, "bf16")
+    chunk = render_chunk_bf16(device, mapper, f32_mapper, cfg, frames[-1][3])
+    # K1 bf16 alone at phase 4b's render shape (every object of the stack x
+    # one chunk of 2048 rays x 149 samples), on this mapper's weights; no
+    # counted run renders at bf16, hence no launches at that shape
+    from openobj_torch import train
+    from openobj_torch.models import object_field
+
+    ids = train.render_stack(f32_mapper, cfg.bg_ids)[0]
+    slots = torch.as_tensor([mapper.registry.inst_to_slot[int(i)] for i in ids], device=device)
+    w = ff._pack_params(object_field.tree_map(lambda x: x[slots], mapper.state.fg_params),
+                        tc.hidden, False).contiguous()
+    gen = torch.Generator(device=device).manual_seed(2)
+    x = 0.5 * torch.randn((len(ids), RENDER_CHUNK * (RENDER_BINS - 1), 3), generator=gen,
+                          device=device)
+    k1_rows = [k1_shape_row("render", w, x, tc.hidden, 0, "bf16")]
+    del mapper, w, x
+    torch.cuda.empty_cache()
+
+    options = {}
+    for opt in ("z_per_step", "sample_per_step"):
+        ocfg = dataclasses.replace(cfg, train=dataclasses.replace(tc, **{opt: True}))
+        omapper = make_mapper(ocfg, frame_capacity=8, device=device)
+        rgb, depth, inst, t_wc, pf = frames[0]
+        ff.reset_counts()
+        t0 = time.perf_counter()
+        losses = omapper.process_frame(rgb, depth, inst, t_wc, partfeat=pf)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(ff.COUNTS)
+        v = None if losses is None else losses.cpu().numpy()
+        want = {k: 2 * tc.n_iters_per_frame for k in
+                ("fused_field_fwd_bf16", "fused_field_bwd_bf16", "fused_field_bwd_reduce")}
+        if v is None or not np.isfinite(v).all() or {k: x for k, x in counts.items() if x} != want:
+            raise AssertionError(f"[room_0 bf16] {opt}: losses {v}, counts {counts}")
+        options[opt] = dict(ff.COUNTS_BY_SHAPE)
+        log(f"[room_0 bf16] {opt}: one frame {1e3 * dt:.1f} ms (the first: warm-up in it), "
+            f"losses finite, last {float(v[-1]):.4f}; K1/K2 bf16 and K2r "
+            f"{counts['fused_field_fwd_bf16']} each")
+        del omapper
+    log(f"[room_0 bf16] phase 4h took {time.perf_counter() - t_all:.1f} s")
+    return {"by_shape": by_shape, "by_shape_options": options, "ms_per_frame": ms,
+            "vecs": vecs, "steps": pairs, "render_chunk": chunk, "k1_rows": k1_rows}
 
 
 # --------------------------------------------------------------------------- #
@@ -1017,7 +1336,7 @@ def write_room0_raw(tmp) -> dict:
                                         assoc_stride=ASSOC_STRIDE)
     write_s = time.perf_counter() - t0
     log(f"[room_0 raw] {RAW_FRAMES} raw frames at {cam.height}x{cam.width} written in "
-        f"{write_s:.1f} s (phases 4d and 4e read them)")
+        f"{write_s:.1f} s on 4 threads (phases 4d and 4e read them)")
     return {"root": root, "gt_maps": gt_maps, "cam": cam, "write_s": write_s}
 
 
@@ -2112,46 +2431,62 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
+    phase_s = {}
+
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        log(f"[time] phase {name}: {phase_s[name]} s")
+        return out
+
     t0 = time.perf_counter()
-    secs = kernels.build(verbose=True)
+    secs = phase("1 build", kernels.build, verbose=True)
     log(f"[build] {secs} ({time.perf_counter() - t0:.1f} s)")
 
-    per = check_kernels(device, (FG, BG) + OTHER_WIDTHS)
-    check_convergence(device)
-    check_steps_vs_cpu(device)
-    by_shape_main, cfg, mapper, frames = run_main_path(device, profile=args.profile)
-    k1_output_rows, by_shape_out = run_outputs(device, cfg, mapper, frames)
+    per = phase("2 kernels", check_kernels, device, (FG, BG) + OTHER_WIDTHS)
+    per.update(phase("2 kernels bf16", check_kernels_bf16, device, (FG, BG)))
+    phase("3 convergence", check_convergence, device)
+    phase("3 steps", check_steps_vs_cpu, device)
+    by_shape_main, cfg, mapper, frames, vecs = phase("4 main", run_main_path, device,
+                                                     profile=args.profile)
+    k1_output_rows, by_shape_out = phase("4b outputs", run_outputs, device, cfg, mapper, frames)
+    bf16 = phase("4h room_0 bf16", run_room0_bf16, device, frames, vecs, mapper)
     del mapper, frames
     torch.cuda.empty_cache()
-    syn = run_synthetic_scene(device)
+    syn = phase("4c synthetic", run_synthetic_scene, device)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     raw_dir = tempfile.mkdtemp(prefix="room0_raw_", dir=os.path.join(ROOT, "build"))
     try:
-        raw = write_room0_raw(raw_dir)
-        disk = run_room0_from_disk(device, raw)
-        auto = run_room0_auto(device, raw)
-        exported = run_room0_export(device, auto["logdir"])
-        scannet = run_scannet(device, raw)
+        raw = phase("4d raw frames", write_room0_raw, raw_dir)
+        disk = phase("4d disk", run_room0_from_disk, device, raw)
+        auto = phase("4e auto", run_room0_auto, device, raw)
+        exported = phase("4f export", run_room0_export, device, auto["logdir"])
+        scannet = phase("4g scannet", run_scannet, device, raw)
     finally:
         shutil.rmtree(raw_dir, ignore_errors=True)
     # the synthetic scene's trained shapes at widths other than the main
     # path's (its bg field, h=64)
     other = sorted({(o, n, h) for (k, o, n, h) in syn["by_shape"]
                     if k == "fused_field_bwd" and h not in (FG["h"], BG["h"])})
-    per_syn = check_kernels(device, [dict(name=f"synthetic_bg{h}", o=o, n=n, h=h)
-                                     for o, n, h in other])
-    probe_rows = run_probe_path(device)
+    per_syn = phase("4c kernels", check_kernels, device,
+                    [dict(name=f"synthetic_bg{h}", o=o, n=n, h=h) for o, n, h in other])
+    probe_rows = phase("5 probes", run_probe_path, device)
 
     replaces = {
         "fused_field_fwd": "openobj_tpu/ops/fused_field.py:160",
         "fused_field_bwd": "openobj_tpu/ops/fused_field.py:172",
         "fused_field_bwd_reduce": "openobj_tpu/ops/fused_field.py:285",
+        "fused_field_fwd_bf16": "openobj_tpu/ops/fused_field.py:160",
+        "fused_field_bwd_bf16": "openobj_tpu/ops/fused_field.py:172",
     }
     # launches as counted in each run, by (count, O, N, h)
     paths = {"room_0 training": by_shape_main, "room_0 outputs": by_shape_out,
              "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"],
              "room_0 auto perception": auto["by_shape"],
-             "room_0 export": exported["by_shape"], "scannet": scannet["by_shape"]}
+             "room_0 export": exported["by_shape"], "scannet": scannet["by_shape"],
+             "room_0 bf16": bf16["by_shape"],
+             **{f"room_0 bf16 {k}": v for k, v in bf16["by_shape_options"].items()}}
 
     def launches_at(name, dims):
         return sum(bs.get((name, *dims), 0) for bs in paths.values())
@@ -2165,12 +2500,16 @@ def main(argv=None) -> int:
                   "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound"][0],
                   "bound_by": s["bound"][1], "bound_simt_ms": s["bound_simt"],
                   "library_ms": s["library_ms"]}
-                 for s in every + per_syn[name]]
+                 for s in every + per_syn.get(name, [])]
         if name == "fused_field_fwd":
             timed += k1_output_rows
+        if name == "fused_field_fwd_bf16":
+            timed += bf16["k1_rows"]
         by_path = {p: sum(v for k, v in bs.items() if k[0] == name) for p, bs in paths.items()}
         rows.append({
-            "name": name, "route": "cuda", "source": "openobj_torch/csrc/fused_field.cu",
+            "name": name, "route": "cuda",
+            "source": "openobj_torch/csrc/" + (
+                "fused_field_bf16.cu" if name.endswith("_bf16") else "fused_field.cu"),
             "replaces": replaces[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(s["max_abs_err"] for s in timed),
@@ -2190,7 +2529,10 @@ def main(argv=None) -> int:
             "launch_shapes": {p: [[*k[1:], v] for k, v in sorted(bs.items()) if k[0] == name]
                               for p, bs in paths.items()},
         })
+        if name == "fused_field_fwd_bf16":   # the gate's measure beside the max abs
+            rows[-1]["off_share"] = {s["shape"]: s["off"] for s in shapes}
     rows += probe_rows
+    log(f"[time] phases {phase_s}")
     log(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)

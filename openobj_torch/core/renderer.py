@@ -29,7 +29,10 @@ chunk's points.
 
 Random jitter is drawn from a ``torch.Generator`` in place of a JAX key, by
 ``_uniform`` alone, so the draws follow the JAX package's law, not its bits.
-``compute_dtype="bf16"`` is not ported and raises.
+``compute_dtype="bf16"`` evaluates the field in bf16: K1's bf16 build on a
+CUDA tensor (products on bf16-rounded operands, f32 sums and biases), its
+plain version on a CPU tensor; the JAX package evaluates its XLA field in
+bf16 here, whose forward rounds the same operands.
 """
 
 from __future__ import annotations
@@ -61,9 +64,6 @@ def _bin_midpoints(gen, near, far, n_bins: int) -> torch.Tensor:
 
 def _evaluator(params, stacked: bool, max_deg: int, compute_dtype: str,
                do_clip: bool = False):
-    if compute_dtype != "f32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the renderer is f32 only so far")
     return fused_field.field_evaluator(params, stacked=stacked, max_deg=max_deg,
                                        do_clip=do_clip, compute_dtype=compute_dtype)
 

@@ -4,7 +4,13 @@ Port of ``openobj_tpu.core.trainer``. One frame draws every object's rays
 from the frame store in one flat gather (``_sample_batch``), then runs
 ``n_iters_per_frame`` AdamW steps (``run_step``), each a field
 forward+backward over [O objects, rays, samples] plus the background model,
-the composited multi-term loss, and the slot-masked AdamW update.
+the composited multi-term loss, and the slot-masked AdamW update. Two
+options change the order of the draws, not their law: ``z_per_step``
+keeps the frame's rays and per-object depth bound but has each step draw
+its own z lattice (``resolve_z``); ``sample_per_step`` has each step draw
+its own rays (``n_iters=1``), so the two latest keyframes, forced to the
+end of a draw list, land in every step's window, as in the JAX package.
+Every draw comes from the one ``torch.Generator`` of the frame.
 
 Workload shape at the Replica room_0 envelope: per object and step 120 rays
 (win 5 x 24 pixels) x 10 samples; background 1200 rays x 14 samples with its
@@ -12,14 +18,19 @@ own 128-wide field; one AdamW over everything, lr 1e-3, wd 0.013.
 
 The field forward/backward goes through ``ops.fused_field.field_evaluator``,
 whatever ``field_impl`` says. Where the kernels cover the field's shape
-(``fused_field.kernels_cover``: ``max_deg`` 5 and f32, at any hidden width)
-that is the hand-written kernel pair on a CUDA device and the kernels'
-plain version on the CPU; any other shape runs the eager ``object_field``
-field on either device, as the reference's default ``field_impl="xla"``
-does. The pick is made on the shape before anything is launched. Knobs
-that only shape the JAX program's layout (``scan_unroll``, ``remat``,
-``gemm_impl``, ``optim_impl``, and the JAX package's ray-minor batch
-storage) are accepted so that configs load, and ignored.
+(``fused_field.kernels_cover``: ``max_deg`` 5, f32 or bf16, at any hidden
+width) that is the hand-written kernel pair of the compute dtype on a CUDA
+device and the kernels' plain version on the CPU; any other shape runs the
+eager ``object_field`` field on either device, as the reference's default
+``field_impl="xla"`` does. The pick is made on the shape before anything is
+launched. ``compute_dtype="bf16"`` thus follows the JAX kernel's bf16
+numerics where the kernels cover the shape (the JAX trainer's pallas path
+itself evaluates the kernel in f32 whatever ``compute_dtype`` says) and
+the XLA field's elsewhere; the part loss takes the dtype too, and params,
+gradients and optimizer state stay f32. Knobs that only shape the JAX
+program's layout (``scan_unroll``, ``remat``, ``gemm_impl``,
+``optim_impl``, and the JAX package's ray-minor batch storage) are
+accepted so that configs load, and ignored.
 """
 
 from __future__ import annotations
@@ -68,13 +79,14 @@ class TrainConfig:
     # accepted for config compatibility; the field runs through the fused
     # kernels wherever they cover its shape (module docstring)
     field_impl: str = "xla"
-    compute_dtype: str = "f32"             # "bf16" is not ported yet
+    compute_dtype: str = "f32"             # "f32" | "bf16" (products on bf16 operands)
     # JAX program layout knobs: accepted, ignored
     gemm_impl: str = "segmented"
     scan_unroll: int = 4
     optim_impl: str = "tree"
     remat: bool = False
-    # not ported yet (they change the order of the random draws)
+    # the order of the draws (module docstring): each step draws its own z
+    # lattice, or its own rays
     z_per_step: bool = False
     sample_per_step: bool = False
 
@@ -85,15 +97,6 @@ class TrainConfig:
     @property
     def n_rays_per_step_bg(self) -> int:
         return self.win_size_bg * self.n_samples_per_frame_bg  # 1200
-
-
-def _check_cfg(cfg: TrainConfig) -> None:
-    for name in ("z_per_step", "sample_per_step"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"TrainConfig.{name}=True is not ported yet")
-    if cfg.compute_dtype != "f32":
-        raise NotImplementedError(
-            f"TrainConfig.compute_dtype={cfg.compute_dtype!r} is not ported yet")
 
 
 @dataclass
@@ -170,7 +173,10 @@ def _sample_batch(
     build the fixed-shape z lattice. All pixel fetches are one flat gather
     over the object x draw x pixel axes. With ``scan_iters=I`` every leaf
     comes out step-ordered [I, O, rays/step, ...]: step i gets exactly the
-    draws i*win .. (i+1)*win-1 of each object."""
+    draws i*win .. (i+1)*win-1 of each object. With ``scan_iters`` and
+    ``cfg.z_per_step`` no z is drawn here: the batch carries each object's
+    depth bound over the frame's draws instead (``max_bound`` [I, O, 1]),
+    and each step draws its lattice (``resolve_z``)."""
     dev = kf_frames.device
     o = kf_frames.shape[0]
     h, w = store.frame_shape
@@ -223,9 +229,11 @@ def _sample_batch(
     # per-object max over all of the frame's draws (reference vmap.py:493)
     max_axes = (0, 2, 3) if scan_iters else (1, 2)
     max_bound = torch.amax(depth, dim=max_axes, keepdim=True)
-    z = sampling.sample_z_values(
-        gen, depth, state, cfg.min_depth, n_bins_c2s, cfg.n_bins,
-        cfg.surface_eps, cfg.stop_eps, max_bound=max_bound)
+    defer_z = bool(scan_iters) and cfg.z_per_step
+    if not defer_z:
+        z = sampling.sample_z_values(
+            gen, depth, state, cfg.min_depth, n_bins_c2s, cfg.n_bins,
+            cfg.surface_eps, cfg.stop_eps, max_bound=max_bound)
     center_b = obj_center[:, None, None]
     if scan_iters:
         center_b = center_b[None]
@@ -238,14 +246,33 @@ def _sample_batch(
         "state": state.reshape(*lead, R),
         "origins": (origins - center_b).reshape(*lead, R, 3),
         "dirs_w": dirs_w.reshape(*lead, R, 3),
-        "z": z.reshape(*lead, R, P),
     }
+    if defer_z:
+        batch["max_bound"] = max_bound.reshape(1, o, 1).expand(scan_iters, o, 1)
+    else:
+        batch["z"] = z.reshape(*lead, R, P)
     if cfg.part_mode and store.partfeat is not None:
         hp, wp = store.partfeat.shape[1], store.partfeat.shape[2]
         lin_pf = (f * hp + u // cfg.part_down) * wp + v // cfg.part_down
         # deferred: each step gathers its own slice (gather_partfeat)
         batch["partfeat_idx"] = lin_pf.reshape(*lead, R)
     return batch
+
+
+def resolve_z(gen: torch.Generator, sl: dict, cfg: TrainConfig, is_bg: bool) -> dict:
+    """A step's z lattice where its batch deferred it (``cfg.z_per_step``):
+    the same three-mode law as the upfront batch, within the frame's
+    per-object depth bound, drawn now."""
+    mb = sl.pop("max_bound", None)
+    if mb is None:
+        return sl
+    if gen is None:
+        raise ValueError("a step whose z is deferred (z_per_step) needs the frame's generator")
+    n_c2s = cfg.n_bins_cam2surface_bg if is_bg else cfg.n_bins_cam2surface
+    sl["z"] = sampling.sample_z_values(
+        gen, sl["depth"], sl["state"], cfg.min_depth, n_c2s, cfg.n_bins,
+        cfg.surface_eps, cfg.stop_eps, max_bound=mb)
+    return sl
 
 
 def gather_partfeat(sl: dict, partfeat: torch.Tensor | None) -> dict:
@@ -338,14 +365,15 @@ def differentiable(params: dict):
 
 def run_step(state: TrainState, fg_sl: dict, bg_sl: dict | None,
              active: torch.Tensor, cfg: TrainConfig,
-             partfeat: torch.Tensor | None = None):
+             partfeat: torch.Tensor | None = None,
+             gen: torch.Generator | None = None):
     """One optimizer step on given ray slices (ray-major leaves [O, R, ...]
     for fg, [R, ...] for bg). A slice carries either ``partfeat`` (already
-    gathered) or ``partfeat_idx`` into ``partfeat``. Returns (new state,
-    the step's total loss as a 0-d tensor on the device)."""
-    _check_cfg(cfg)
-    fg_sl = dict(fg_sl)
-    bg_sl = None if bg_sl is None else dict(bg_sl)
+    gathered) or ``partfeat_idx`` into ``partfeat``, and either ``z`` or
+    the ``max_bound`` from which ``gen`` draws it (``resolve_z``). Returns
+    (new state, the step's total loss as a 0-d tensor on the device)."""
+    fg_sl = resolve_z(gen, dict(fg_sl), cfg, is_bg=False)
+    bg_sl = None if bg_sl is None else resolve_z(gen, dict(bg_sl), cfg, is_bg=True)
     if cfg.part_mode:
         fg_sl = gather_partfeat(fg_sl, partfeat)
         if bg_sl is not None:
@@ -384,20 +412,26 @@ def train_frame(
     gen: torch.Generator,
     cfg: TrainConfig,
 ):
-    """One frame of incremental mapping: draw the frame's rays, then
+    """One frame of incremental mapping: draw the frame's rays (all of them
+    up front, or each step its own with ``cfg.sample_per_step``), then
     n_iters optimizer steps, each consuming win*samples rays per object
     (+ the bg window). Returns (new state, per-step losses [n_iters]) with
     the losses left on the device."""
-    _check_cfg(cfg)
     active = fg_tables["active"]
     do_bg = cfg.do_bg and state.bg_params is not None and bg_tables is not None
-    fg_batch = sample_fg_batch(gen, store, cam_dirs, fg_tables, cfg, scan_order=True)
-    bg_batch = (sample_bg_batch(gen, store, cam_dirs, bg_tables, cfg, scan_order=True)
-                if do_bg else None)
+    if not cfg.sample_per_step:
+        fg_batch = sample_fg_batch(gen, store, cam_dirs, fg_tables, cfg, scan_order=True)
+        bg_batch = (sample_bg_batch(gen, store, cam_dirs, bg_tables, cfg, scan_order=True)
+                    if do_bg else None)
     step_losses = []
     for i in range(cfg.n_iters_per_frame):
-        fg_sl = {k: x[i] for k, x in fg_batch.items()}
-        bg_sl = {k: x[i] for k, x in bg_batch.items()} if do_bg else None
-        state, loss = run_step(state, fg_sl, bg_sl, active, cfg, store.partfeat)
+        if cfg.sample_per_step:
+            fg_sl = sample_fg_batch(gen, store, cam_dirs, fg_tables, cfg, n_iters=1)
+            bg_sl = (sample_bg_batch(gen, store, cam_dirs, bg_tables, cfg, n_iters=1)
+                     if do_bg else None)
+        else:
+            fg_sl = {k: x[i] for k, x in fg_batch.items()}
+            bg_sl = {k: x[i] for k, x in bg_batch.items()} if do_bg else None
+        state, loss = run_step(state, fg_sl, bg_sl, active, cfg, store.partfeat, gen)
         step_losses.append(loss)
     return state, torch.stack(step_losses)

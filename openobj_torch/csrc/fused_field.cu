@@ -79,6 +79,21 @@
 //
 // The C entry points return cudaGetLastError() after each launch; the
 // Python wrapper raises if it is not cudaSuccess.
+//
+// The bf16 instantiation (compute_dtype="bf16", the TPU kernels' `cdt`):
+// csrc/fused_field_bf16.cu defines FF_BF16 and includes this file, so that
+// every kernel here is built a second time, into its own library, with
+// BF16 = true. Then every matrix product but the projection rounds both
+// operands to bf16 (cvt.rn: round to nearest even, as astype(bfloat16))
+// and sums in f32; biases are added, and bias gradients summed, in f32.
+// A bf16 value is exact in TF32, so the tensor-core products take one
+// m16n8k8 tf32 mma.sync on the rounded operands where f32 takes three on
+// hi/lo splits: the same exact products and f32 sums as a bf16 m16n8k16.
+// The SIMT products round their operands before each FMA. Bias rows no
+// longer ride in the products (the ones columns are zero): a bias starts
+// its accumulator, and K2 sums each bias gradient on its own. K2's
+// recompute rounds as its plain version does, so its ReLU masks are the
+// plain version's.
 
 // Without nvcc (tests/test_torch_kernel_emulation.py runs K2 on the CPU), a
 // header included ahead of this file stands in for the CUDA runtime and the
@@ -90,6 +105,12 @@
 #include <cstdint>
 
 namespace {
+
+#ifdef FF_BF16
+constexpr bool BF16 = true;           // products on bf16-rounded operands
+#else
+constexpr bool BF16 = false;          // products in full f32
+#endif
 
 constexpr int NT = 256;               // threads per block
 constexpr int E1 = 87;                // trunk embedding: t(3) + 4 bands x 21
@@ -141,6 +162,21 @@ __host__ __device__ inline int chunk_points(int h) { return h <= 64 ? 64 : 32; }
 
 __host__ __device__ inline int ld_h(int h) { return h | 1; }
 
+#ifdef __CUDACC__
+// x rounded to the nearest bf16 (ties to even), as an f32
+__device__ inline float round_bf16(float x) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffff0000u);
+}
+#endif
+
+// An operand of a product: rounded to bf16 in the bf16 build, as it is in f32.
+__device__ inline float op(float x) {
+  if constexpr (BF16) return round_bf16(x);
+  else return x;
+}
+
 // C[m][n] (+)= sum_k A[m*sam + k*sak] * B[k*sbk + n*sbn] for m < M, n < N.
 // Each thread owns up to RM x 4 outputs, strided by the thread grid so that
 // neighbouring threads touch neighbouring columns.
@@ -171,9 +207,9 @@ __device__ void mm_rows(int M, int N, int K,
       for (int k = 0; k < K; ++k) {
         float a[RM], b[4];
 #pragma unroll
-        for (int i = 0; i < RM; ++i) a[i] = ap[i][k * sak];
+        for (int i = 0; i < RM; ++i) a[i] = op(ap[i][k * sak]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = bp[j][k * sbk];
+        for (int j = 0; j < 4; ++j) b[j] = op(bp[j][k * sbk]);
 #pragma unroll
         for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -290,7 +326,7 @@ __device__ inline float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 __device__ inline float dot_w(const float* x, const float* w, int n, int sw) {
   float s = 0.0f;
-  for (int k = 0; k < n; ++k) s = fmaf(x[k], w[k * sw], s);
+  for (int k = 0; k < n; ++k) s = fmaf(op(x[k]), op(w[k * sw]), s);
   return s;
 }
 
@@ -465,7 +501,8 @@ ff_bwd_generic_kernel(const float* __restrict__ pts, const float* __restrict__ w
     for (int i = threadIdx.x; i < nv * h; i += NT) {
       const int p = i / h, j = i - p * h;
       const float* wo = W + L.w_oc + j * 3;
-      const float v = fmaf(dcp[p * 4 + 2], wo[2], fmaf(dcp[p * 4 + 1], wo[1], dcp[p * 4] * wo[0]));
+      const float* d = dcp + p * 4;
+      const float v = fmaf(op(d[2]), op(wo[2]), fmaf(op(d[1]), op(wo[1]), op(d[0]) * op(wo[0])));
       ha[p * ldh + j] = ha[p * ldh + j] > 0.0f ? v : 0.0f;
     }
     __syncthreads();
@@ -483,7 +520,7 @@ ff_bwd_generic_kernel(const float* __restrict__ pts, const float* __restrict__ w
     // d_h3 = (. + dal w_alpha^T) * (h3 > 0)
     for (int i = threadIdx.x; i < nv * h; i += NT) {
       const int p = i / h, j = i - p * h;
-      const float v = fmaf(dal[p], W[L.w_alpha + j], d3[p * ldh + j]);
+      const float v = fmaf(op(dal[p]), op(W[L.w_alpha + j]), d3[p * ldh + j]);
       d3[p * ldh + j] = h3[p * ldh + j] > 0.0f ? v : 0.0f;
     }
     __syncthreads();
@@ -534,7 +571,7 @@ ff_bwd_generic_kernel(const float* __restrict__ pts, const float* __restrict__ w
     for (int e = threadIdx.x; e < ND * 3; e += NT) {
       const int d = e / 3, c = e - d * 3;
       float s = 0.0f;
-      for (int p = 0; p < nv; ++p) s = fmaf(pj[p * LD_P + d], tt[p * LD_T + c], s);
+      for (int p = 0; p < nv; ++p) s = fmaf(op(pj[p * LD_P + d]), op(tt[p * LD_T + c]), s);
       G[L.dirs + e] = acc ? G[L.dirs + e] + s : s;
     }
     __syncthreads();   // the next chunk's encode overwrites t and proj
@@ -611,8 +648,12 @@ struct Dims {
                        GR_CLIP = GR_COL + KX3, GROWS = GR_CLIP + KX3;
   // small gradients accumulated by a fixed thread each
   static constexpr int S_DIRS = 0, S_WA = ND * 3, S_BA = S_WA + H, S_WOC = S_BA + 1,
-                       S_BOC = S_WOC + 3 * H, S_BM1 = S_BOC + 3, S_BM2 = S_BM1 + H,
-                       NS = S_BM2 + H;
+                       S_BOC = S_WOC + 3 * H, S_BM1 = S_BOC + 3, S_BM2 = S_BM1 + H;
+  // in bf16 the biases that ride as product rows in f32 (the ones columns
+  // are zero there) have their gradients summed here: b_in, b_cat, b_col,
+  // b_clip
+  static constexpr int S_BIN = S_BM2 + H, S_BCAT = S_BIN + H, S_BCOL = S_BCAT + H,
+                       S_BCLIP = S_BCOL + H, NS = S_BM2 + H + (BF16 ? 4 * H : 0);
   // shared memory in floats: the weights and accumulators, and one chunk's
   // buffers (X2, D2, X3, D3, DH, A1, AC, AO, then t, proj, dcp, dal, S)
   static constexpr int W_FLOATS = WROWS * LH + GROWS * LDG;
@@ -646,10 +687,17 @@ __device__ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uin
 }
 #endif
 
-// the 3xTF32 split: x = hi + lo + O(2^-22 |x|), hi and lo both tf32
+// the 3xTF32 split: x = hi + lo + O(2^-22 |x|), hi and lo both tf32; in
+// the bf16 build hi = x rounded to bf16 (exact in tf32) and lo = 0, and the
+// products use hi alone
 __device__ inline void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
+  if constexpr (BF16) {
+    hi = __float_as_uint(round_bf16(x));
+    lo = 0u;
+  } else {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  }
 }
 
 // out (M x N) = init + A (M x K) . B (K x N) on the tensor cores in 3xTF32
@@ -691,8 +739,10 @@ __device__ int product(int slot, FI init, FA a, FB b, FE epi) {
         split(b(k0 + t, n0 + 8 * j + g), bh[0], bl[0]);
         split(b(k0 + t + 4, n0 + 8 * j + g), bh[1], bl[1]);
         float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32(d, al, bh);
-        mma_tf32(d, ah, bl);
+        if constexpr (!BF16) {
+          mma_tf32(d, al, bh);
+          mma_tf32(d, ah, bl);
+        }
         mma_tf32(d, ah, bh);
 #pragma unroll
         for (int i = 0; i < 4; ++i) c[j][i] += d[i];
@@ -716,8 +766,10 @@ __device__ int product(int slot, FI init, FA a, FB b, FE epi) {
 // error of zero takes the sign its rounding gives it; another rounding (a
 // 3xTF32 product, or one chain over [x_h | x_e]) flips a few such masks per
 // room_0 step against the plain version, and one flipped mask moves a leaf's
-// gradient by more than 1e-3 of its largest entry (measured on an H100). Each
-// thread owns RM x RN outputs, rows cy + TM i and columns cx + TN j.
+// gradient by more than 1e-3 of its largest entry (measured on an H100). In
+// the bf16 build each operand is rounded to bf16 first, as the plain
+// version's products are. Each thread owns RM x RN outputs, rows cy + TM i
+// and columns cx + TN j.
 template <int N, int KH, int KE, class FX, class FW, class FB, class FE>
 __device__ void fp32_layer(FX x, FW w, FB bias, FE out) {
   constexpr int RN = layer_rn(N);
@@ -733,9 +785,9 @@ __device__ void fp32_layer(FX x, FW w, FB bias, FE out) {
   for (int k = 0; k < KH; ++k) {
     float a[RM], b[RN];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = x(cy + TM * i, k);
+    for (int i = 0; i < RM; ++i) a[i] = op(x(cy + TM * i, k));
 #pragma unroll
-    for (int j = 0; j < RN; ++j) b[j] = w(k, cx + TN * j);
+    for (int j = 0; j < RN; ++j) b[j] = op(w(k, cx + TN * j));
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -745,9 +797,9 @@ __device__ void fp32_layer(FX x, FW w, FB bias, FE out) {
   for (int k = KH; k < KH + KE; ++k) {
     float a[RM], b[RN];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = x(cy + TM * i, k);
+    for (int i = 0; i < RM; ++i) a[i] = op(x(cy + TM * i, k));
 #pragma unroll
-    for (int j = 0; j < RN; ++j) b[j] = w(k, cx + TN * j);
+    for (int j = 0; j < RN; ++j) b[j] = op(w(k, cx + TN * j));
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -952,8 +1004,10 @@ __device__ void rows_product(FI init, FA a, FB b, FE epi) {
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
           float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_tf32(d, al, bh[j]);
-          mma_tf32(d, ah, bl[j]);
+          if constexpr (!BF16) {
+            mma_tf32(d, al, bh[j]);
+            mma_tf32(d, ah, bl[j]);
+          }
           mma_tf32(d, ah, bh[j]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) c[r][j][i] += d[i];
@@ -1054,8 +1108,9 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     load(w_col, L.w_col, D::RH, D::KX3);
     if (do_clip) load(w_clip, L.w_clip, D::RH, D::KX3);
   }
-  // the ones column of [h2 | e1 | 1], past every column the heads' layout uses
-  for (int p = tid; p < FP; p += NT) X.put(p, H + 87, 1.0f);
+  // the ones column of [h2 | e1 | 1], past every column the heads' layout
+  // uses; zero in bf16, where the biases start the accumulators (`row_bias`)
+  for (int p = tid; p < FP; p += NT) X.put(p, H + 87, BF16 ? 0.0f : 1.0f);
   for (int i = tid; i < ND * 3; i += NT) dirs[i] = W[L.dirs + i];
   for (int i = tid; i < H + 1; i += NT) dirs[ND * 3 + i] = W[L.w_alpha + i];
   for (int i = tid; i < 3 * H + 3; i += NT) dirs[ND * 3 + H + 1 + i] = W[L.w_oc + i];
@@ -1063,7 +1118,14 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
   const auto bias_init = [&](int off) {
     return [=](int, int n) { return make_float2(W[off + n], W[off + n + 1]); };
   };
-  const auto zero2 = [](int, int) { return make_float2(0.0f, 0.0f); };
+  // the start of a product whose bias is a row of its packed weights: zero
+  // in f32 (the bias rides on the ones column), the bias in bf16
+  const auto row_bias = [&](int off) {
+    return [=](int, int n) {
+      if constexpr (BF16) return make_float2(W[off + n], W[off + n + 1]);
+      else return make_float2(0.0f, 0.0f);
+    };
+  };
   const auto relu_to = [](const auto& buf) {   // the next layer's A fragments
     return [=](int mt, int nt, const float (&c)[4]) {
       const float r[4] = {fmaxf(c[0], 0.0f), fmaxf(c[1], 0.0f), fmaxf(c[2], 0.0f),
@@ -1108,14 +1170,14 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
 
     // ---- the trunk
     rows_product<FP, H, 88, F::NB, F::MT>(     // h1 = relu([e1 | 1] . [w_in; b_in])
-        zero2, [&](int mt, int ks, uint32_t (&h)[4], uint32_t (&l)[4]) { X.frag(mt, HS + ks, h, l); },
+        row_bias(L.b_in), [&](int mt, int ks, uint32_t (&h)[4], uint32_t (&l)[4]) { X.frag(mt, HS + ks, h, l); },
         wb(w_in), relu_to(HB));
     __syncthreads();
     rows_product<FP, H, H, F::NB, F::MT>(      // h2
         bias_init(L.b_mid1), ha, wb(w_mid1), relu_to(X));
     __syncthreads();
     rows_product<FP, H, D::KX2, F::NB, F::MT>(   // hc = relu([h2 | e1 | 1] . [w_cat; b_cat])
-        zero2, xa, wb(w_cat), relu_to(HB));
+        row_bias(L.b_cat), xa, wb(w_cat), relu_to(HB));
     __syncthreads();
     // [h2 | e1 | 1] is dead: the heads' layout [h3 | e2 | 1 | 0 x 5] takes
     // its place, h3 from mid2 (and a plain copy for alpha), e2 (bands 4, 5)
@@ -1126,7 +1188,7 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     }
     for (int i = tid; i < FP * 6; i += NT) {
       const int p = i / 6, c = i - p * 6;
-      X.put(p, H + 42 + c, c == 0 ? 1.0f : 0.0f);
+      X.put(p, H + 42 + c, c == 0 && !BF16 ? 1.0f : 0.0f);
     }
     rows_product<FP, H, H, F::NB, F::MT>(      // h3
         bias_init(L.b_mid2), ha, wb(w_mid2), [&](int mt, int nt, const float (&c)[4]) {
@@ -1142,7 +1204,7 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     // ---- the e2-fed heads: hcol = relu([h3 | e2 | 1] . [w_col; b_col]),
     // hclip the same with w_clip, straight to device memory
     rows_product<FP, H, D::KX3, F::NB, F::MT>(
-        zero2, xa, wb(w_col), [&](int mt, int nt, const float (&c)[4]) {
+        row_bias(L.b_col), xa, wb(w_col), [&](int mt, int nt, const float (&c)[4]) {
           each_pair(mt, nt, c, [&](int m, int n, float2 v) {
             v = relu2(v);
             hcp[m * F::LDP + n] = v.x;
@@ -1151,7 +1213,7 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
         });
     if (do_clip) {
       rows_product<FP, H, D::KX3, F::NB, F::MT>(
-          zero2, xa, wb(w_clip), [&](int mt, int nt, const float (&c)[4]) {
+          row_bias(L.b_clip), xa, wb(w_clip), [&](int mt, int nt, const float (&c)[4]) {
             each_pair(mt, nt, c, [&](int m, int n, float2 v) {
               if (m < nv) *reinterpret_cast<float2*>(hclip + (row0 + m) * H + n) = relu2(v);
             });
@@ -1168,7 +1230,7 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
       const int sw = c == 3 ? 1 : 3;
       float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) s4[k & 3] = fmaf(x[k], wv[k * sw], s4[k & 3]);
+      for (int k = 0; k < H; ++k) s4[k & 3] = fmaf(op(x[k]), op(wv[k * sw]), s4[k & 3]);
       const float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
       if (c == 3) alpha[row0 + p] = (s + sh[H]) * ALPHA_SCALE;
       else color[(row0 + p) * 3 + c] = sigmoid_f(s + sh[4 * H + 1 + c]);
@@ -1256,6 +1318,9 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     };
   };
   constexpr int NBF = D::NBF;   // n-tiles per item of an N = H product
+  // bias rows left out of the weight-gradient stores: in bf16 the ones
+  // columns are zero and those rows come from S (S_BIN .. S_BCLIP)
+  constexpr int BR = BF16 ? 1 : 0;
 
   const int t0 = ti * tile;
   const int t1 = min(N, t0 + tile);
@@ -1272,9 +1337,9 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     }
     for (int p = tid; p < BP; p += NT) {
       dal[p] = p < nv ? da[row0 + p] * ALPHA_SCALE : 0.0f;
-      X2(p, H + 87) = 1.0f;
+      X2(p, H + 87) = BF16 ? 0.0f : 1.0f;   // the ones columns (zero in bf16)
       for (int c = D::KX2; c < D::MX2; ++c) X2(p, c) = 0.0f;
-      X3(p, H + 42) = 1.0f;
+      X3(p, H + 42) = BF16 ? 0.0f : 1.0f;
       for (int c = H + 43; c < D::KX3; ++c) X3(p, c) = 0.0f;
     }
     __syncthreads();
@@ -1338,7 +1403,7 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
       float d = 0.0f;
       if (p < nv) {
         float s = 0.0f;
-        for (int k = 0; k < H; ++k) s = fmaf(AO(p, k), W[L.w_oc + k * 3 + c], s);
+        for (int k = 0; k < H; ++k) s = fmaf(op(AO(p, k)), op(W[L.w_oc + k * 3 + c]), s);
         const float col = sigmoid_f(s + W[L.b_oc + c]);
         d = dc[(row0 + p) * 3 + c] * col * (1.0f - col);
       }
@@ -1349,21 +1414,22 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     for (int i = tid; i < BP * H; i += NT) {
       const int p = i / H, j = i - p * H;
       const float* wo = W + L.w_oc + j * 3;
-      const float v = fmaf(dcp[p * 4 + 2], wo[2], fmaf(dcp[p * 4 + 1], wo[1], dcp[p * 4] * wo[0]));
+      const float* d = dcp + p * 4;
+      const float v = fmaf(op(d[2]), op(wo[2]), fmaf(op(d[1]), op(wo[1]), op(d[0]) * op(wo[0])));
       DH(p, j) = AO(p, j) > 0.0f ? v : 0.0f;
     }
     for (int e = tid; e < 4 * H + 4; e += NT) {
       float s = 0.0f;
       if (e < 3 * H) {          // w_oc[j][c] += sum_p hcol[p][j] dcp[p][c]
         const int j = e / 3, c = e - j * 3;
-        for (int p = 0; p < nv; ++p) s = fmaf(AO(p, j), dcp[p * 4 + c], s);
+        for (int p = 0; p < nv; ++p) s = fmaf(op(AO(p, j)), op(dcp[p * 4 + c]), s);
         S[D::S_WOC + e] += s;
       } else if (e < 3 * H + 3) {
         for (int p = 0; p < nv; ++p) s += dcp[p * 4 + e - 3 * H];
         S[D::S_BOC + e - 3 * H] += s;
       } else if (e < 4 * H + 3) {   // w_alpha[j] += sum_p h3[p][j] dal[p]
         const int j = e - 3 * H - 3;
-        for (int p = 0; p < nv; ++p) s = fmaf(X3(p, j), dal[p], s);
+        for (int p = 0; p < nv; ++p) s = fmaf(op(X3(p, j)), op(dal[p]), s);
         S[D::S_WA + j] += s;
       } else {
         for (int p = 0; p < nv; ++p) s += dal[p];
@@ -1376,11 +1442,11 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     {
       int slot = product<D::KX3, H, BP, NBF>(   // [w_col; b_col] += [h3 | e2 | 1]^T d_hcol
           0, g_init(D::GR_COL), [&](int m, int k) { return X3(k, m); },
-          [&](int k, int n) { return DH(k, n); }, g_store(D::GR_COL, L.w_col, D::RH));
+          [&](int k, int n) { return DH(k, n); }, g_store(D::GR_COL, L.w_col, D::RH - BR));
       const auto d3_epi = [&](int m, int n, float2 v) {
         if (n < H) {   // d_h3 = (. + dal w_alpha^T) * (h3 > 0)
-          v.x = fmaf(dal[m], W[L.w_alpha + n], v.x);
-          v.y = fmaf(dal[m], W[L.w_alpha + n + 1], v.y);
+          v.x = fmaf(op(dal[m]), op(W[L.w_alpha + n]), v.x);
+          v.y = fmaf(op(dal[m]), op(W[L.w_alpha + n + 1]), v.y);
           v = mask2(v, X3.pair(m, n));
         }
         D3.pair(m, n) = v;
@@ -1388,7 +1454,8 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
       if (do_clip) {
         slot = product<D::KX3, H, BP, NBF>(
             slot, g_init(D::GR_CLIP), [&](int m, int k) { return X3(k, m); },
-            [&](int k, int n) { return DH(k, H + n); }, g_store(D::GR_CLIP, L.w_clip, D::RH));
+            [&](int k, int n) { return DH(k, H + n); },
+            g_store(D::GR_CLIP, L.w_clip, D::RH - BR));
         product<BP, D::KX3, 2 * H, 2>(   // d_hcol w_col^T + d_hclip w_clip^T
             slot, zero2, [&](int m, int k) { return DH(m, k); },
             [&](int k, int n) { return k < H ? w_col.at(n, k) : w_clip.at(n, k - H); }, d3_epi);
@@ -1414,6 +1481,13 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
         for (int p = 0; p < BP; ++p) s += D3(p, j);
         S[D::S_BM2 + j] += s;
       }
+      if constexpr (BF16) {   // b_col and b_clip: column sums of [d_hcol | d_hclip]
+        for (int j = tid; j < (do_clip ? 2 * H : H); j += NT) {
+          float s = 0.0f;
+          for (int p = 0; p < BP; ++p) s += DH(p, j);
+          S[D::S_BCOL + j] += s;
+        }
+      }
     }
     __syncthreads();
 
@@ -1421,13 +1495,20 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     {
       const int slot = product<D::MX2, H, BP, NBF>(
           0, g_init(D::GR_CAT), [&](int m, int k) { return X2(k, m); },
-          [&](int k, int n) { return AO(k, n); }, g_store(D::GR_CAT, L.w_cat, D::KX2));
+          [&](int k, int n) { return AO(k, n); }, g_store(D::GR_CAT, L.w_cat, D::KX2 - BR));
       product<BP, D::KX2, H, 1>(
           slot, zero2, [&](int m, int k) { return AO(m, k); },
           [&](int k, int n) { return w_cat.at(n, k); },
           [&](int m, int n, float2 v) {
             D2.pair(m, n) = n < H ? mask2(v, X2.pair(m, n)) : v;   // d_h2 masked
           });
+      if constexpr (BF16) {   // b_cat: column sums of d_hc
+        for (int j = tid; j < H; j += NT) {
+          float s = 0.0f;
+          for (int p = 0; p < BP; ++p) s += AO(p, j);
+          S[D::S_BCAT + j] += s;
+        }
+      }
     }
     __syncthreads();
 
@@ -1452,11 +1533,18 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     {
       const int slot = product<D::ME1, H, BP, NBF>(
           0, g_init(D::GR_IN), [&](int m, int k) { return X2(k, H + m); },
-          [&](int k, int n) { return AC(k, n); }, g_store(D::GR_IN, L.w_in, 88));
+          [&](int k, int n) { return AC(k, n); }, g_store(D::GR_IN, L.w_in, 88 - BR));
       product<BP, 88, H, 1>(
           slot, [&](int m, int n) { return D2.pair(m, H + n); },
           [&](int m, int k) { return AC(m, k); }, [&](int k, int n) { return w_in.at(n, k); },
           [&](int m, int n, float2 v) { D2.pair(m, H + n) = v; });
+      if constexpr (BF16) {   // b_in: column sums of d_h1
+        for (int j = tid; j < H; j += NT) {
+          float s = 0.0f;
+          for (int p = 0; p < BP; ++p) s += AC(p, j);
+          S[D::S_BIN + j] += s;
+        }
+      }
     }
     __syncthreads();
 
@@ -1478,7 +1566,7 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     for (int e = tid; e < ND * 3; e += NT) {
       const int d = e / 3, c = e - d * 3;
       float s = 0.0f;
-      for (int p = 0; p < nv; ++p) s = fmaf(pj[p * ND + d], tt[p * 4 + c], s);
+      for (int p = 0; p < nv; ++p) s = fmaf(op(pj[p * ND + d]), op(tt[p * 4 + c]), s);
       S[D::S_DIRS + e] += s;
     }
     __syncthreads();
@@ -1490,14 +1578,22 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
       for (int i = tid; i < rows * H; i += NT)
         G[off + i] = gs[(gr0 + i / H) * D::LDG + i % H];
     };
-    put(D::GR_IN, L.w_in, 88);
+    put(D::GR_IN, L.w_in, 88 - BR);
     put(D::GR_MID1, L.w_mid1, H);
-    put(D::GR_CAT, L.w_cat, D::KX2);
+    put(D::GR_CAT, L.w_cat, D::KX2 - BR);
     put(D::GR_MID2, L.w_mid2, H);
-    put(D::GR_COL, L.w_col, D::RH);
-    put(D::GR_CLIP, L.w_clip, D::RH);
+    put(D::GR_COL, L.w_col, D::RH - BR);
+    put(D::GR_CLIP, L.w_clip, D::RH - BR);
   } else if (!do_clip) {
-    for (int i = tid; i < D::RH * H; i += NT) G[L.w_clip + i] = 0.0f;
+    for (int i = tid; i < (D::RH - BR) * H; i += NT) G[L.w_clip + i] = 0.0f;
+  }
+  if constexpr (BF16) {   // S_BCLIP stays zero with the clip head off
+    for (int j = tid; j < H; j += NT) {
+      G[L.b_in + j] = S[D::S_BIN + j];
+      G[L.b_cat + j] = S[D::S_BCAT + j];
+      G[L.b_col + j] = S[D::S_BCOL + j];
+      G[L.b_clip + j] = S[D::S_BCLIP + j];
+    }
   }
   for (int e = tid; e < ND * 3; e += NT) G[L.dirs + e] = S[D::S_DIRS + e];
   for (int j = tid; j < H; j += NT) {

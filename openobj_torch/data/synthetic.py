@@ -520,6 +520,10 @@ def perturb_pose(t_wc: np.ndarray, rng, level: float = 1.0,
     return t, drift
 
 
+# write_raw_scene renders and writes this many frames at once
+_WRITE_THREADS = 4
+
+
 def write_raw_scene(root, scene, dirs_c, n_frames: int = 40,
                     orbit_kwargs: dict | None = None, assoc_stride: int = 10,
                     gt_dir: str = "gt_instance", depth_scale: float = 1e-3,
@@ -533,42 +537,48 @@ def write_raw_scene(root, scene, dirs_c, n_frames: int = 40,
     ``apply_sensor_noise`` (GT maps stay clean) AND perturbs the WRITTEN
     trajectory with ``perturb_pose`` (autocorrelated SLAM-style error:
     frames are rendered at the true pose, the traj file lies by a few mm
-    and ~0.1-0.2 deg — what a real tracked sequence hands downstream)."""
+    and ~0.1-0.2 deg — what a real tracked sequence hands downstream).
+    Frames are rendered and written on _WRITE_THREADS threads (numpy and
+    zlib release the GIL); the noise draws in frame order between the two."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
     from openobj_torch.utils.png import write_png
 
     ok = orbit_kwargs or {}
     for d in ("rgb", "depth", gt_dir):
         os.makedirs(os.path.join(root, d), exist_ok=True)
-    poses, gt_maps = [], []
     rng_noise = np.random.default_rng(noise_seed) if noise_level else None
     # pixel-footprint scale for grazing-incidence dropout: dirs use the
     # z=1 convention, so one column step is 1/fx in x
     fx_eff = float(1.0 / max(abs(dirs_c[0, 1, 0] - dirs_c[0, 0, 0]), 1e-9))
-    drift = None
-    for i in range(n_frames):
-        t_wc = orbit_pose(2 * np.pi * i / n_frames, **ok)
-        t_written = t_wc
-        if rng_noise is not None:
-            t_written, drift = perturb_pose(t_wc, rng_noise, noise_level,
-                                            drift)
-        poses.append(np.asarray(t_written).reshape(-1))
-        rgb, depth, inst = scene.render(t_wc, dirs_c)
-        if rng_noise is not None:
-            rgb, depth = apply_sensor_noise(rgb, depth, rng_noise,
-                                            noise_level, fx=fx_eff)
+    true_poses = [orbit_pose(2 * np.pi * i / n_frames, **ok) for i in range(n_frames)]
+
+    def write(i, frame):
+        rgb, depth, inst = frame
         write_png(os.path.join(root, "rgb", f"rgb_{i}.png"), rgb)
         write_png(os.path.join(root, "depth", f"depth_{i}.png"),
                   (depth / depth_scale).astype(np.uint16))
-        if i % assoc_stride == 0:
-            gt = inst.astype(np.uint16)
-            write_png(os.path.join(root, gt_dir,
-                                   f"semantic_instance_{i // assoc_stride}.png"), gt)
-            gt_maps.append(gt.astype(np.int32))
+        if i % assoc_stride:
+            return None
+        gt = inst.astype(np.uint16)
+        write_png(os.path.join(root, gt_dir, f"semantic_instance_{i // assoc_stride}.png"), gt)
+        return gt.astype(np.int32)
+
+    with ThreadPoolExecutor(_WRITE_THREADS) as ex:
+        frames = list(ex.map(lambda t: scene.render(t, dirs_c), true_poses))
+        poses, drift = [], None
+        for i, t_wc in enumerate(true_poses):
+            if rng_noise is not None:
+                t_wc, drift = perturb_pose(t_wc, rng_noise, noise_level, drift)
+                rgb, depth = apply_sensor_noise(*frames[i][:2], rng_noise, noise_level,
+                                                fx=fx_eff)
+                frames[i] = (rgb, depth, frames[i][2])
+            poses.append(np.asarray(t_wc).reshape(-1))
+        maps = list(ex.map(write, range(n_frames), frames))
     np.savetxt(os.path.join(root, "traj_w_c.txt"), np.stack(poses),
                delimiter=" ")
-    return gt_maps
+    return [m for m in maps if m is not None]
 
 
 def orbit_pose(angle: float, radius: float = 2.6, height: float = 0.0) -> np.ndarray:

@@ -3,7 +3,8 @@
 Each source ``openobj_torch/csrc/<name>.cu`` exposes a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
 the checkout, at first use, then loaded with ``ctypes``. The library's file
-name carries a digest of the source and the flags, so an edited source is
+name carries a digest of the source, of the files it includes with
+``#include "..."`` and of the flags, so an edited source or header is
 rebuilt and a stale library is never loaded. ``build`` and ``load`` also take
 the path of a source outside ``csrc/`` (for example an older copy of a
 kernel, to time it beside the current one). Nothing here runs at import.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_field", "probes")
+SOURCES = ("fused_field", "fused_field_bf16", "probes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -50,9 +52,22 @@ def _source(name) -> Path:
     return name if isinstance(name, Path) else CSRC / f"{name}.cu"
 
 
+def _with_includes(src: Path, seen: set) -> bytes:
+    """The source's bytes and those of every file it includes with
+    ``#include "..."`` (beside it), in order, each once."""
+    if src in seen:
+        return b""
+    seen.add(src)
+    text = src.read_bytes()
+    out = text
+    for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
+        out += _with_includes(src.parent / inc.decode(), seen)
+    return out
+
+
 def lib_path(name) -> Path:
     src = _source(name)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(_with_includes(src, set()) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 

@@ -86,13 +86,14 @@ def project(t: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     that no TF32 or reduced-precision path can touch it: the phases it feeds
     reach 2^max_deg * pi, where one ulp of proj is already ~4e-6 of sine.
     Each fma is formed in float64, where the product of two float32 values
-    is exact, and rounded once to float32. ``t`` is [..., M, 3] and ``dirs``
-    [..., 21, 3] with matching leading dims (or none)."""
+    is exact, and rounded once to float32 (float64 inputs stay float64).
+    ``t`` is [..., M, 3] and ``dirs`` [..., 21, 3] with matching leading
+    dims (or none)."""
     d = dirs.unsqueeze(-3)                       # [..., 1, 21, 3]
     x = t.unsqueeze(-2)                          # [..., M, 1, 3]
     acc = x[..., 0] * d[..., 0]
     for c in (1, 2):
-        acc = (x[..., c].double() * d[..., c].double() + acc.double()).float()
+        acc = (x[..., c].double() * d[..., c].double() + acc.double()).to(t.dtype)
     return acc
 
 
@@ -123,10 +124,10 @@ def positional_encoding(
         # taken correctly rounded (via float64) and 1 - 2 s^2 is one fused
         # multiply-add (formed in float64, rounded once)
         theta = (proj * (math.pi * (2.0 ** min_deg))).double()
-        s, c = torch.sin(theta).float(), torch.cos(theta).float()
+        s, c = torch.sin(theta).to(proj.dtype), torch.cos(theta).to(proj.dtype)
         outs = [s]
         for _ in range(f - 1):
-            s, c = 2.0 * s * c, (1.0 - 2.0 * s.double() * s.double()).float()
+            s, c = 2.0 * s * c, (1.0 - 2.0 * s.double() * s.double()).to(proj.dtype)
             outs.append(s)
         sins = torch.cat(outs, dim=-1)
     elif impl == "direct":

@@ -12,6 +12,17 @@ the plain PyTorch version of the same function (following the JAX kernel
 body ``_fwd_body``), differentiated by autograd. A CUDA tensor never takes
 the plain path.
 
+``compute_dtype="bf16"`` is the JAX kernel's bf16 instantiation (``cdt``):
+every product but the PE projection rounds both operands to bf16 (round to
+nearest even) and sums in f32, biases are added in f32, and the backward
+rounds the operands of every gradient product the same way (the dirs
+gradient too) while bias gradients sum in f32. On the card that is K1 and
+K2 built from ``csrc/fused_field_bf16.cu``; their plain version is
+``fused_field_plain(..., "bf16")``, whose backward is written out
+(``_PlainBf16``) because autograd through the casts would round each
+weight gradient to bf16, which is the JAX package's XLA path and not its
+kernel.
+
 Points receive no gradient: nothing upstream of them is trainable (poses
 and z samples are data; the PE ``scale`` is a constant).
 
@@ -34,11 +45,17 @@ from openobj_torch.ops.mlp import ALPHA_SCALE
 _F32 = torch.float32
 _E1, _E2, _ND, _NF = 87, 42, 21, 6
 
-# launches of each kernel, calls of the plain version, and calls that took
-# the eager field because the kernels do not cover them, as plain ints
+# launches of each kernel (K1 and K2 in f32 and in bf16; K2r serves both),
+# calls of the plain version, and calls that took the eager field because
+# the kernels do not cover them, as plain ints
 COUNTS = {"fused_field_fwd": 0, "fused_field_bwd": 0,
+          "fused_field_fwd_bf16": 0, "fused_field_bwd_bf16": 0,
           "fused_field_bwd_reduce": 0, "fused_field_plain": 0,
           "field_eager": 0}
+# the kernels' library and count names by compute dtype
+_SOURCE = {"f32": "fused_field", "bf16": "fused_field_bf16"}
+_FWD = {"f32": "fused_field_fwd", "bf16": "fused_field_fwd_bf16"}
+_BWD = {"f32": "fused_field_bwd", "bf16": "fused_field_bwd_bf16"}
 # the kernels' launches by shape: (count name, O, N, h) -> launches
 COUNTS_BY_SHAPE: dict[tuple[str, int, int, int], int] = {}
 
@@ -75,15 +92,18 @@ def packed_size(h: int) -> int:
 
 
 def _pack_params(params: dict, h: int, do_clip: bool) -> torch.Tensor:
-    """Stacked param tree -> packed [O, packed_size(h)] float32."""
+    """Stacked param tree -> packed [O, packed_size(h)] in the params'
+    dtype (float32; float64 params, which only the plain version takes,
+    stay float64)."""
     m = params["mlp"]
     o = m["in_layer"]["w"].shape[0]
+    dt = m["in_layer"]["w"].dtype
     if do_clip:
         clip_w, clip_b = m["clip_linear"]["w"], m["clip_linear"]["b"]
     else:
         dev = m["in_layer"]["w"].device
-        clip_w = torch.zeros((o, h + _E2, h), dtype=_F32, device=dev)
-        clip_b = torch.zeros((o, h), dtype=_F32, device=dev)
+        clip_w = torch.zeros((o, h + _E2, h), dtype=dt, device=dev)
+        clip_b = torch.zeros((o, h), dtype=dt, device=dev)
     pieces = [
         params["pe"]["dirs"],
         m["in_layer"]["w"], m["in_layer"]["b"],
@@ -95,7 +115,49 @@ def _pack_params(params: dict, h: int, do_clip: bool) -> torch.Tensor:
         m["out_color"]["w"], m["out_color"]["b"],
         clip_w, clip_b,
     ]
-    return torch.cat([x.reshape(o, -1).to(_F32) for x in pieces], dim=1)
+    return torch.cat([x.reshape(o, -1).to(dt) for x in pieces], dim=1)
+
+
+def leaf_errors(got: torch.Tensor, ref: torch.Tensor, h: int) -> dict:
+    """{leaf: max|got - ref| / max|ref|} of two packed [O, P] tensors, by
+    ``param_layout(h)``; 0 where both are zero."""
+    out, ofs = {}, 0
+    for name, (r, c) in param_layout(h):
+        g, x = got[:, ofs:ofs + r * c], ref[:, ofs:ofs + r * c]
+        ofs += r * c
+        d, m = float((g - x).abs().max()), float(x.abs().max())
+        out[name] = d / m if m > 0 else d
+    return out
+
+
+# K1 bf16 against the plain version in bf16. The two sum in other orders,
+# so now and then an activation lands on the other side of a bf16 rounding
+# boundary and the outputs after it move by about one bf16 ulp of one
+# product. So at most this share of the outputs may be off by more than the
+# f32 gate, none further off than the plain bf16 is from the plain f32
+# anywhere in the tensor, and every output is finite; plain f32 in K1's
+# place must fail the share. On an H100 the kernels' share at 1e-4 was
+# 0 to 3.7e-3 at the main path's and the render's shapes and 1.1e-2 at most
+# (alpha, [1, 1000] h=128, 11 entries); the plain f32's was 0.43 at least
+# (the clip hidden, whose ReLU zeros agree).
+BF16_OFF_FRAC = 3e-2
+
+
+def bf16_output_errors(got: torch.Tensor, ref: torch.Tensor, ref32: torch.Tensor,
+                       atol: float) -> dict:
+    """One output of K1 bf16 (``got``) against the plain version's in bf16
+    (``ref``) and in f32 (``ref32``), over every entry: ``off`` is the share
+    with |got - ref| > atol, ``control_off`` the share that ``ref32`` in
+    ``got``'s place shows, ``max_abs`` max|got - ref|, ``bf16_max``
+    max|ref - ref32|; ``ok`` applies BF16_OFF_FRAC's gate."""
+    d = (got - ref).abs()
+    e = dict(off=float((d > atol).double().mean()),
+             control_off=float(((ref32 - ref).abs() > atol).double().mean()),
+             max_abs=float(d.max()), bf16_max=float((ref - ref32).abs().max()),
+             finite=bool(torch.isfinite(got).all()))
+    e["ok"] = (e["finite"] and e["off"] <= BF16_OFF_FRAC < e["control_off"]
+               and e["max_abs"] <= e["bf16_max"])
+    return e
 
 
 def _unpack(wflat: torch.Tensor, h: int) -> dict:
@@ -107,34 +169,135 @@ def _unpack(wflat: torch.Tensor, h: int) -> dict:
     return out
 
 
-def fused_field_plain(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
-                      do_clip: bool):
-    """Plain PyTorch version of K1 (its autograd is K2's plain version).
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), as f32."""
+    return x.to(torch.bfloat16).to(_F32)
 
-    wflat [O, P] packed params, pts_scaled [O, N, 3] points already divided
-    by the per-object scale. Returns (alpha [O,N,1], color [O,N,3],
-    hclip [O,N,h] | None)."""
-    w = _unpack(wflat, h)
-    t = pts_scaled
+
+def _bmm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b with both operands rounded to bf16 and f32 sums: the products
+    of two bf16 values are exact in f32."""
+    return torch.bmm(_round_bf16(a), _round_bf16(b))
+
+
+def _plain_forward(w: dict, t: torch.Tensor, h: int, do_clip: bool, mm):
+    """The field on unpacked params with the product ``mm``; returns
+    (alpha, color, hclip | None, activations)."""
     proj = embedding.project(t, w["dirs"]).to(t.dtype)          # [O, N, 21], FP32 rounding
     sins = [torch.sin((math.pi * (2.0 ** k)) * proj) for k in range(_NF)]
     e1 = torch.cat([t] + sins[:4], dim=-1)                       # [O, N, 87]
     e2 = torch.cat(sins[4:], dim=-1)                             # [O, N, 42]
     w_cat, w_col, w_clip = w["w_cat"], w["w_col"], w["w_clip"]
-    h1 = torch.relu(torch.bmm(e1, w["w_in"]) + w["b_in"])
-    h2 = torch.relu(torch.bmm(h1, w["w_mid1"]) + w["b_mid1"])
-    hc = torch.relu(torch.bmm(h2, w_cat[:, :h]) + torch.bmm(e1, w_cat[:, h:])
-                    + w["b_cat"])
-    h3 = torch.relu(torch.bmm(hc, w["w_mid2"]) + w["b_mid2"])
-    alpha = (torch.bmm(h3, w["w_alpha"]) + w["b_alpha"]) * ALPHA_SCALE
-    hcol = torch.relu(torch.bmm(h3, w_col[:, :h]) + torch.bmm(e2, w_col[:, h:])
-                      + w["b_col"])
-    color = torch.sigmoid(torch.bmm(hcol, w["w_oc"]) + w["b_oc"])
+    h1 = torch.relu(mm(e1, w["w_in"]) + w["b_in"])
+    h2 = torch.relu(mm(h1, w["w_mid1"]) + w["b_mid1"])
+    hc = torch.relu(mm(h2, w_cat[:, :h]) + mm(e1, w_cat[:, h:]) + w["b_cat"])
+    h3 = torch.relu(mm(hc, w["w_mid2"]) + w["b_mid2"])
+    alpha = (mm(h3, w["w_alpha"]) + w["b_alpha"]) * ALPHA_SCALE
+    hcol = torch.relu(mm(h3, w_col[:, :h]) + mm(e2, w_col[:, h:]) + w["b_col"])
+    color = torch.sigmoid(mm(hcol, w["w_oc"]) + w["b_oc"])
     hclip = None
     if do_clip:
-        hclip = torch.relu(torch.bmm(h3, w_clip[:, :h])
-                           + torch.bmm(e2, w_clip[:, h:]) + w["b_clip"])
+        hclip = torch.relu(mm(h3, w_clip[:, :h]) + mm(e2, w_clip[:, h:]) + w["b_clip"])
+    acts = dict(proj=proj, e1=e1, e2=e2, h1=h1, h2=h2, hc=hc, h3=h3, hcol=hcol)
+    return alpha, color, hclip, acts
+
+
+def fused_field_plain(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
+                      do_clip: bool, compute_dtype: str = "f32"):
+    """Plain PyTorch version of K1 (its backward is K2's plain version:
+    autograd in f32, ``_PlainBf16`` in bf16).
+
+    wflat [O, P] packed params, pts_scaled [O, N, 3] points already divided
+    by the per-object scale. Returns (alpha [O,N,1], color [O,N,3],
+    hclip [O,N,h] | None)."""
+    if compute_dtype == "bf16":
+        alpha, color, hclip = _PlainBf16.apply(wflat, pts_scaled, h, do_clip)
+        return alpha, color, (hclip if do_clip else None)
+    if compute_dtype != "f32":
+        raise ValueError(f"compute_dtype={compute_dtype!r}: 'f32' or 'bf16'")
+    alpha, color, hclip, _ = _plain_forward(_unpack(wflat, h), pts_scaled, h, do_clip,
+                                            torch.bmm)
     return alpha, color, hclip
+
+
+def _plain_bf16_grad(wflat, t, d_alpha, d_color, d_hclip, h: int, do_clip: bool):
+    """The packed gradient [O, P] of the bf16 field, as the JAX kernel's
+    ``_bwd_kernel`` computes it: the forward recomputed in bf16 (its signs
+    are the ReLU masks), every product's operands rounded to bf16 with f32
+    sums, bias gradients summed in f32."""
+    w = _unpack(wflat, h)
+    _, color, hclip, a = _plain_forward(w, t, h, do_clip, _bmm_bf16)
+    e1, e2, h1, h2, hc, h3, hcol = (a[k] for k in ("e1", "e2", "h1", "h2", "hc", "h3", "hcol"))
+
+    def mmT(x, dy):      # x [O, N, in], dy [O, N, out] -> [O, in, out]
+        return _bmm_bf16(x.transpose(1, 2), dy)
+
+    def mmBT(dy, wm):    # dy [O, N, out], w [O, in, out] -> [O, N, in]
+        return _bmm_bf16(dy, wm.transpose(1, 2))
+
+    def bsum(dy):
+        return dy.sum(dim=1, keepdim=True)
+
+    g = {}
+    dcol = d_color * color * (1.0 - color)                       # sigmoid'
+    g["w_oc"], g["b_oc"] = mmT(hcol, dcol), bsum(dcol)
+    d_hcol = mmBT(dcol, w["w_oc"]) * (hcol > 0)
+    da = d_alpha * ALPHA_SCALE
+    g["w_alpha"], g["b_alpha"] = mmT(h3, da), bsum(da)
+    g["w_col"] = torch.cat([mmT(h3, d_hcol), mmT(e2, d_hcol)], dim=1)
+    g["b_col"] = bsum(d_hcol)
+    d_h3 = mmBT(da, w["w_alpha"]) + mmBT(d_hcol, w["w_col"][:, :h])
+    d_e2 = mmBT(d_hcol, w["w_col"][:, h:])
+    if do_clip:
+        d_hclip = d_hclip * (hclip > 0)
+        g["w_clip"] = torch.cat([mmT(h3, d_hclip), mmT(e2, d_hclip)], dim=1)
+        g["b_clip"] = bsum(d_hclip)
+        d_h3 = d_h3 + mmBT(d_hclip, w["w_clip"][:, :h])
+        d_e2 = d_e2 + mmBT(d_hclip, w["w_clip"][:, h:])
+    else:
+        g["w_clip"], g["b_clip"] = torch.zeros_like(w["w_clip"]), torch.zeros_like(w["b_clip"])
+    d_h3 = d_h3 * (h3 > 0)
+    g["w_mid2"], g["b_mid2"] = mmT(hc, d_h3), bsum(d_h3)
+    d_hc = mmBT(d_h3, w["w_mid2"]) * (hc > 0)
+    g["w_cat"] = torch.cat([mmT(h2, d_hc), mmT(e1, d_hc)], dim=1)
+    g["b_cat"] = bsum(d_hc)
+    d_h2 = mmBT(d_hc, w["w_cat"][:, :h]) * (h2 > 0)
+    d_e1 = mmBT(d_hc, w["w_cat"][:, h:])
+    g["w_mid1"], g["b_mid1"] = mmT(h1, d_h2), bsum(d_h2)
+    d_h1 = mmBT(d_h2, w["w_mid1"]) * (h1 > 0)
+    g["w_in"], g["b_in"] = mmT(e1, d_h1), bsum(d_h1)
+    d_e1 = d_e1 + mmBT(d_h1, w["w_in"])
+    # PE: d_proj = sum_k pi 2^k cos(pi 2^k proj) d_sin_k, in band order
+    proj = a["proj"]
+    d_proj = torch.zeros_like(proj)
+    for k in range(_NF):
+        ds = d_e1[..., 3 + _ND * k: 3 + _ND * (k + 1)] if k < 4 else \
+            d_e2[..., _ND * (k - 4): _ND * (k - 3)]
+        f = math.pi * (2.0 ** k)
+        d_proj = d_proj + (f * torch.cos(f * proj)) * ds
+    g["dirs"] = mmT(d_proj, t)                                   # [O, 21, 3]
+    o = wflat.shape[0]
+    return torch.cat([g[name].reshape(o, -1) for name, _ in param_layout(h)], dim=1)
+
+
+class _PlainBf16(torch.autograd.Function):
+    """The plain bf16 field: forward by ``_plain_forward`` with bf16
+    products, backward by ``_plain_bf16_grad``; no gradient to the points."""
+
+    @staticmethod
+    def forward(ctx, wflat, pts, h, do_clip):
+        alpha, color, hclip, _ = _plain_forward(_unpack(wflat, h), pts, h, do_clip, _bmm_bf16)
+        ctx.save_for_backward(wflat, pts)
+        ctx.h, ctx.do_clip = h, do_clip
+        return alpha, color, (hclip if do_clip else alpha.new_empty((0,)))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_alpha, d_color, d_hclip):
+        wflat, pts = ctx.saved_tensors
+        g = _plain_bf16_grad(wflat, pts, d_alpha, d_color, d_hclip if ctx.do_clip else None,
+                             ctx.h, ctx.do_clip)
+        return g, None, None, None
 
 
 # --------------------------------------------------------------------------- #
@@ -146,8 +309,9 @@ _INT = ctypes.c_int
 
 
 def _lib(source="fused_field"):
-    """The loaded, typed library of ``csrc/fused_field.cu`` (or of another
-    copy of it with the same entry points, given as a path)."""
+    """The loaded, typed library of ``csrc/fused_field.cu`` (``"fused_field_bf16"``:
+    its bf16 instantiation; or another copy with the same entry points,
+    given as a path)."""
     from openobj_torch import kernels
 
     lib = kernels.load(source)
@@ -177,13 +341,16 @@ def tensor_core_width(h: int) -> bool:
     return bool(_lib().ff_tc_width(h))
 
 
-def kernel_names(h: int) -> dict:
-    """The CUDA kernel behind each launch count at hidden width ``h``."""
+def kernel_names(h: int, compute_dtype: str = "f32") -> dict:
+    """The CUDA kernel behind each launch count at hidden width ``h``
+    (in bf16: the same kernels of ``csrc/fused_field_bf16.cu``, named with
+    " bf16")."""
     if tensor_core_width(h):
         fwd, bwd = f"ff_fwd_kernel<{h}>", f"ff_bwd_kernel<{h}>"
     else:
         fwd, bwd = "ff_fwd_generic_kernel", "ff_bwd_generic_kernel"
-    return {"fused_field_fwd": fwd, "fused_field_bwd": bwd,
+    tag = " bf16" if compute_dtype == "bf16" else ""
+    return {_FWD[compute_dtype]: fwd + tag, _BWD[compute_dtype]: bwd + tag,
             "fused_field_bwd_reduce": "ff_reduce_kernel"}
 
 
@@ -227,11 +394,11 @@ def bwd_tiling(lib, o: int, n: int, h: int, device) -> tuple[int, int]:
     return tile, -(-n // tile)
 
 
-def fused_field_forward_cuda(wflat, pts, h: int, do_clip: bool):
-    """Launch K1. Returns (alpha [O,N,1], color [O,N,3], hclip [O,N,h] |
-    None)."""
+def fused_field_forward_cuda(wflat, pts, h: int, do_clip: bool, compute_dtype: str = "f32"):
+    """Launch K1 (of the ``compute_dtype`` build). Returns (alpha [O,N,1],
+    color [O,N,3], hclip [O,N,h] | None)."""
     o, n, _ = pts.shape
-    lib = _lib()
+    lib = _lib(_SOURCE[compute_dtype])
     p = lib.ff_param_count(h)
     _check(pts, "pts", (o, n, 3))
     _check(wflat, "wflat", (o, p))
@@ -242,15 +409,16 @@ def fused_field_forward_cuda(wflat, pts, h: int, do_clip: bool):
                          color.data_ptr(), hclip.data_ptr() if do_clip else None,
                          o, n, h, int(do_clip), _stream(pts))
     _raise_on(err, "fused_field forward")
-    _count("fused_field_fwd", o, n, h)
+    _count(_FWD[compute_dtype], o, n, h)
     return alpha, color, hclip
 
 
 def fused_field_backward_cuda(wflat, pts, d_alpha, d_color, d_hclip, h: int,
-                              do_clip: bool):
-    """Launch K2 and its reduction. Returns the packed gradient [O, P]."""
+                              do_clip: bool, compute_dtype: str = "f32"):
+    """Launch K2 (of the ``compute_dtype`` build) and its reduction.
+    Returns the packed gradient [O, P]."""
     o, n, _ = pts.shape
-    lib = _lib()
+    lib = _lib(_SOURCE[compute_dtype])
     p = lib.ff_param_count(h)
     _check(pts, "pts", (o, n, 3))
     _check(wflat, "wflat", (o, p))
@@ -266,7 +434,7 @@ def fused_field_backward_cuda(wflat, pts, d_alpha, d_color, d_hclip, h: int,
                           d_color.data_ptr(), d_hclip.data_ptr() if do_clip else None,
                           part.data_ptr(), o, n, h, int(do_clip), tile, stream)
     _raise_on(err, "fused_field backward")
-    _count("fused_field_bwd", o, n, h)
+    _count(_BWD[compute_dtype], o, n, h)
     err = lib.ff_reduce(part.data_ptr(), grad.data_ptr(), o, n_tiles, p, stream)
     _raise_on(err, "fused_field backward reduction")
     _count("fused_field_bwd_reduce", o, n, h)
@@ -277,10 +445,10 @@ class _FusedField(torch.autograd.Function):
     """K1 forward, K2 backward; no gradient to the points."""
 
     @staticmethod
-    def forward(ctx, wflat, pts, h, do_clip):
-        alpha, color, hclip = fused_field_forward_cuda(wflat, pts, h, do_clip)
+    def forward(ctx, wflat, pts, h, do_clip, compute_dtype):
+        alpha, color, hclip = fused_field_forward_cuda(wflat, pts, h, do_clip, compute_dtype)
         ctx.save_for_backward(wflat, pts)
-        ctx.h, ctx.do_clip = h, do_clip
+        ctx.h, ctx.do_clip, ctx.compute_dtype = h, do_clip, compute_dtype
         if hclip is None:
             hclip = alpha.new_empty((0,))
         return alpha, color, hclip
@@ -291,28 +459,31 @@ class _FusedField(torch.autograd.Function):
         wflat, pts = ctx.saved_tensors
         g = fused_field_backward_cuda(
             wflat, pts, d_alpha.contiguous(), d_color.contiguous(),
-            d_hclip.contiguous() if ctx.do_clip else None, ctx.h, ctx.do_clip)
-        return g, None, None, None
+            d_hclip.contiguous() if ctx.do_clip else None, ctx.h, ctx.do_clip,
+            ctx.compute_dtype)
+        return g, None, None, None, None
 
 
 def fused_field_apply(wflat: torch.Tensor, pts_scaled: torch.Tensor, h: int,
-                      do_clip: bool):
+                      do_clip: bool, compute_dtype: str = "f32"):
     """The kernel pair on a CUDA tensor, the plain version on a CPU one."""
+    if compute_dtype not in _SOURCE:
+        raise ValueError(f"compute_dtype={compute_dtype!r}: 'f32' or 'bf16'")
     if pts_scaled.is_cuda:
         alpha, color, hclip = _FusedField.apply(
-            wflat.contiguous(), pts_scaled.contiguous(), h, do_clip)
+            wflat.contiguous(), pts_scaled.contiguous(), h, do_clip, compute_dtype)
         return alpha, color, (hclip if do_clip else None)
     if pts_scaled.device.type != "cpu":
         raise ValueError(f"fused field: unsupported device {pts_scaled.device}")
     COUNTS["fused_field_plain"] += 1
-    return fused_field_plain(wflat, pts_scaled, h, do_clip)
+    return fused_field_plain(wflat, pts_scaled, h, do_clip, compute_dtype)
 
 
 def kernels_cover(max_deg: int, compute_dtype: str) -> bool:
     """Whether the kernels compute a field call of this shape: the reference
-    PE layout (``max_deg`` 5, the 87/42 split the packed layout hard-codes)
-    and f32. K1 and K2 take any hidden width."""
-    return max_deg == 5 and compute_dtype == "f32"
+    PE layout (``max_deg`` 5, the 87/42 split the packed layout hard-codes),
+    in f32 or bf16. K1 and K2 take any hidden width."""
+    return max_deg == 5 and compute_dtype in _SOURCE
 
 
 def field_evaluator(params: dict, stacked: bool, max_deg: int = 5,
@@ -325,9 +496,9 @@ def field_evaluator(params: dict, stacked: bool, max_deg: int = 5,
 
     Where the kernels cover the call (``kernels_cover``), the params are
     packed once, here, and every call runs K1 (K2 behind it under autograd;
-    their plain version on a CPU tensor). Otherwise every call runs the
-    eager field and counts one ``field_eager``. The choice is made on the
-    shape alone, before anything is launched."""
+    their plain version on a CPU tensor) of the compute dtype. Otherwise
+    every call runs the eager field and counts one ``field_eager``. The
+    choice is made on the shape alone, before anything is launched."""
     if not kernels_cover(max_deg, compute_dtype):
         apply = object_field.field_apply_stacked if stacked else object_field.field_apply
 
@@ -347,7 +518,7 @@ def field_evaluator(params: dict, stacked: bool, max_deg: int = 5,
         pts = points if stacked else points[None]
         o, lead = pts.shape[0], pts.shape[1:-1]
         pts_scaled = (pts.reshape(o, -1, 3) / scale[:, None, None]).detach()
-        a, c, f = fused_field_apply(wflat, pts_scaled, h, do_clip)
+        a, c, f = fused_field_apply(wflat, pts_scaled, h, do_clip, compute_dtype)
         a, c = a.reshape(o, *lead, 1), c.reshape(o, *lead, 3)
         f = f.reshape(o, *lead, h) if do_clip else None
         if stacked:
@@ -356,7 +527,7 @@ def field_evaluator(params: dict, stacked: bool, max_deg: int = 5,
     return fused
 
 
-def _check_fused_shape(max_deg: int, compute_dtype: str) -> None:
+def _check_fused_shape(max_deg: int) -> None:
     if max_deg != 5:
         # the packed layout hard-codes the 87/42 split (3 + 21*4 trunk rows,
         # 21*2 head rows); other band counts would mispack
@@ -365,9 +536,6 @@ def _check_fused_shape(max_deg: int, compute_dtype: str) -> None:
             f"(max_deg=5, 87/42 split); got max_deg={max_deg}. "
             "Use object_field.field_apply_stacked for other layouts."
         )
-    if compute_dtype != "f32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the fused field is f32 only so far")
 
 
 def field_apply_stacked_fused(
@@ -380,12 +548,14 @@ def field_apply_stacked_fused(
     """Counterpart of ``object_field.field_apply_stacked(...,
     clip_hidden_only=True)`` through the kernels: returns (alpha [O, ..., 1],
     color [O, ..., 3], clip_hidden [O, ..., h] | None)."""
-    _check_fused_shape(max_deg, compute_dtype)
-    return field_evaluator(stacked_params, stacked=True, do_clip=do_clip)(points)
+    _check_fused_shape(max_deg)
+    return field_evaluator(stacked_params, stacked=True, do_clip=do_clip,
+                           compute_dtype=compute_dtype)(points)
 
 
 def field_apply_fused(params: dict, points: torch.Tensor, max_deg: int = 5,
                       do_clip: bool = True, compute_dtype: str = "f32"):
     """Single-object wrapper (background model / eval paths)."""
-    _check_fused_shape(max_deg, compute_dtype)
-    return field_evaluator(params, stacked=False, do_clip=do_clip)(points)
+    _check_fused_shape(max_deg)
+    return field_evaluator(params, stacked=False, do_clip=do_clip,
+                           compute_dtype=compute_dtype)(points)

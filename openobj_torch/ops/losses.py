@@ -32,22 +32,37 @@ def factored_cosine_loss(
     With h' = [hidden, opacity] and W' = [W; b]: pred.gt = h'.(gt W'^T),
     |pred|^2 = h' (W'W'^T) h'. The quadratic form is clamped at 0, since
     cancellation can make it slightly negative on all-transparent rays.
+
+    ``compute_dtype="bf16"``: gt and W' are rounded to bf16 once (gt is
+    exact there: int8 store values, or a bf16 store) and the C-wide
+    products gt W'^T, W'W'^T and |gt|^2 sum in f32; the products of bf16
+    values are exact in f32, so they are taken in f32 on the rounded values
+    (an einsum of bf16 tensors would round its result to bf16). Each of the
+    two products reads W' through a cast of its own, so that each one's
+    gradient is rounded to bf16 and the two are added in bf16, as the
+    transposes of the JAX package's products are (equal bit for bit). The
+    [h+1]-wide forms stay f32.
     """
-    if compute_dtype != "f32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: only f32 is ported so far")
+    if compute_dtype not in ("f32", "bf16"):
+        raise ValueError(f"compute_dtype={compute_dtype!r}: 'f32' or 'bf16'")
+    bf16 = compute_dtype == "bf16"
     w, b = head["out_clip"]["w"], head["out_clip"]["b"]
-    gtc = gt.to(torch.float32)
+    gtc = gt.to(hidden.dtype)
+    if bf16:
+        gtc = gtc.to(torch.bfloat16).float()
     hp = torch.cat([hidden, opacity[..., None]], dim=-1)          # [O,R,h+1]
-    if w.ndim == 3:   # stacked: w [O, h, C], b [O, C]
-        wb = torch.cat([w, b[:, None, :]], dim=1)
-        t = torch.einsum("orc,ohc->orh", gtc, wb)
-        g = torch.einsum("ohc,okc->ohk", wb, wb)
+    stacked = w.ndim == 3   # w [O, h, C], b [O, C]; else w [h, C], b [C]
+    wb = torch.cat([w, b[:, None, :]], dim=1) if stacked else torch.cat([w, b[None, :]], dim=0)
+    if bf16:
+        wb = wb.to(torch.bfloat16)
+    wt, wg = (wb.float(), wb.float()) if bf16 else (wb, wb)
+    if stacked:
+        t = torch.einsum("orc,ohc->orh", gtc, wt)
+        g = torch.einsum("ohc,okc->ohk", wg, wg)
         pn2 = torch.einsum("orh,ohk,ork->or", hp, g, hp)
-    else:             # single model: w [h, C], b [C]
-        wb = torch.cat([w, b[None, :]], dim=0)
-        t = torch.einsum("orc,hc->orh", gtc, wb)
-        g = torch.einsum("hc,kc->hk", wb, wb)
+    else:
+        t = torch.einsum("orc,hc->orh", gtc, wt)
+        g = torch.einsum("hc,kc->hk", wg, wg)
         pn2 = torch.einsum("orh,hk,ork->or", hp, g, hp)
     num = torch.sum(hp * t, dim=-1)
     gn2 = torch.einsum("orc,orc->or", gtc, gtc)

@@ -11,6 +11,14 @@ Port of ``openobj_tpu.ops.mlp``:
 Params are nested dicts of (weight ``w`` [in, out], bias ``b`` [out]). A
 stack of O objects carries a leading [O] axis on every leaf, and the
 ensemble then runs as batched matmuls. Xavier-normal weights, zero biases.
+
+``compute_dtype="bf16"`` rounds both operands of every matmul to bf16 and
+multiplies in f32 (a bf16 product is exact in f32), as the JAX package's
+``jnp.dot(x.astype(bf16), w.astype(bf16), preferred_element_type=f32)``;
+biases add in f32. Autograd through the casts rounds each operand's
+gradient to bf16, as the transpose of that JAX product does: this is the
+JAX package's XLA field at bf16, the path taken where the fused kernels do
+not cover a shape. Params stay f32 masters.
 """
 
 from __future__ import annotations
@@ -66,17 +74,23 @@ def _bias(b: torch.Tensor) -> torch.Tensor:
     return b.unsqueeze(-2)
 
 
-def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, p["w"]) + _bias(p["b"])
+def _matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    if bf16:
+        x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+    return torch.matmul(x, w)
 
 
-def _segments_linear_relu(p: dict, segs) -> torch.Tensor:
+def _linear(p: dict, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    return _matmul(x, p["w"], bf16) + _bias(p["b"])
+
+
+def _segments_linear_relu(p: dict, segs, bf16: bool = False) -> torch.Tensor:
     """relu(concat(segs) @ w + b) as a sum of row-partitioned matmuls."""
     w = p["w"]
     ofs, y = 0, None
     for s in segs:
         k = s.shape[-1]
-        term = torch.matmul(s, w[..., ofs:ofs + k, :])
+        term = _matmul(s, w[..., ofs:ofs + k, :], bf16)
         ofs += k
         y = term if y is None else y + term
     return torch.relu(y + _bias(p["b"]))
@@ -99,9 +113,9 @@ def mlp_apply(
     clip [.., clip_size] | None); ``clip_hidden_only`` returns the h-wide
     clip hidden instead of the projected feature (see ``clip_project``).
     """
-    if compute_dtype != "f32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: only f32 is ported so far")
+    if compute_dtype not in ("f32", "bf16"):
+        raise ValueError(f"compute_dtype={compute_dtype!r}: 'f32' or 'bf16'")
+    bf16 = compute_dtype == "bf16"
     if isinstance(emb, tuple):
         t, sins = emb
         n_raw = t.shape[-1]
@@ -111,24 +125,24 @@ def mlp_apply(
         e1_segs = [emb[..., :emb_size1]]
         e2_segs = [emb[..., emb_size1:]]
 
-    h = _segments_linear_relu(params["in_layer"], e1_segs)
-    h = torch.relu(_linear(params["mid1"], h))
-    h = _segments_linear_relu(params["cat_layer"], [h] + e1_segs)
-    h = torch.relu(_linear(params["mid2"], h))
+    h = _segments_linear_relu(params["in_layer"], e1_segs, bf16)
+    h = torch.relu(_linear(params["mid1"], h, bf16))
+    h = _segments_linear_relu(params["cat_layer"], [h] + e1_segs, bf16)
+    h = torch.relu(_linear(params["mid2"], h, bf16))
 
     alpha = None
     if do_alpha:
-        alpha = _linear(params["out_alpha"], h) * ALPHA_SCALE
+        alpha = _linear(params["out_alpha"], h, bf16) * ALPHA_SCALE
 
     color = None
     if do_color and "out_color" in params:
-        hc = _segments_linear_relu(params["color_linear"], [h] + e2_segs)
-        color = torch.sigmoid(_linear(params["out_color"], hc))
+        hc = _segments_linear_relu(params["color_linear"], [h] + e2_segs, bf16)
+        color = torch.sigmoid(_linear(params["out_color"], hc, bf16))
 
     clip = None
     if do_clip and "out_clip" in params:
-        hf = _segments_linear_relu(params["clip_linear"], [h] + e2_segs)
-        clip = hf if clip_hidden_only else _linear(params["out_clip"], hf)
+        hf = _segments_linear_relu(params["clip_linear"], [h] + e2_segs, bf16)
+        clip = hf if clip_hidden_only else _linear(params["out_clip"], hf, bf16)
     return alpha, color, clip
 
 

@@ -40,9 +40,10 @@ import torch
 
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
-# TF32 on the tensor cores, HBM3
+# TF32 and bf16 on the tensor cores, HBM3
 PEAK_F32 = 67e12
 PEAK_TF32 = 494.7e12
+PEAK_BF16 = 989.4e12
 PEAK_BYTES = 3.35e12
 
 
@@ -79,31 +80,35 @@ def bwd_mm_macs(h: int) -> int:
     return 3 * fwd_mm_macs(h)
 
 
-def bound_ms(flops: float, nbytes: float, mm_flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(flops: float, nbytes: float, mm_flops: float = 0.0,
+             compute_dtype: str = "f32") -> tuple[float, str]:
     """Least time (ms) for ``flops`` FP32-accurate operations moving
     ``nbytes``, and what bounds it. The ``mm_flops`` of them that are matrix
     products may run on the tensor cores in 3xTF32 (three TF32 products for
-    one FP32-accurate one); the rest run at the FP32 rate. The two kinds of
-    unit may overlap, so the operations take the longer of the two times.
-    With mm_flops = 0 this is the SIMT-only bound."""
-    t_ops = max(3.0 * mm_flops / PEAK_TF32, (flops - mm_flops) / PEAK_F32)
+    one FP32-accurate one), or, with ``compute_dtype="bf16"``, as bf16
+    products at the dense bf16 rate; the rest run at the FP32 rate. The two
+    kinds of unit may overlap, so the operations take the longer of the two
+    times. With mm_flops = 0 this is the SIMT-only bound."""
+    t_mm = mm_flops / PEAK_BF16 if compute_dtype == "bf16" else 3.0 * mm_flops / PEAK_TF32
+    t_ops = max(t_mm, (flops - mm_flops) / PEAK_F32)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def field_bounds(o: int, n: int, h: int, p: int) -> dict:
+def field_bounds(o: int, n: int, h: int, p: int, compute_dtype: str = "f32") -> dict:
     """Bounds of one fused-field forward and backward (clip head on) over O
     objects x N points at width h, P packed parameters per object: the
     points, weights and cotangents read once, the outputs (or one gradient
     per object) written once; ``*_simt`` with every product on the SIMT
     cores. Values are ``bound_ms`` pairs (ms, what bounds it)."""
+    cd = compute_dtype
     npts = o * n
     wbytes = o * p * 4
     fwd_bytes = npts * 12 + wbytes + npts * 4 * (1 + 3 + h)
     bwd_bytes = fwd_bytes + wbytes
     return {
-        "fwd": bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes, 2.0 * fwd_mm_macs(h) * npts),
-        "bwd": bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes, 2.0 * bwd_mm_macs(h) * npts),
+        "fwd": bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes, 2.0 * fwd_mm_macs(h) * npts, cd),
+        "bwd": bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes, 2.0 * bwd_mm_macs(h) * npts, cd),
         "fwd_simt": bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes),
         "bwd_simt": bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes),
     }

@@ -277,10 +277,10 @@ def render_dataset(mapper, dataset, log_dir: str, mapping_class: dict,
 
 
 def export_meshes(mapper, log_dir: str, grid_dim: int, live_voxel_size: float,
-                  save_mesh: bool = True, save_pcd: bool = False):
-    """Mesh every object with a box and export it as OBJ; with ``save_pcd``
-    also the occ > 0.5 grid points as a PLY. Returns the number of objects
-    meshed."""
+                  save_mesh: bool = True, save_pcd: bool = False, inst_ids=None):
+    """Mesh every object with a box (or those of ``inst_ids``) and export it
+    as OBJ; with ``save_pcd`` also the occ > 0.5 grid points as a PLY.
+    Returns the number of objects meshed."""
     from openobj_torch.core import meshing
     from openobj_torch.utils.geometry import TriangleMesh
 
@@ -289,7 +289,7 @@ def export_meshes(mapper, log_dir: str, grid_dim: int, live_voxel_size: float,
     n = 0
     for inst_id, slot in mapper.registry.inst_to_slot.items():
         st = mapper.registry.slots[slot]
-        if st.bbox3d is None:
+        if st.bbox3d is None or (inst_ids is not None and inst_id not in inst_ids):
             continue
         dim = meshing.adaptive_grid_dim(st.bbox3d, live_voxel_size, grid_dim)
         params = mapper.slot_params(slot)

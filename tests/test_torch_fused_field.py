@@ -3,7 +3,9 @@
 On the CPU the port runs the kernels' plain version; the JAX side runs its
 Pallas kernels in interpret mode, as tests/test_fused_field.py does, at
 hidden widths 16, 32 and 64 (the card runs all three on its tensor-core
-K1/K2). The
+K1/K2), and in bf16 (``compute_dtype``) at 32, the foreground's width: the
+plain version is one code for every width, and the bf16 kernels are held
+to it at every width in tests/test_torch_kernel_emulation.py. The
 CUDA kernels are held against the plain version in
 tests/test_torch_kernels.py (needs a GPU, not JAX).
 """
@@ -117,12 +119,73 @@ def test_single_object_wrapper_h128():
 
 
 def test_max_deg_and_dtype_errors():
+    """max_deg 4 is refused; bf16 is computed, equal to the JAX kernel's bf16
+    (clip head off, single-object wrapper)."""
     p, pts, _ = _setup()
     tp, _ = _torch_params(p)
     with pytest.raises(NotImplementedError, match="max_deg"):
         tff.field_apply_stacked_fused(tp, torch.from_numpy(pts), max_deg=4)
-    with pytest.raises(NotImplementedError):
-        tff.field_apply_stacked_fused(tp, torch.from_numpy(pts), compute_dtype="bf16")
+    p1 = jof.slice_slot(p, 1)
+    want = jff.field_apply_fused(p1, jnp.asarray(pts[1]), do_clip=False, compute_dtype="bf16")
+    got = tff.field_apply_fused(tof.slice_slot(tp, 1), torch.from_numpy(pts[1]), do_clip=False,
+                                compute_dtype="bf16")
+    assert got[2] is None and want[2] is None
+    for x1, x0 in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(x1.numpy(), np.asarray(x0), atol=FWD_ATOL)
+
+
+# bf16 against the JAX kernel in bf16 (interpret mode): forward max abs 1e-5
+# and per leaf max|d|/max|ref| 1e-4, both at roundoff (measured ~1e-6 and
+# <= 4e-5, the latter pe.dirs at h=64). The JAX package's two bf16 paths
+# (this kernel and the XLA field) differ by 8e-3 on their worst leaf, and
+# bf16 moves every leaf but b_alpha by 4e-4 (out_color.b) to 0.3 against
+# f32, so 1e-4 tells the kernel's numerics from either.
+BF16_GRAD_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("h", [32])
+def test_bf16_matches_jax_kernel(h):
+    p, pts, rng = _setup(h=h)
+    o, n = pts.shape[:2]
+    cts = [rng.normal(size=(o, n, k)).astype(np.float32) for k in (1, 3, h)]
+
+    def jloss(params):
+        a, c, f = jff.field_apply_stacked_fused(params, jnp.asarray(pts), compute_dtype="bf16")
+        return jnp.sum(a * cts[0]) + jnp.sum(c * cts[1]) + jnp.sum(f * cts[2]), (a, c, f)
+
+    (_, outs0), g0 = jax.value_and_grad(jloss, has_aux=True)(p)
+    tp, leaves = _torch_params(p, requires_grad=True)
+    outs1 = tff.field_apply_stacked_fused(tp, torch.from_numpy(pts), compute_dtype="bf16")
+    for x1, x0 in zip(outs1, outs0):
+        np.testing.assert_allclose(x1.detach().numpy(), np.asarray(x0), atol=FWD_ATOL)
+    loss = sum((x * torch.from_numpy(c)).sum() for x, c in zip(outs1, cts))
+    grads = torch.autograd.grad(loss, [x for _, x in leaves], allow_unused=True)
+    _grads_match(g0, leaves, grads, BF16_GRAD_RTOL)
+
+
+def test_bf16_output_check_tells_kernels_apart():
+    """bf16_output_errors, the card's gate on K1 bf16's outputs, on the
+    plain version's: the plain bf16 itself passes, and so does a copy with a
+    rounding flip's worth of change on a few entries; plain f32 in its
+    place, a NaN, or one object's outputs gone wrong fail."""
+    p, pts, _ = _setup(o=3, n=200, h=32)
+    tp, _ = _torch_params(p)
+    w, x = tff._pack_params(tp, 32, True), torch.from_numpy(pts)
+    ref = tff.fused_field_plain(w, x, 32, True, "bf16")
+    ref32 = tff.fused_field_plain(w, x, 32, True)
+    for r, r32 in zip(ref, ref32):
+        e = tff.bf16_output_errors(r, r, r32, FWD_ATOL)
+        assert e["ok"] and e["off"] == 0.0 and e["control_off"] > 10 * tff.BF16_OFF_FRAC, e
+        flip = r.clone()
+        flip.view(-1)[::499] += 0.5 * e["bf16_max"]      # 0.2% of the entries
+        assert tff.bf16_output_errors(flip, r, r32, FWD_ATOL)["ok"]
+        assert not tff.bf16_output_errors(r32, r, r32, FWD_ATOL)["ok"]
+        nan = r.clone()
+        nan.view(-1)[7] = float("nan")
+        assert not tff.bf16_output_errors(nan, r, r32, FWD_ATOL)["ok"]
+        wrong = r.clone()
+        wrong[-1] *= 1.0 + 2.0 ** -7                      # the last object off by a bf16 ulp
+        assert not tff.bf16_output_errors(wrong, r, r32, FWD_ATOL)["ok"]
 
 
 def test_packed_layout_matches_kernel_layout():

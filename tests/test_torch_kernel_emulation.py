@@ -12,7 +12,8 @@ swizzled shared memory, the packed layout and its bias rows, ragged
 chunks, tiles of several chunks, the clip head on and off, for the
 tensor-core K1 and K2 at the widths ``EMU_TC_WIDTHS`` (weights in shared
 memory at h = 16 and 32, from L2 at 48 to 128), and for the SIMT kernels at
-widths outside them. The emulation builds only the tensor-core widths its
+widths outside them; and the same for their bf16 build (``FF_BF16``, what
+``csrc/fused_field_bf16.cu`` compiles) against the plain version in bf16. The emulation builds only the tensor-core widths its
 tests use (``FF_TC_WIDTHS``, defined for the host compiler); the card
 builds every multiple of 16 up to 128. It says nothing of speed or of the
 card's own rounding;
@@ -62,7 +63,8 @@ STUB = r"""
 //    fragment layout (g = lane >> 2, t = lane & 3; a0..a3 = A[g][t],
 //    A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g];
 //    c0..c3 = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]);
-//  * cvt.rna.tf32.f32 rounds to 10 mantissa bits, ties away from zero;
+//  * cvt.rna.tf32.f32 rounds to 10 mantissa bits, ties away from zero, and
+//    cvt.rn.bf16x2.f32 to 7, ties to even (finite values);
 //  * dynamic shared memory is filled with NaN before each block, so that a
 //    read of memory the kernel never wrote shows in its outputs;
 //  * the device has emu_set_sm_count(n) SMs (132 unless set), so that a test
@@ -166,6 +168,11 @@ inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = g_sm_count; return 0; }
 inline size_t g_smem_max = 0;
 
+inline float round_bf16(float x) {   // cvt.rn.bf16x2.f32: nearest, ties to even
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xffff0000u);
+}
 inline uint32_t to_tf32(float x) {
   uint32_t u; std::memcpy(&u, &x, 4);
   if ((u & 0x7f800000u) != 0x7f800000u) u += 0x1000u;
@@ -349,7 +356,9 @@ def _host_source(name: str) -> str:
                   r"emu_launch(\2, [&] { \1(\3); });", s, flags=re.S)
 
 
-def _emulated(tmp_path_factory, name: str, defines=()) -> ctypes.CDLL:
+def _emulated_start(tmp_path_factory, name: str, defines=()):
+    """Start the host compiler on csrc/<name>.cu; ``_emulated_finish`` loads
+    the library."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
@@ -357,17 +366,26 @@ def _emulated(tmp_path_factory, name: str, defines=()) -> ctypes.CDLL:
     cpp, stub, so = out / f"{name}_emu.cpp", out / "cuda_emu.h", out / f"lib{name}_emu.so"
     cpp.write_text(_host_source(name))
     stub.write_text(STUB)
-    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", *defines, "-include", str(stub), "-o", str(so),
-                    str(cpp)],
-                   check=True, capture_output=True, text=True)
+    proc = subprocess.Popen([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                             "-Wno-unknown-pragmas", *defines, "-include", str(stub), "-o",
+                             str(so), str(cpp)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, so
+
+
+def _emulated_finish(job) -> ctypes.CDLL:
+    proc, so = job
+    out, err = proc.communicate()
+    if proc.returncode:
+        raise subprocess.CalledProcessError(proc.returncode, proc.args, out, err)
     return ctypes.CDLL(str(so))
 
 
-@pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
-    widths = " ".join(f"X({h})" for h in EMU_TC_WIDTHS)
-    lib = _emulated(tmp_path_factory, "fused_field", [f"-DFF_TC_WIDTHS(X)={widths}"])
+def _emulated(tmp_path_factory, name: str, defines=()) -> ctypes.CDLL:
+    return _emulated_finish(_emulated_start(tmp_path_factory, name, defines))
+
+
+def _fused_field_emu(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.ff_tc_width, lib.ff_bwd_chunk, lib.ff_bwd_max_tile):
         fn.argtypes = [ctypes.c_int]
         fn.restype = ctypes.c_int
@@ -379,6 +397,28 @@ def emu_lib(tmp_path_factory):
     lib.ff_param_count.argtypes = [ctypes.c_int]
     lib.ff_param_count.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def fused_field_emus(tmp_path_factory):
+    """fused_field.cu for the host, built twice at once: as it is ("f32")
+    and with FF_BF16 defined ("bf16", all that csrc/fused_field_bf16.cu
+    is)."""
+    widths = " ".join(f"X({h})" for h in EMU_TC_WIDTHS)
+    jobs = {cd: _emulated_start(tmp_path_factory, "fused_field",
+                                [f"-DFF_TC_WIDTHS(X)={widths}", *defines])
+            for cd, defines in (("f32", []), ("bf16", ["-DFF_BF16=1"]))}
+    return {cd: _fused_field_emu(_emulated_finish(job)) for cd, job in jobs.items()}
+
+
+@pytest.fixture(scope="module")
+def emu_lib(fused_field_emus):
+    return fused_field_emus["f32"]
+
+
+@pytest.fixture(scope="module")
+def emu_lib_bf16(fused_field_emus):
+    return fused_field_emus["bf16"]
 
 
 def _ptr(a: np.ndarray):
@@ -489,6 +529,85 @@ def test_emulated_k2_matches_plain(emu_lib, o, n, h, do_clip, tile):
             assert not got.any(), name
             continue
         assert float((got - ref).abs().max()) <= GRAD_RTOL * float(ref.abs().max()) + 1e-7, name
+
+
+def _bf16_grads(w, pts, cts, h, do_clip):
+    """The plain version's packed gradient in bf16 and in f32."""
+    out = {}
+    for cd in ("bf16", "f32"):
+        wr = w.detach().requires_grad_(True)
+        outs = tff.fused_field_plain(wr, pts, h, do_clip, cd)
+        obj = sum((x * c).sum() for x, c in zip(outs, cts) if x is not None)
+        (out[cd],) = torch.autograd.grad(obj, wr)
+    return out["bf16"], out["f32"]
+
+
+# the bf16 kernels (fused_field.cu built with FF_BF16, as csrc/fused_field_bf16.cu
+# builds it) against the plain version in bf16: K1's outputs by the card's
+# gate (tff.bf16_output_errors at FWD_ATOL: the two sum in other orders, and
+# a rounding flip moves a few outputs by a bf16 ulp of one product, here
+# too), K2 per leaf at most a tenth of that leaf's distance between the
+# plain bf16 and f32 gradients where bf16 moves the leaf at all (it does
+# not move b_alpha)
+@pytest.mark.parametrize("o,n,h,do_clip", [
+    # one block per object walks a chunk, then 6 points
+    *((2 if h <= 32 else 1, 70, h, True) for h in EMU_TC_WIDTHS),
+    (1, 37, 32, False),          # clip head off, one ragged chunk
+    (1, 37, 96, False),
+    (2, 40, 24, True),           # the SIMT kernel
+])
+def test_emulated_k1_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip):
+    lib = emu_lib_bf16
+    w, pts = _field(np.random.default_rng(1), o, n, h, do_clip)
+    ref = tff.fused_field_plain(w, pts, h, do_clip, "bf16")
+    ref32 = tff.fused_field_plain(w, pts, h, do_clip)
+    outs = [np.full((o, n, k), np.nan, np.float32) for k in (1, 3, h)]
+    wn, pn = (np.ascontiguousarray(x.numpy()) for x in (w, pts))
+    lib.emu_set_sm_count(1)      # one block per object walks both chunks
+    err = lib.ff_forward(_ptr(pn), _ptr(wn), _ptr(outs[0]), _ptr(outs[1]),
+                         _ptr(outs[2]) if do_clip else None, o, n, h, int(do_clip), None)
+    lib.emu_set_sm_count(132)
+    assert err == 0
+    for got, want, want32 in zip(outs, ref, ref32):
+        if want is None:
+            assert np.isnan(got).all()
+            continue
+        e = tff.bf16_output_errors(torch.from_numpy(got), want, want32, FWD_ATOL)
+        assert e["ok"], e
+
+
+@pytest.mark.parametrize("o,n,h,do_clip,tile", [
+    (2, 70, 16, True, 64),       # on chip across a tile of 2 chunks
+    (2, 70, 32, True, 64),
+    (1, 40, 48, True, 32),       # from L2, one chunk per tile
+    (2, 40, 64, True, 32),
+    (1, 45, 96, True, 32),
+    (1, 40, 128, True, 32),
+    (2, 37, 32, False, 32),      # clip head off
+    (1, 33, 128, False, 32),
+    (2, 70, 24, True, 64),       # the SIMT kernel
+])
+def test_emulated_k2_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip, tile):
+    lib = emu_lib_bf16
+    rng = np.random.default_rng(0)
+    w, pts = _field(rng, o, n, h, do_clip)
+    cts = [torch.from_numpy(rng.standard_normal((o, n, k)).astype(np.float32)) for k in (1, 3, h)]
+    g_bf, g_32 = _bf16_grads(w, pts, cts, h, do_clip)
+    part = np.full((o, -(-n // tile), lib.ff_param_count(h)), np.nan, np.float32)
+    wn, pn, dan, dcn, dhn = (np.ascontiguousarray(x.detach().numpy()) for x in (w, pts, *cts))
+    err = lib.ff_backward(_ptr(pn), _ptr(wn), _ptr(dan), _ptr(dcn),
+                          _ptr(dhn) if do_clip else None, _ptr(part), o, n, h,
+                          int(do_clip), tile, None)
+    assert err == 0
+    g_k = torch.from_numpy(part.sum(axis=1))
+    dev = tff.leaf_errors(g_k, g_bf, h)
+    dist = tff.leaf_errors(g_bf, g_32, h)
+    for name, d in dev.items():
+        if not do_clip and name in ("w_clip", "b_clip"):
+            assert d == 0.0, name
+            continue
+        limit = min(GRAD_RTOL, 0.1 * dist[name]) if dist[name] > 0 else GRAD_RTOL
+        assert d <= limit, (name, d, dist[name])
 
 
 def test_emulated_k2_rejects_bad_tiles(emu_lib):

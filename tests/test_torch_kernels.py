@@ -113,6 +113,97 @@ def test_cuda_kernels_match_plain(cuda_device, o, n, h, do_clip, wide):
         assert float((got - ref).abs().max()) <= GRAD_RTOL * float(ref.abs().max()) + 1e-7, name
 
 
+def bf16_limit(dist: float, cap: float) -> float:
+    """The bf16 K2's gate on one gradient leaf: a tenth of the plain
+    version's own bf16-vs-f32 distance there, at most ``cap`` (the f32
+    gate), and ``cap`` where bf16 does not move it (b_alpha)."""
+    return min(cap, 0.1 * dist) if dist > 0 else cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,n,h,do_clip", [
+    (3, 700, 32, True),      # ragged last chunk, weights on chip
+    (2, 90, 32, False),      # clip head off
+    (8, 1200, 32, True),     # K2 tiles of several chunks
+    (1, 1000, 128, True),    # the bg width, weights from L2
+    (1, 100, 128, False),
+    (2, 700, 16, True),
+    (1, 1000, 48, True),
+    (1, 1792, 64, True),
+    (1, 800, 80, True),
+    (1, 2000, 96, True),
+    (1, 500, 112, True),
+    (2, 300, 24, True),      # the SIMT kernels
+    (1, 90, 24, False),
+])
+def test_cuda_bf16_kernels_match_plain(cuda_device, o, n, h, do_clip):
+    """K1/K2 of fused_field_bf16.cu against the plain version in bf16: each
+    output by ``bf16_output_errors`` (at most BF16_OFF_FRAC of its entries
+    off by more than FWD_ATOL, none further off than the plain bf16 is from
+    the plain f32, all finite, and plain f32 in K1's place would fail), each
+    gradient leaf within a tenth of its bf16-vs-f32 distance in max abs (at
+    most the f32 gate, ``bf16_limit``)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    w = tff._pack_params(_params(gen, o, h, cuda_device), h, do_clip).contiguous()
+    pts = 0.5 * torch.randn((o, n, 3), generator=gen, device=cuda_device)
+    cts = [torch.randn((o, n, k), generator=gen, device=cuda_device) for k in (1, 3, h)]
+    outs_k = tff.fused_field_forward_cuda(w, pts, h, do_clip, "bf16")
+    plain = {}
+    for cd in ("bf16", "f32"):
+        wr = w.detach().requires_grad_(True)
+        outs = tff.fused_field_plain(wr, pts, h, do_clip, cd)
+        obj = sum((x * c).sum() for x, c in zip(outs, cts) if x is not None)
+        plain[cd] = [None if x is None else x.detach() for x in outs]
+        (plain[cd + "_grad"],) = torch.autograd.grad(obj, wr)
+    g_k = tff.fused_field_backward_cuda(w, pts, *cts[:2], cts[2] if do_clip else None,
+                                        h, do_clip, "bf16")
+    fwd = {name: tff.bf16_output_errors(xk, xp, x32, FWD_ATOL)
+           for name, xk, xp, x32 in zip(("alpha", "color", "hclip"), outs_k, plain["bf16"],
+                                        plain["f32"]) if xp is not None}
+    dev = tff.leaf_errors(g_k, plain["bf16_grad"], h)
+    dist = tff.leaf_errors(plain["bf16_grad"], plain["f32_grad"], h)
+    worst = max(dev, key=lambda k: dev[k] / bf16_limit(dist[k], GRAD_RTOL))
+    shown = "; ".join(f"{k} off {e['off']:.2e} (f32 {e['control_off']:.2e}) max abs "
+                      f"{e['max_abs']:.2e} (bf16-vs-f32 {e['bf16_max']:.2e})"
+                      for k, e in fwd.items())
+    print(f"[bf16] {o}x{n} h={h} clip={do_clip}: fwd {shown}; worst leaf "
+          f"{worst} {dev[worst]:.2e} (bf16-vs-f32 {dist[worst]:.2e})")
+    assert (outs_k[2] is None) == (not do_clip)
+    for name, e in fwd.items():
+        assert e["ok"], (name, e)
+    for name, d in dev.items():
+        if not do_clip and name in ("w_clip", "b_clip"):
+            assert d == 0.0, name
+            continue
+        assert d <= bf16_limit(dist[name], GRAD_RTOL), (name, d, dist[name])
+
+
+@pytest.mark.cuda
+def test_bf16_autograd_on_cuda_counts_its_kernels(cuda_device):
+    """field_apply_stacked_fused(compute_dtype="bf16") on the card launches
+    the bf16 K1 and K2 and the reduction, never the f32 kernels or the plain
+    version, and agrees with the plain bf16 on the CPU."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    p_gpu = _params(gen, 3, 32, cuda_device)
+    p_cpu = tof.tree_map(lambda x: x.detach().cpu(), p_gpu)
+    pts = torch.randn((3, 40, 10, 3), generator=gen, device=cuda_device)
+
+    def run(params, x):
+        wr = tof.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        a, c, f = tff.field_apply_stacked_fused(wr, x, compute_dtype="bf16")
+        g = torch.autograd.grad((a ** 2).sum() + (c * c).sum() + f.abs().sum(),
+                                wr["mlp"]["mid1"]["w"])[0]
+        return a, g
+
+    tff.reset_counts()
+    a_g, g_g = run(p_gpu, pts)
+    assert {k: v for k, v in tff.COUNTS.items() if v} == {
+        "fused_field_fwd_bf16": 1, "fused_field_bwd_bf16": 1, "fused_field_bwd_reduce": 1}
+    a_c, g_c = run(p_cpu, pts.cpu())
+    assert float((a_g.detach().cpu() - a_c.detach()).abs().max()) <= FWD_ATOL
+    assert float((g_g.cpu() - g_c).abs().max()) <= GRAD_RTOL * float(g_c.abs().max())
+
+
 @pytest.mark.cuda
 def test_autograd_on_cuda_matches_cpu_plain(cuda_device):
     """field_apply_stacked_fused through the autograd Function on the card
@@ -194,16 +285,18 @@ def test_unbuilt_width_raises_before_the_forward(cuda_device, h, tc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden,hidden_bg,tc", [
-    (8, 24, False),    # widths without a tensor-core kernel: the SIMT K1/K2
-    (16, 64, True),    # the tensor-core K1/K2 (weights on chip at 16, from L2 at 64)
+@pytest.mark.parametrize("hidden,hidden_bg,tc,dtype", [
+    (8, 24, False, "f32"),    # widths without a tensor-core kernel: the SIMT K1/K2
+    (16, 64, True, "f32"),    # the tensor-core K1/K2 (weights on chip at 16, from L2 at 64)
+    (32, 128, True, "bf16"),  # room_0's widths at bf16
+    (8, 24, False, "bf16"),
 ])
-def test_uncovered_widths_train_on_the_card(cuda_device, hidden, hidden_bg, tc):
+def test_uncovered_widths_train_on_the_card(cuda_device, hidden, hidden_bg, tc, dtype):
     """Widths other than room_0's train on the card through K1/K2 (the SIMT
     kernels at hidden 8 / hidden_bg 24, the tensor-core ones at 16 / 64),
-    never the eager field, and the card's per-step losses agree with the
-    CPU's (the kernels' plain version) from the same state and batches (rel
-    1e-4)."""
+    and bf16 through their bf16 build, never the eager field, and the
+    card's per-step losses agree with the CPU's (the kernels' plain version)
+    from the same state and batches (rel 1e-4)."""
     import numpy as np
 
     from openobj_torch import convert
@@ -214,7 +307,7 @@ def test_uncovered_widths_train_on_the_card(cuda_device, hidden, hidden_bg, tc):
     cfg = trainer.TrainConfig(
         n_iters_per_frame=3, win_size=2, n_samples_per_frame=8, win_size_bg=2,
         n_samples_per_frame_bg=16, hidden=hidden, hidden_bg=hidden_bg, clip_size=16,
-        part_mode=True, part_down=4)
+        part_mode=True, part_down=4, compute_dtype=dtype)
     assert tff.tensor_core_width(hidden) == tff.tensor_core_width(hidden_bg) == tc
     rng = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(0)
@@ -250,8 +343,10 @@ def test_uncovered_widths_train_on_the_card(cuda_device, hidden, hidden_bg, tc):
             fg["active"].to(cuda_device), cfg, store.partfeat.to(cuda_device))
         assert abs(float(l_gpu) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
     steps = 2 * cfg.n_iters_per_frame   # fg + bg on each device
+    fwd, bwd = ("fused_field_fwd_bf16", "fused_field_bwd_bf16") if dtype == "bf16" else (
+        "fused_field_fwd", "fused_field_bwd")
     assert tff.COUNTS["field_eager"] == 0
-    assert tff.COUNTS["fused_field_fwd"] == tff.COUNTS["fused_field_bwd"] == steps
+    assert tff.COUNTS[fwd] == tff.COUNTS[bwd] == steps
     assert tff.COUNTS["fused_field_plain"] == steps
 
 

@@ -126,6 +126,80 @@ def test_object_field_forward_and_grads(clip_hidden_only):
     assert np.abs(g0n["pe"]["scale"]).max() == 0.0
 
 
+# bf16 against the JAX package's XLA field in bf16 (both round every matmul's
+# operands to bf16, sum in f32, and round each operand's gradient to bf16 by
+# the cast's transpose): outputs rel 1e-3, gradients per leaf rel 5e-3. The
+# two positional encodings differ by up to 1e-5 (PE_ATOL), and an operand
+# that lies that close to a bf16 rounding boundary rounds the other way: one
+# bf16 ulp (2^-8 relative) on that element. Measured over three seeds:
+# outputs <= 5.7e-4, leaves <= 3.0e-3 (seed 0, this test: 4.8e-5 and
+# 7.4e-4), against bf16-vs-f32 distances of 2e-3 to 0.2; the JAX package's
+# own two bf16 paths differ by 8e-3.
+BF16_FWD_RTOL, BF16_RTOL = 1e-3, 5e-3
+
+
+def test_object_field_bf16_matches_jax_xla():
+    O, N, H, C = 3, 24, 16, 12
+    p = jof.init_stacked_fields(jax.random.PRNGKey(0), O, hidden=H, clip_size=C)
+    p["pe"]["scale"] = jnp.asarray([2.0, 5.0, 2.0])
+    rng = np.random.default_rng(1)
+    pts = (rng.normal(size=(O, N, 3)) * 0.6).astype(np.float32)
+    cts = [rng.normal(size=(O, N, k)).astype(np.float32) for k in (1, 3, H)]
+
+    def jloss(params):
+        a, c, f = jof.field_apply_stacked(params, jnp.asarray(pts), clip_hidden_only=True,
+                                          compute_dtype="bf16")
+        return sum(jnp.sum(o * t) for o, t in zip((a, c, f), cts)), (a, c, f)
+
+    (_, outs0), g0 = jax.jit(jax.value_and_grad(jloss, has_aux=True))(p)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, p), "cpu")
+    trainable = [(q, x.requires_grad_(True)) for q, x in _paths(tp)
+                 if q[-1] != "scale" and q[1] != "out_clip"]
+    outs1 = tof.field_apply_stacked(tp, _t(pts), clip_hidden_only=True, compute_dtype="bf16")
+    grads = torch.autograd.grad(sum((o * _t(t)).sum() for o, t in zip(outs1, cts)),
+                                [x for _, x in trainable])
+    for o0, o1 in zip(outs0, outs1):
+        assert _rel(o1.detach().numpy(), o0) < BF16_FWD_RTOL
+    g0n = jax.tree.map(np.asarray, g0)
+    for (path, _), g in zip(trainable, grads):
+        ref = g0n
+        for k in path:
+            ref = ref[k]
+        assert _rel(g.numpy(), ref) < BF16_RTOL, path
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_factored_cosine_loss_bf16_matches_jax(stacked):
+    """The part term at bf16, value and jax.grad: W' rounded once, the
+    C-wide products summed in f32, each product's W' gradient rounded to
+    bf16 and the two added in bf16 (equal bit for bit here; stated rel
+    1e-6)."""
+    rng = np.random.default_rng(4)
+    o, r, h, c = 3, 20, 8, 64
+    lead = (o,) if stacked else ()
+    w = (rng.normal(size=(*lead, h, c)) * 0.3).astype(np.float32)
+    b = (rng.normal(size=(*lead, c)) * 0.1).astype(np.float32)
+    hid = rng.normal(size=(o, r, h)).astype(np.float32)
+    op = rng.uniform(0, 1, (o, r)).astype(np.float32)
+    gt = rng.integers(-127, 128, (o, r, c)).astype(np.int8)
+    ct = rng.normal(size=(o, r)).astype(np.float32)
+
+    def jf(*a):
+        head = {"out_clip": {"w": a[0], "b": a[1]}}
+        return jnp.sum(jlosses.factored_cosine_loss(head, a[2], a[3], jnp.asarray(gt),
+                                                    compute_dtype="bf16") * ct)
+
+    v0, g0 = jax.value_and_grad(jf, argnums=(0, 1, 2, 3))(w, b, hid, op)
+    targs = [_t(x).requires_grad_(True) for x in (w, b, hid, op)]
+    v1 = (tlosses.factored_cosine_loss({"out_clip": {"w": targs[0], "b": targs[1]}},
+                                       targs[2], targs[3], _t(gt), compute_dtype="bf16")
+          * _t(ct)).sum()
+    g1 = torch.autograd.grad(v1, targs)
+    assert _rel(v1.detach().numpy(), np.asarray(v0)) < 1e-6
+    for x, y in zip(g1, g0):
+        assert _rel(x.numpy(), np.asarray(y)) < 1e-6
+
+
 def test_clip_project_matches_jax():
     """Composite-then-project: the stacked and single-model forms, with the
     bias weighted by the ray opacity."""

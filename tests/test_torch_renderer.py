@@ -31,6 +31,12 @@ from openobj_torch.core import renderer as tr  # noqa: E402
 from openobj_torch.ops import fused_field as tff  # noqa: E402
 
 ATOL = {"color": 5e-5, "partfeat": 2e-4}   # else 1e-5
+# bf16: the two encodings differ by up to 1e-5 (test_torch_ops.PE_ATOL), so
+# an operand that close to a bf16 rounding boundary rounds the other way
+# (one bf16 ulp, 2^-8 of it) and moves a sample's colour; measured here
+# depth 2.4e-7, colour 4.5e-4, opacity 6e-8, against bf16-vs-f32
+# differences of 2.0e-4 (depth) and 1.5e-3 (colour)
+BF16_ATOL = 1e-3
 H, W = 12, 16
 
 
@@ -266,8 +272,31 @@ def test_render_frame_bucketed(two_pass, monkeypatch):
 
 
 def test_bf16_not_ported():
-    p = convert.params_from_numpy(jax.tree.map(lambda x: x[0], make_params(1)), "cpu")
-    _, _, _, origins, dirs, _, _ = scene(1)
-    with pytest.raises(NotImplementedError):
-        tr.render_rays_obb(p, _t(origins), _t(dirs), torch.eye(4), torch.ones(3),
-                           torch.zeros(3), torch.Generator(), compute_dtype="bf16")
+    """render_rays_obb at compute_dtype="bf16" (the plain version of K1's
+    bf16 build here, the XLA field in bf16 on the JAX side; their forwards
+    round the same operands) against the JAX package's: hits equal, depth, colour and
+    opacity within BF16_ATOL; and the JAX test's own bound on bf16 against
+    f32 (test_batched_render.py: depth and colour within 0.05)."""
+    p = make_params(1)
+    one_j = jax.tree.map(lambda x: x[0], p)
+    one_t = convert.params_from_numpy(one_j, "cpu")
+    t_wo, ext, cen, origins, dirs, _, _ = scene(1)
+    n, key = 150, jax.random.PRNGKey(4)
+    kw = dict(n_bins=24, chunk_size=64)
+    args = (origins[:n], dirs[:n], t_wo[0], ext[0], cen[0])
+    ref = jr.render_rays_obb(one_j, *map(jnp.asarray, args), key, compute_dtype="bf16", **kw)
+    got = {}
+    for cd in ("bf16", "f32"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tr, "_uniform", Replay(obb_draws(key, n, 64, 24)))
+            got[cd] = tr.render_rays_obb(one_t, *map(_t, args), torch.Generator(),
+                                         compute_dtype=cd, **kw)
+    np.testing.assert_array_equal(got["bf16"]["hit"].numpy(), np.asarray(ref["hit"]))
+    assert 0 < int(ref["hit"].sum()) < n
+    for k in ("depth", "color", "opacity"):
+        np.testing.assert_allclose(got["bf16"][k].numpy(), np.asarray(ref[k]),
+                                   atol=BF16_ATOL, rtol=0, err_msg=k)
+    hit = (got["bf16"]["hit"] & got["f32"]["hit"]).numpy()
+    for k in ("depth", "color"):
+        d = np.abs(got["bf16"][k].numpy() - got["f32"][k].numpy())
+        assert (d[hit] if k == "depth" else d).max() < 0.05, k

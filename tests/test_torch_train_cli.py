@@ -139,6 +139,39 @@ def test_resume(tmp_path, capsys):
     assert sorted(timing) == ["frame 2", "frame 3"]     # only the new frames trained
 
 
+def test_bf16_config_trains(tmp_path, monkeypatch):
+    """A scene JSON with trainer.compute_dtype "bf16" trains through the
+    CLI on the CPU: every field call takes the kernels' plain version in
+    bf16, and the checkpoints hold float32 masters, as the JAX package's."""
+    from openobj_torch.ops import fused_field as tff
+
+    root = str(tmp_path / "scene")
+    write_replica_dataset(root, n_raw_frames=20)
+    cfg_path = _config_json(root, tmp_path)
+    cfg = json.load(open(cfg_path))
+    cfg["trainer"]["compute_dtype"] = "bf16"
+    cfg["render"]["iters_per_frame"] = 3
+    cfg["vis"]["if_render"] = cfg["vis"]["if_obj"] = 0
+    json.dump(cfg, open(cfg_path, "w"))
+    seen = []
+    plain = tff.fused_field_plain
+
+    def spy(*args, **kw):
+        seen.append(args[4] if len(args) > 4 else kw.get("compute_dtype", "f32"))
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tff, "fused_field_plain", spy)
+    logdir = str(tmp_path / "logs")
+    m = ttrain.main(["--config", cfg_path, "--logdir", logdir, "--max-frames", "2",
+                     "--device", "cpu"])
+    assert m.cfg.compute_dtype == "bf16" and set(seen) == {"bf16"} and len(seen) >= 6
+    assert np.isfinite(m.loss_history).all()
+    ckpt = os.path.join(logdir, "ckpt", "0", "obj_0.npz")
+    with np.load(ckpt) as z:
+        floats = [z[k].dtype for k in z.files if z[k].dtype.kind == "f"]
+    assert floats and set(floats) == {np.dtype(np.float32)}
+
+
 def test_cli_defaults_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
