@@ -11,9 +11,11 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      at the other widths' shapes: the tensor-core K1/K2 at the room_0 shapes
      with h=64, fg at h=16, 48 and 96, bg at h=80 and 112 (every width they
      are built for), and the SIMT K1/K2/K2r at h=24 (fg-like [8, 1200]);
-     and K1/K2 bf16 (csrc/fused_field_bf16.cu) against the plain version in
-     bf16 at fg and bg (ff.bf16_output_errors for K1, BF16_RATIO per leaf
-     for K2), timed with their bounds;
+     and K1/K2 bf16 (csrc/fused_field_bf16.cu; K2 bf16 is ff_bwd_bf16_kernel
+     behind its weight conversion ff_bf16_image_kernel) against the plain
+     version in bf16 at fg and bg (ff.bf16_output_errors for K1, BF16_RATIO
+     per leaf for K2, the conversion bit for bit), timed with their bounds,
+     and K2r over the bf16 library's slots;
   3. runs the port of examples/synthetic_convergence.py through the kernels
      and a few training steps on the card against the same steps on the CPU;
   4. drives the main path: SceneMapper.process_frame at the Replica room_0
@@ -35,7 +37,8 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      shapes, each with the launches counted at exactly its dims);
   4h. room_0 at bf16: phase 4's frames through a mapper whose config has
      compute_dtype "bf16" (room_0.json otherwise as published), counts reset
-     before and read after: K1/K2 bf16 and K2r 200 times per trained frame,
+     before and read after: K1/K2 bf16, K2 bf16's weight conversion and K2r
+     200 times per trained frame,
      nothing f32, plain or eager; ms per frame; the losses beside phase 4's;
      a few steps on the card against the same steps on the CPU at bf16
      (STEP_RTOL_BF16); one render chunk of 4 objects through K1 bf16 against
@@ -216,6 +219,40 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_us(e) -> float:
+    """A profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def traced_ms(fn, kernel: str, iters: int = 20) -> float:
+    """The mean device time (ms) of one launch of ``kernel`` (part of its
+    name), one of the kernels each call of ``fn`` launches once, from a
+    torch.profiler trace of ``iters`` calls behind as many untraced ones
+    (the profiler's warm-up step); fails where the trace holds none of its
+    launches, more than ``iters``, or no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()   # the traced calls: the profiler keeps this step's events
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    n, us = sum(e.count for e in rows), sum(_device_us(e) for e in rows)
+    if not 0 < n <= iters or not us > 0:
+        raise RuntimeError(f"trace of {kernel}: {n} launches of {iters}, {us} us")
+    if n < iters:
+        log(f"[trace] {kernel}: {n} of {iters} launches in the trace")
+    return us / n / 1e3
+
+
 # --------------------------------------------------------------------------- #
 # phase 2: every kernel against its plain version
 # --------------------------------------------------------------------------- #
@@ -374,13 +411,19 @@ def check_kernels_bf16(device, shapes) -> dict:
     """K1 and K2 of csrc/fused_field_bf16.cu against the plain version in
     bf16 at each shape (K1 by ff.bf16_output_errors, K2 by BF16_RATIO per
     leaf), and their times: kernel, plain version, bound with bf16 products
-    at the dense bf16 rate."""
+    at the dense bf16 rate. K2 bf16 (ff_backward) launches the weight
+    conversion ff_bf16_image_kernel first, and its time holds both; the
+    images it leaves in the scratch are held to their plain version
+    (ff.bf16_weight_image, bit for bit), the conversion's own time is read
+    from a trace of K2 bf16's launches, and K2r is timed over the bf16
+    library's slots ("reduce_bf16")."""
     import torch
     from openobj_torch.models import object_field
     from openobj_torch.ops import fused_field as ff
-    from openobj_torch.scripts._benchlib import field_bounds
+    from openobj_torch.scripts._benchlib import bound_ms, field_bounds
 
-    per = {"fused_field_fwd_bf16": [], "fused_field_bwd_bf16": []}
+    per = {"fused_field_fwd_bf16": [], "fused_field_bwd_bf16": [],
+           "fused_field_bwd_bf16_image": [], "reduce_bf16": []}
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     lib = ff._lib("fused_field_bf16")
@@ -426,20 +469,68 @@ def check_kernels_bf16(device, shapes) -> dict:
                 raise RuntimeError(f"ff_forward (bf16): CUDA error {err}")
 
         tile, n_tiles = ff.bwd_tiling(lib, o, n, h, device)
-        part = torch.empty((o, n_tiles, lib.ff_param_count(h)), device=device)
+        p = lib.ff_param_count(h)
+        buf, part = ff.bwd_scratch(lib, o, n_tiles, h, device)
 
         def bwd_k():
             err = lib.ff_backward(pts.data_ptr(), wflat.data_ptr(), cts[0].data_ptr(),
-                                  cts[1].data_ptr(), cts[2].data_ptr(), part.data_ptr(),
+                                  cts[1].data_ptr(), cts[2].data_ptr(), buf.data_ptr(),
                                   o, n, h, 1, tile, ff._stream(pts))
             if err:
                 raise RuntimeError(f"ff_backward (bf16): CUDA error {err}")
+
+        # the weight conversion, ff_backward's first launch: the images it
+        # leaves after the slots against their plain version bit for bit
+        img_ref = ff.bf16_weight_image(wflat, h)
+        bwd_k()
+        torch.cuda.synchronize()
+        if not torch.equal(ff.bwd_image(buf, o, n_tiles, h).view(torch.int16),
+                           img_ref.view(torch.int16)):
+            raise AssertionError(f"ff_bf16_image_kernel {shape['name']}: not the plain bf16 image")
+        t_img = traced_ms(bwd_k, "ff_bf16_image_kernel")
+        t_img_plain = time_ms(lambda: ff.bf16_weight_image(wflat, h))
+        # it reads the six weight matrices (w_in, w_mid1, w_cat, w_mid2, w_col,
+        # w_clip: 5h^2 + 258h floats an object) and writes the padded images
+        b_img = bound_ms(0.0, 4.0 * o * (5 * h * h + 258 * h) + 2.0 * img_ref.numel())
+        per["fused_field_bwd_bf16_image"].append(dict(
+            shape=shape["name"], dims=[o, n, h], library_ms=None,
+            kernel=ff.kernel_names(h, "bf16")["fused_field_bwd_bf16_image"], ms=t_img,
+            plain_ms=t_img_plain, bound=b_img, bound_simt=b_img[0], err=0.0))
+
+        # K2r over the bf16 library's slots (its chunk and tiling), in tile order
+        red = torch.empty((o, p), device=device)
+
+        def reduce_k():
+            err = lib.ff_reduce(part.data_ptr(), red.data_ptr(), o, n_tiles, p, ff._stream(pts))
+            if err:
+                raise RuntimeError(f"ff_reduce (bf16 library): CUDA error {err}")
+
+        def reduce_plain():
+            acc = part[:, 0].clone()
+            for t in range(1, n_tiles):
+                acc += part[:, t]
+            return acc
 
         a_t, c_t, f_t = (torch.empty_like(x) for x in outs_k)
         t_fwd = time_ms(fwd_k)
         with torch.no_grad():
             t_fwd_plain = time_ms(lambda: ff.fused_field_plain(wflat, pts, h, True, "bf16"))
         t_bwd = time_ms(bwd_k)
+        bwd_k()
+        reduce_k()
+        red_ref = reduce_plain()
+        torch.cuda.synchronize()
+        if not torch.equal(red, red_ref):
+            raise AssertionError(f"reduction (bf16 library) {shape['name']}: not the sum in "
+                                 "tile order")
+        t_red = time_ms(reduce_k)
+        t_red_plain = time_ms(reduce_plain)
+        t_sum = time_ms(lambda: part.sum(dim=1))
+        b_red = bound_ms(float(o * n_tiles * p), 4.0 * o * n_tiles * p + o * p * 4)
+        per["reduce_bf16"].append(dict(
+            shape=f"{shape['name']} bf16", kernel="ff_reduce_kernel", dims=[o, n, h], ms=t_red,
+            plain_ms=t_red_plain, bound=b_red, bound_simt=b_red[0], err=0.0, library_ms=t_sum,
+            tiles=n_tiles))
         t_bwd_plain = time_ms(lambda: torch.autograd.grad(plain["bf16_obj"], w_req["bf16"],
                                                           retain_graph=True))
         fb = field_bounds(o, n, h, lib.ff_param_count(h), "bf16")
@@ -459,10 +550,14 @@ def check_kernels_bf16(device, shapes) -> dict:
             f"{fwd_err:.2e}; {t_fwd:.4f} ms (plain {t_fwd_plain:.4f}, bound {fb['fwd'][0]:.4f} "
             f"{fb['fwd'][1]}) | K2 worst leaf {worst} {dev[worst]:.2e} (bf16-vs-f32 "
             f"{dist[worst]:.2e}, limit {bf16_leaf_limit(dist[worst]):.2e}); {t_bwd:.4f} ms tile "
-            f"{tile} (plain bwd {t_bwd_plain:.4f}, bound {fb['bwd'][0]:.4f} {fb['bwd'][1]})")
+            f"{tile} (plain bwd {t_bwd_plain:.4f}, bound {fb['bwd'][0]:.4f} {fb['bwd'][1]}); "
+            f"of it the weight image {t_img:.4f} ms (plain {t_img_plain:.4f}, bound "
+            f"{b_img[0]:.4f} {b_img[1]}, equal bit for bit) | K2r over {n_tiles} bf16 slots "
+            f"{t_red:.4f} ms (torch.sum {t_sum:.4f}, bound {b_red[0]:.4f} {b_red[1]})")
         log(f"[kernels bf16] {shape['name']} per leaf, K2 vs plain bf16 / plain bf16 vs f32: "
             + ", ".join(f"{k} {dev[k]:.1e}/{dist[k]:.1e}" for k in dev))
-        del params, wflat, pts, cts, outs_k, g_k, plain, w_req, part, a_t, c_t, f_t
+        del params, wflat, pts, cts, outs_k, g_k, plain, w_req, buf, part, a_t, c_t, f_t
+        del img_ref, red, red_ref
     return per
 
 
@@ -604,20 +699,16 @@ def profile_frame(step) -> None:
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    busy = sum(dev_us(e) for e in rows)
-    ff_us = sum(dev_us(e) for e in rows if "ff_" in e.key)
+    busy = sum(_device_us(e) for e in rows)
+    ff_us = sum(_device_us(e) for e in rows if "ff_" in e.key)
     launches = sum(e.count for e in rows)
     log(f"[profile] one frame: wall {wall_us / 1e3:.1f} ms (profiled), device busy "
         f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%), fused-field kernels "
         f"{ff_us / 1e3:.1f} ms ({100 * ff_us / max(busy, 1):.1f}% of busy), "
         f"{launches} device ops")
-    top = sorted(rows, key=dev_us, reverse=True)[:12]
+    top = sorted(rows, key=_device_us, reverse=True)[:12]
     for e in top:
-        log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms  x{e.count:6d}  {e.key[:90]}")
+        log(f"[profile]   {_device_us(e) / 1e3:9.2f} ms  x{e.count:6d}  {e.key[:90]}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "profile_main.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
@@ -1063,14 +1154,15 @@ def run_room0_bf16(device, frames, f32_vecs, f32_mapper) -> dict:
         raise AssertionError(f"[room_0 bf16] loss vectors {vecs}")
     steps = 2 * tc.n_iters_per_frame * len(vecs)
     want = {"fused_field_fwd_bf16": steps, "fused_field_bwd_bf16": steps,
-            "fused_field_bwd_reduce": steps}
+            "fused_field_bwd_bf16_image": steps, "fused_field_bwd_reduce": steps}
     if {k: v for k, v in counts.items() if v} != want:
         raise AssertionError(f"[room_0 bf16] counts {counts}, expected {want} and nothing else")
     ms = 1e3 * float(np.mean(times[1:]))
     log(f"[room_0 bf16] room_0 envelope at compute_dtype bf16, {mapper.n_objects} objects in a "
         f"{mapper.state.n_slots}-slot bucket + bg: frame times {[round(t * 1e3, 1) for t in times]}"
         f" ms; ms/frame (frames 2-3) {ms:.1f}; launches K1 bf16 {counts['fused_field_fwd_bf16']}, "
-        f"K2 bf16 {counts['fused_field_bwd_bf16']}, K2r {counts['fused_field_bwd_reduce']} "
+        f"K2 bf16 {counts['fused_field_bwd_bf16']} (its weight images "
+        f"{counts['fused_field_bwd_bf16_image']}), K2r {counts['fused_field_bwd_reduce']} "
         f"(the code implies {steps} each), f32 / plain / eager 0")
     log(f"[room_0 bf16] last-step losses bf16 {[round(float(v[-1]), 4) for v in vecs]} beside "
         f"f32 (phase 4) {[round(float(v[-1]), 4) for v in f32_vecs]}; mean over the last 10 "
@@ -1108,7 +1200,8 @@ def run_room0_bf16(device, frames, f32_vecs, f32_mapper) -> dict:
         counts = dict(ff.COUNTS)
         v = None if losses is None else losses.cpu().numpy()
         want = {k: 2 * tc.n_iters_per_frame for k in
-                ("fused_field_fwd_bf16", "fused_field_bwd_bf16", "fused_field_bwd_reduce")}
+                ("fused_field_fwd_bf16", "fused_field_bwd_bf16", "fused_field_bwd_bf16_image",
+                 "fused_field_bwd_reduce")}
         if v is None or not np.isfinite(v).all() or {k: x for k, x in counts.items() if x} != want:
             raise AssertionError(f"[room_0 bf16] {opt}: losses {v}, counts {counts}")
         options[opt] = dict(ff.COUNTS_BY_SHAPE)
@@ -2446,6 +2539,7 @@ def main(argv=None) -> int:
 
     per = phase("2 kernels", check_kernels, device, (FG, BG) + OTHER_WIDTHS)
     per.update(phase("2 kernels bf16", check_kernels_bf16, device, (FG, BG)))
+    per["fused_field_bwd_reduce"] += per.pop("reduce_bf16")   # K2r over the bf16 slots
     phase("3 convergence", check_convergence, device)
     phase("3 steps", check_steps_vs_cpu, device)
     by_shape_main, cfg, mapper, frames, vecs = phase("4 main", run_main_path, device,
@@ -2479,7 +2573,14 @@ def main(argv=None) -> int:
         "fused_field_bwd_reduce": "openobj_tpu/ops/fused_field.py:285",
         "fused_field_fwd_bf16": "openobj_tpu/ops/fused_field.py:160",
         "fused_field_bwd_bf16": "openobj_tpu/ops/fused_field.py:172",
+        # the weights' astype(cdt) in _bwd_kernel's mmBT
+        "fused_field_bwd_bf16_image": "openobj_tpu/ops/fused_field.py:200",
     }
+    # K1 bf16 is fused_field.cu built again with FF_BF16; K2 bf16 and its
+    # weight conversion are that build's own kernels
+    sources = {"fused_field_fwd_bf16": "fused_field_bf16.cu",
+               "fused_field_bwd_bf16": "fused_field_bwd_bf16.cuh",
+               "fused_field_bwd_bf16_image": "fused_field_bwd_bf16.cuh"}
     # launches as counted in each run, by (count, O, N, h)
     paths = {"room_0 training": by_shape_main, "room_0 outputs": by_shape_out,
              "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"],
@@ -2508,8 +2609,7 @@ def main(argv=None) -> int:
         by_path = {p: sum(v for k, v in bs.items() if k[0] == name) for p, bs in paths.items()}
         rows.append({
             "name": name, "route": "cuda",
-            "source": "openobj_torch/csrc/" + (
-                "fused_field_bf16.cu" if name.endswith("_bf16") else "fused_field.cu"),
+            "source": "openobj_torch/csrc/" + sources.get(name, "fused_field.cu"),
             "replaces": replaces[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(s["max_abs_err"] for s in timed),

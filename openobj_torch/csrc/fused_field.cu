@@ -86,14 +86,14 @@
 // BF16 = true. Then every matrix product but the projection rounds both
 // operands to bf16 (cvt.rn: round to nearest even, as astype(bfloat16))
 // and sums in f32; biases are added, and bias gradients summed, in f32.
-// A bf16 value is exact in TF32, so the tensor-core products take one
+// K1: a bf16 value is exact in TF32, so its tensor-core products take one
 // m16n8k8 tf32 mma.sync on the rounded operands where f32 takes three on
 // hi/lo splits: the same exact products and f32 sums as a bf16 m16n8k16.
-// The SIMT products round their operands before each FMA. Bias rows no
-// longer ride in the products (the ones columns are zero): a bias starts
-// its accumulator, and K2 sums each bias gradient on its own. K2's
-// recompute rounds as its plain version does, so its ReLU masks are the
-// plain version's.
+// Bias rows no longer ride in its products (the ones columns are zero): a
+// bias starts its accumulator. The SIMT kernels round their operands
+// before each FMA. K2 at the tensor-core widths is a kernel of its own in
+// the bf16 build, ff_bwd_bf16_kernel (csrc/fused_field_bwd_bf16.cuh, on
+// the bf16 tensor cores); ff_bwd_kernel below is the f32 build's only.
 
 // Without nvcc (tests/test_torch_kernel_emulation.py runs K2 on the CPU), a
 // header included ahead of this file stands in for the CUDA runtime and the
@@ -649,11 +649,7 @@ struct Dims {
   // small gradients accumulated by a fixed thread each
   static constexpr int S_DIRS = 0, S_WA = ND * 3, S_BA = S_WA + H, S_WOC = S_BA + 1,
                        S_BOC = S_WOC + 3 * H, S_BM1 = S_BOC + 3, S_BM2 = S_BM1 + H;
-  // in bf16 the biases that ride as product rows in f32 (the ones columns
-  // are zero there) have their gradients summed here: b_in, b_cat, b_col,
-  // b_clip
-  static constexpr int S_BIN = S_BM2 + H, S_BCAT = S_BIN + H, S_BCOL = S_BCAT + H,
-                       S_BCLIP = S_BCOL + H, NS = S_BM2 + H + (BF16 ? 4 * H : 0);
+  static constexpr int NS = S_BM2 + H;
   // shared memory in floats: the weights and accumulators, and one chunk's
   // buffers (X2, D2, X3, D3, DH, A1, AC, AO, then t, proj, dcp, dal, S)
   static constexpr int W_FLOATS = WROWS * LH + GROWS * LDG;
@@ -739,10 +735,8 @@ __device__ int product(int slot, FI init, FA a, FB b, FE epi) {
         split(b(k0 + t, n0 + 8 * j + g), bh[0], bl[0]);
         split(b(k0 + t + 4, n0 + 8 * j + g), bh[1], bl[1]);
         float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if constexpr (!BF16) {
-          mma_tf32(d, al, bh);
-          mma_tf32(d, ah, bl);
-        }
+        mma_tf32(d, al, bh);
+        mma_tf32(d, ah, bl);
         mma_tf32(d, ah, bh);
 #pragma unroll
         for (int i = 0; i < 4; ++i) c[j][i] += d[i];
@@ -766,10 +760,8 @@ __device__ int product(int slot, FI init, FA a, FB b, FE epi) {
 // error of zero takes the sign its rounding gives it; another rounding (a
 // 3xTF32 product, or one chain over [x_h | x_e]) flips a few such masks per
 // room_0 step against the plain version, and one flipped mask moves a leaf's
-// gradient by more than 1e-3 of its largest entry (measured on an H100). In
-// the bf16 build each operand is rounded to bf16 first, as the plain
-// version's products are. Each thread owns RM x RN outputs, rows cy + TM i
-// and columns cx + TN j.
+// gradient by more than 1e-3 of its largest entry (measured on an H100).
+// Each thread owns RM x RN outputs, rows cy + TM i and columns cx + TN j.
 template <int N, int KH, int KE, class FX, class FW, class FB, class FE>
 __device__ void fp32_layer(FX x, FW w, FB bias, FE out) {
   constexpr int RN = layer_rn(N);
@@ -1318,9 +1310,6 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     };
   };
   constexpr int NBF = D::NBF;   // n-tiles per item of an N = H product
-  // bias rows left out of the weight-gradient stores: in bf16 the ones
-  // columns are zero and those rows come from S (S_BIN .. S_BCLIP)
-  constexpr int BR = BF16 ? 1 : 0;
 
   const int t0 = ti * tile;
   const int t1 = min(N, t0 + tile);
@@ -1337,9 +1326,9 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     }
     for (int p = tid; p < BP; p += NT) {
       dal[p] = p < nv ? da[row0 + p] * ALPHA_SCALE : 0.0f;
-      X2(p, H + 87) = BF16 ? 0.0f : 1.0f;   // the ones columns (zero in bf16)
+      X2(p, H + 87) = 1.0f;   // the ones columns
       for (int c = D::KX2; c < D::MX2; ++c) X2(p, c) = 0.0f;
-      X3(p, H + 42) = BF16 ? 0.0f : 1.0f;
+      X3(p, H + 42) = 1.0f;
       for (int c = H + 43; c < D::KX3; ++c) X3(p, c) = 0.0f;
     }
     __syncthreads();
@@ -1442,7 +1431,7 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     {
       int slot = product<D::KX3, H, BP, NBF>(   // [w_col; b_col] += [h3 | e2 | 1]^T d_hcol
           0, g_init(D::GR_COL), [&](int m, int k) { return X3(k, m); },
-          [&](int k, int n) { return DH(k, n); }, g_store(D::GR_COL, L.w_col, D::RH - BR));
+          [&](int k, int n) { return DH(k, n); }, g_store(D::GR_COL, L.w_col, D::RH));
       const auto d3_epi = [&](int m, int n, float2 v) {
         if (n < H) {   // d_h3 = (. + dal w_alpha^T) * (h3 > 0)
           v.x = fmaf(op(dal[m]), op(W[L.w_alpha + n]), v.x);
@@ -1455,7 +1444,7 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
         slot = product<D::KX3, H, BP, NBF>(
             slot, g_init(D::GR_CLIP), [&](int m, int k) { return X3(k, m); },
             [&](int k, int n) { return DH(k, H + n); },
-            g_store(D::GR_CLIP, L.w_clip, D::RH - BR));
+            g_store(D::GR_CLIP, L.w_clip, D::RH));
         product<BP, D::KX3, 2 * H, 2>(   // d_hcol w_col^T + d_hclip w_clip^T
             slot, zero2, [&](int m, int k) { return DH(m, k); },
             [&](int k, int n) { return k < H ? w_col.at(n, k) : w_clip.at(n, k - H); }, d3_epi);
@@ -1481,13 +1470,6 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
         for (int p = 0; p < BP; ++p) s += D3(p, j);
         S[D::S_BM2 + j] += s;
       }
-      if constexpr (BF16) {   // b_col and b_clip: column sums of [d_hcol | d_hclip]
-        for (int j = tid; j < (do_clip ? 2 * H : H); j += NT) {
-          float s = 0.0f;
-          for (int p = 0; p < BP; ++p) s += DH(p, j);
-          S[D::S_BCOL + j] += s;
-        }
-      }
     }
     __syncthreads();
 
@@ -1495,20 +1477,13 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     {
       const int slot = product<D::MX2, H, BP, NBF>(
           0, g_init(D::GR_CAT), [&](int m, int k) { return X2(k, m); },
-          [&](int k, int n) { return AO(k, n); }, g_store(D::GR_CAT, L.w_cat, D::KX2 - BR));
+          [&](int k, int n) { return AO(k, n); }, g_store(D::GR_CAT, L.w_cat, D::KX2));
       product<BP, D::KX2, H, 1>(
           slot, zero2, [&](int m, int k) { return AO(m, k); },
           [&](int k, int n) { return w_cat.at(n, k); },
           [&](int m, int n, float2 v) {
             D2.pair(m, n) = n < H ? mask2(v, X2.pair(m, n)) : v;   // d_h2 masked
           });
-      if constexpr (BF16) {   // b_cat: column sums of d_hc
-        for (int j = tid; j < H; j += NT) {
-          float s = 0.0f;
-          for (int p = 0; p < BP; ++p) s += AO(p, j);
-          S[D::S_BCAT + j] += s;
-        }
-      }
     }
     __syncthreads();
 
@@ -1533,18 +1508,11 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     {
       const int slot = product<D::ME1, H, BP, NBF>(
           0, g_init(D::GR_IN), [&](int m, int k) { return X2(k, H + m); },
-          [&](int k, int n) { return AC(k, n); }, g_store(D::GR_IN, L.w_in, 88 - BR));
+          [&](int k, int n) { return AC(k, n); }, g_store(D::GR_IN, L.w_in, 88));
       product<BP, 88, H, 1>(
           slot, [&](int m, int n) { return D2.pair(m, H + n); },
           [&](int m, int k) { return AC(m, k); }, [&](int k, int n) { return w_in.at(n, k); },
           [&](int m, int n, float2 v) { D2.pair(m, H + n) = v; });
-      if constexpr (BF16) {   // b_in: column sums of d_h1
-        for (int j = tid; j < H; j += NT) {
-          float s = 0.0f;
-          for (int p = 0; p < BP; ++p) s += AC(p, j);
-          S[D::S_BIN + j] += s;
-        }
-      }
     }
     __syncthreads();
 
@@ -1578,22 +1546,14 @@ ff_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
       for (int i = tid; i < rows * H; i += NT)
         G[off + i] = gs[(gr0 + i / H) * D::LDG + i % H];
     };
-    put(D::GR_IN, L.w_in, 88 - BR);
+    put(D::GR_IN, L.w_in, 88);
     put(D::GR_MID1, L.w_mid1, H);
-    put(D::GR_CAT, L.w_cat, D::KX2 - BR);
+    put(D::GR_CAT, L.w_cat, D::KX2);
     put(D::GR_MID2, L.w_mid2, H);
-    put(D::GR_COL, L.w_col, D::RH - BR);
-    put(D::GR_CLIP, L.w_clip, D::RH - BR);
+    put(D::GR_COL, L.w_col, D::RH);
+    put(D::GR_CLIP, L.w_clip, D::RH);
   } else if (!do_clip) {
-    for (int i = tid; i < (D::RH - BR) * H; i += NT) G[L.w_clip + i] = 0.0f;
-  }
-  if constexpr (BF16) {   // S_BCLIP stays zero with the clip head off
-    for (int j = tid; j < H; j += NT) {
-      G[L.b_in + j] = S[D::S_BIN + j];
-      G[L.b_cat + j] = S[D::S_BCAT + j];
-      G[L.b_col + j] = S[D::S_BCOL + j];
-      G[L.b_clip + j] = S[D::S_BCLIP + j];
-    }
+    for (int i = tid; i < (D::RH) * H; i += NT) G[L.w_clip + i] = 0.0f;
   }
   for (int e = tid; e < ND * 3; e += NT) G[L.dirs + e] = S[D::S_DIRS + e];
   for (int j = tid; j < H; j += NT) {
@@ -1685,12 +1645,18 @@ int launch_bwd(const float* pts, const float* w, const float* da, const float* d
 struct TcWidth {
   int h;
   bool smem_w;   // K2 keeps weights and accumulators on chip across a tile
+  int chunk;     // K2's points per chunk
   int (*fwd)(const float*, const float*, float*, float*, float*, int, int, int, cudaStream_t);
   int (*bwd)(const float*, const float*, const float*, const float*, const float*, float*, int,
              int, int, int, cudaStream_t);
 };
 
-#define FF_TC_ENTRY(H) {H, Dims<H>::SMEM_W, launch_fwd<H>, launch_bwd<H>},
+#ifdef FF_BF16
+#include "fused_field_bwd_bf16.cuh"   // K2 at bf16: ff_bwd_bf16_kernel<H>
+#define FF_TC_ENTRY(H) {H, Bf<H>::SMEM_W, Bf<H>::P, launch_fwd<H>, launch_bwd_bf16<H>},
+#else
+#define FF_TC_ENTRY(H) {H, Dims<H>::SMEM_W, BP, launch_fwd<H>, launch_bwd<H>},
+#endif
 const TcWidth TC_WIDTHS[] = {FF_TC_WIDTHS(FF_TC_ENTRY)};
 #undef FF_TC_ENTRY
 
@@ -1710,16 +1676,29 @@ int ff_param_count(int h) { return make_layout(h).total; }
 int ff_tc_width(int h) { return tc_width(h) != nullptr; }
 
 // K2 walks a tile of points in chunks of this many
-int ff_bwd_chunk(int h) { return tc_width(h) ? BP : bwd_generic_chunk(h); }
+int ff_bwd_chunk(int h) {
+  const TcWidth* t = tc_width(h);
+  return t ? t->chunk : bwd_generic_chunk(h);
+}
 
-// The largest K2 tile: one chunk where the tensor-core K2 reads its weights
-// from L2 (each chunk's weight gradients go to the tile's slot once);
+// The largest K2 tile: one chunk where the tensor-core K2 keeps its weights
+// off chip (each chunk's weight gradients go to the tile's slot once);
 // unbounded otherwise (weights and gradients stay in shared memory across
-// chunks at h = 16 and 32; the SIMT kernel adds each chunk's gradients into
-// its slot).
+// chunks: in f32 at h = 16 and 32, in bf16 at 16 to 48; the SIMT kernel
+// adds each chunk's gradients into its slot).
 int ff_bwd_max_tile(int h) {
   const TcWidth* t = tc_width(h);
-  return t && !t->smem_w ? BP : (1 << 30);
+  return t && !t->smem_w ? t->chunk : (1 << 30);
+}
+
+// Floats of `part` that ff_backward uses after the O x T gradient slots:
+// in the bf16 build at a tensor-core width, each object's weights as a bf16
+// image, [O][5h + 272][h + 8] from the first 16-byte boundary; 0 otherwise.
+int ff_bwd_scratch(int O, int h) {
+#ifdef FF_BF16
+  if (tc_width(h)) return (int)image_scratch_floats(O, h);
+#endif
+  return 0;
 }
 
 // K1 runs on the tensor cores at the widths of FF_TC_WIDTHS, and as the SIMT
@@ -1741,7 +1720,8 @@ int ff_forward(const float* pts, const float* w, float* alpha, float* color,
 
 // K2 runs on the tensor cores at the widths of FF_TC_WIDTHS, and as the SIMT
 // kernel at any other width; the tile must be a multiple of ff_bwd_chunk(h)
-// and at most ff_bwd_max_tile(h).
+// and at most ff_bwd_max_tile(h), and `part` holds the O x T slots and
+// ff_bwd_scratch(O, h) floats after them.
 int ff_backward(const float* pts, const float* w, const float* da,
                 const float* dc, const float* dh, float* part, int O, int N,
                 int h, int do_clip, int tile, void* stream) {

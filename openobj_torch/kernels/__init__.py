@@ -52,22 +52,26 @@ def _source(name) -> Path:
     return name if isinstance(name, Path) else CSRC / f"{name}.cu"
 
 
-def _with_includes(src: Path, seen: set) -> bytes:
-    """The source's bytes and those of every file it includes with
-    ``#include "..."`` (beside it), in order, each once."""
-    if src in seen:
-        return b""
-    seen.add(src)
-    text = src.read_bytes()
-    out = text
-    for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, flags=re.M):
-        out += _with_includes(src.parent / inc.decode(), seen)
+def included(src: Path) -> list[Path]:
+    """``src`` and every file it includes with ``#include "..."`` (beside the
+    file that includes it), depth first in order, each once."""
+    out: list[Path] = []
+
+    def walk(f: Path) -> None:
+        if f in out:
+            return
+        out.append(f)
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', f.read_bytes(), flags=re.M):
+            walk(f.parent / inc.decode())
+
+    walk(src)
     return out
 
 
 def lib_path(name) -> Path:
     src = _source(name)
-    digest = hashlib.sha256(_with_includes(src, set()) + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(f.read_bytes() for f in included(src))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 

@@ -45,11 +45,13 @@ from openobj_torch.ops.mlp import ALPHA_SCALE
 _F32 = torch.float32
 _E1, _E2, _ND, _NF = 87, 42, 21, 6
 
-# launches of each kernel (K1 and K2 in f32 and in bf16; K2r serves both),
-# calls of the plain version, and calls that took the eager field because
-# the kernels do not cover them, as plain ints
+# launches of each kernel (K1 and K2 in f32 and in bf16; K2 bf16's weight
+# conversion, which it launches first at the tensor-core widths; K2r serves
+# both), calls of the plain version, and calls that took the eager field
+# because the kernels do not cover them, as plain ints
 COUNTS = {"fused_field_fwd": 0, "fused_field_bwd": 0,
           "fused_field_fwd_bf16": 0, "fused_field_bwd_bf16": 0,
+          "fused_field_bwd_bf16_image": 0,
           "fused_field_bwd_reduce": 0, "fused_field_plain": 0,
           "field_eager": 0}
 # the kernels' library and count names by compute dtype
@@ -178,6 +180,26 @@ def _bmm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a . b with both operands rounded to bf16 and f32 sums: the products
     of two bf16 values are exact in f32."""
     return torch.bmm(_round_bf16(a), _round_bf16(b))
+
+
+def bf16_weight_image(wflat: torch.Tensor, h: int) -> torch.Tensor:
+    """Plain version of K2 bf16's weight conversion (``ff_bf16_image_kernel``): each
+    object's weights without their bias rows as bf16 (round to nearest
+    even), [O, 5h + 272, h + 8]: w_in, w_mid1, w_cat's h2 rows, its e1 rows,
+    w_mid2, w_col's h3 rows, its e2 rows, then w_clip's, each padded with
+    zero rows to a multiple of 8 and with 8 zero columns."""
+    w = _unpack(wflat, h)
+    o = wflat.shape[0]
+
+    def rows(x, n):
+        return torch.cat([x, x.new_zeros((o, n - x.shape[1], h))], dim=1)
+
+    parts = [rows(w["w_in"], 88), w["w_mid1"], w["w_cat"][:, :h], rows(w["w_cat"][:, h:], 88),
+             w["w_mid2"], w["w_col"][:, :h], rows(w["w_col"][:, h:], 48),
+             w["w_clip"][:, :h], rows(w["w_clip"][:, h:], 48)]
+    img = torch.cat(parts, dim=1)
+    img = torch.cat([img, img.new_zeros((o, img.shape[1], 8))], dim=2)
+    return img.to(torch.bfloat16)
 
 
 def _plain_forward(w: dict, t: torch.Tensor, h: int, do_clip: bool, mm):
@@ -324,6 +346,9 @@ def _lib(source="fused_field"):
         if hasattr(lib, "ff_tc_width"):   # not in copies older than the width table
             lib.ff_tc_width.argtypes = [_INT]
             lib.ff_tc_width.restype = _INT
+        if hasattr(lib, "ff_bwd_scratch"):   # nor older than K2 bf16's weight images
+            lib.ff_bwd_scratch.argtypes = [_INT, _INT]
+            lib.ff_bwd_scratch.restype = _INT
         lib.ff_forward.argtypes = [_VP] * 5 + [_INT] * 4 + [_VP]
         lib.ff_forward.restype = _INT
         lib.ff_backward.argtypes = [_VP] * 6 + [_INT] * 5 + [_VP]
@@ -343,15 +368,21 @@ def tensor_core_width(h: int) -> bool:
 
 def kernel_names(h: int, compute_dtype: str = "f32") -> dict:
     """The CUDA kernel behind each launch count at hidden width ``h``
-    (in bf16: the same kernels of ``csrc/fused_field_bf16.cu``, named with
-    " bf16")."""
-    if tensor_core_width(h):
-        fwd, bwd = f"ff_fwd_kernel<{h}>", f"ff_bwd_kernel<{h}>"
-    else:
-        fwd, bwd = "ff_fwd_generic_kernel", "ff_bwd_generic_kernel"
-    tag = " bf16" if compute_dtype == "bf16" else ""
-    return {_FWD[compute_dtype]: fwd + tag, _BWD[compute_dtype]: bwd + tag,
-            "fused_field_bwd_reduce": "ff_reduce_kernel"}
+    (in bf16: the kernels of ``csrc/fused_field_bf16.cu``, named with
+    " bf16"; at the tensor-core widths its K2 is ``ff_bwd_bf16_kernel``,
+    behind the weight conversion ``ff_bf16_image_kernel``)."""
+    tc = tensor_core_width(h)
+    fwd, bwd = ((f"ff_fwd_kernel<{h}>", f"ff_bwd_kernel<{h}>") if tc
+                else ("ff_fwd_generic_kernel", "ff_bwd_generic_kernel"))
+    if compute_dtype != "bf16":
+        return {_FWD[compute_dtype]: fwd, _BWD[compute_dtype]: bwd,
+                "fused_field_bwd_reduce": "ff_reduce_kernel"}
+    out = {_FWD[compute_dtype]: fwd + " bf16",
+           _BWD[compute_dtype]: (f"ff_bwd_bf16_kernel<{h}>" if tc else bwd) + " bf16",
+           "fused_field_bwd_reduce": "ff_reduce_kernel"}
+    if tc:
+        out["fused_field_bwd_bf16_image"] = "ff_bf16_image_kernel bf16"
+    return out
 
 
 def _check(x: torch.Tensor, name: str, shape: tuple) -> None:
@@ -394,6 +425,27 @@ def bwd_tiling(lib, o: int, n: int, h: int, device) -> tuple[int, int]:
     return tile, -(-n // tile)
 
 
+def bwd_scratch(lib, o: int, n_tiles: int, h: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(buffer, slots): the scratch ``ff_backward`` takes, one f32 buffer
+    whose first O x T x P floats are the per-tile gradient slots (``slots``,
+    a view [O, T, P], what K2r sums) and whose rest (``ff_bwd_scratch``;
+    none in copies without it) holds K2 bf16's weight images."""
+    p = lib.ff_param_count(h)
+    extra = lib.ff_bwd_scratch(o, h) if hasattr(lib, "ff_bwd_scratch") else 0
+    buf = torch.empty(o * n_tiles * p + extra, dtype=_F32, device=device)
+    return buf, buf[:o * n_tiles * p].view(o, n_tiles, p)
+
+
+def bwd_image(buf: torch.Tensor, o: int, n_tiles: int, h: int) -> torch.Tensor:
+    """The bf16 weight images that K2 bf16 wrote into ``buf`` (the scratch of
+    ``bwd_scratch``, 16-byte aligned) after its O x T slots: [O, 5h + 272,
+    h + 8], what ``bf16_weight_image`` computes, from the first 16-byte
+    boundary after the slots."""
+    rows = 5 * h + 272
+    start = -(-o * n_tiles * packed_size(h) // 4) * 4
+    return buf[start:start + o * rows * (h + 8) // 2].view(torch.bfloat16).view(o, rows, h + 8)
+
+
 def fused_field_forward_cuda(wflat, pts, h: int, do_clip: bool, compute_dtype: str = "f32"):
     """Launch K1 (of the ``compute_dtype`` build). Returns (alpha [O,N,1],
     color [O,N,3], hclip [O,N,h] | None)."""
@@ -427,13 +479,15 @@ def fused_field_backward_cuda(wflat, pts, d_alpha, d_color, d_hclip, h: int,
     if do_clip:
         _check(d_hclip, "d_hclip", (o, n, h))
     tile, n_tiles = bwd_tiling(lib, o, n, h, pts.device)
-    part = torch.empty((o, n_tiles, p), dtype=_F32, device=pts.device)
+    buf, part = bwd_scratch(lib, o, n_tiles, h, pts.device)
     grad = torch.empty((o, p), dtype=_F32, device=pts.device)
     stream = _stream(pts)
     err = lib.ff_backward(pts.data_ptr(), wflat.data_ptr(), d_alpha.data_ptr(),
                           d_color.data_ptr(), d_hclip.data_ptr() if do_clip else None,
-                          part.data_ptr(), o, n, h, int(do_clip), tile, stream)
+                          buf.data_ptr(), o, n, h, int(do_clip), tile, stream)
     _raise_on(err, "fused_field backward")
+    if compute_dtype == "bf16" and lib.ff_tc_width(h):   # the weight images first
+        _count("fused_field_bwd_bf16_image", o, n, h)
     _count(_BWD[compute_dtype], o, n, h)
     err = lib.ff_reduce(part.data_ptr(), grad.data_ptr(), o, n_tiles, p, stream)
     _raise_on(err, "fused_field backward reduction")

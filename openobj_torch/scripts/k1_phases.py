@@ -1,22 +1,30 @@
-"""Where K1, the fused-field forward, spends its block cycles: the share of
-each barrier-to-barrier phase, at the main path's two shapes, on one card.
+"""Where K1, the fused-field forward, or K2 bf16 (``ff_bwd_bf16_kernel``)
+spends its block cycles: the share of each barrier-to-barrier phase, at the
+main path's two shapes, on one card.
 
     python -m openobj_torch.scripts.k1_phases --per-chunk 7
     python -m openobj_torch.scripts.k1_phases --per-chunk 15 \\
         --source chip_proof/parent/openobj_torch/csrc/fused_field.cu
+    python -m openobj_torch.scripts.k1_phases --k2-bf16
 
 It builds a copy of the source (this checkout's ``csrc/fused_field.cu`` by
 default, or another with the same entry points, e.g. an older commit's from
-a ``git archive``) in which every ``__syncthreads()`` also has thread 0 of
-the block add the ``clock64()`` cycles since its previous barrier to a
-counter of that barrier's place within the block's chunk of points
-(``--per-chunk``: K1's barriers per chunk in that source). It runs
-``ff_forward`` once at fg (64 objects x 1200 points, h=32) and bg (1 x
-16800, h=128), clip head on, inputs from a seed, and prints each phase's
-share of the summed cycles (what comes before a block's first barrier and
-after its last is not counted). Stamps cost time of their own, so read the
-shares, not the stamped kernel's time. The copy is written under
-``build/kernels/`` and never loaded by the package.
+a ``git archive``; with ``--k2-bf16``, ``csrc/fused_field_bf16.cu``), beside
+copies of the files it includes, in which every ``__syncthreads()`` of the
+stamped file (the source; with ``--k2-bf16``, ``fused_field_bwd_bf16.cuh``,
+so that its weight ring's barriers count and K1's do not) also has thread 0
+of the block add the ``clock64()`` cycles since its previous barrier to a
+counter of that barrier's place within the block's chunk of points. It
+runs the kernel once at fg (64 objects x 1200 points, h=32) and bg (1 x
+16800, h=128), clip head on, inputs from a seed: K1 through ``ff_forward``
+with ``--per-chunk`` barriers a chunk (K1's in that source); K2 bf16 through
+``ff_backward``, whose barriers are named (``span_names``), and sums them by
+stage (the recompute, the colour head, each backward layer, the PE
+backward). It prints each phase's share of the summed cycles; what comes
+before a block's first barrier and after its last is not counted. Stamps
+cost time of their own, so read the shares, not the stamped kernel's time.
+The copy is written under ``build/kernels/`` and never loaded by the
+package.
 """
 
 from __future__ import annotations
@@ -34,23 +42,29 @@ from openobj_torch.models import object_field
 from openobj_torch.ops import fused_field as ff
 
 SHAPES = (dict(name="fg", o=64, n=1200, h=32), dict(name="bg", o=1, n=16800, h=128))
-MAX_PHASES = 64
+MAX_PHASES = 256
+SLAB_ROWS = 32      # csrc/fused_field_bwd_bf16.cuh's SLAB_ROWS
+K2_BF16_STAMPED = "fused_field_bwd_bf16.cuh"
 
 STAMPS = r"""
+#include <cuda_runtime.h>
 constexpr int PHASE_BLOCKS = 1 << 16;
 __device__ unsigned long long g_phase_cycles[%(n)d];
 __device__ long long g_phase_last[PHASE_BLOCKS];
 __device__ int g_phase_ord[PHASE_BLOCKS];
+__device__ int g_phase_per = 1;
 
 // the block's barrier, then thread 0 books the cycles since its previous one
-__device__ void stamped_syncthreads(int per_chunk) {
+// to that barrier's place in the chunk: those ending at the block's barrier
+// j >= 1 to phase (j - 1) mod g_phase_per
+__device__ void stamped_syncthreads() {
   __syncthreads();
   if (threadIdx.x == 0) {
     const int b = (blockIdx.y * gridDim.x + blockIdx.x) %% PHASE_BLOCKS;
     const long long now = clock64();
     const int ord = g_phase_ord[b]++;
     if (ord > 0)
-      atomicAdd(&g_phase_cycles[(ord - 1) %% per_chunk], (unsigned long long)(now - g_phase_last[b]));
+      atomicAdd(&g_phase_cycles[(ord - 1) %% g_phase_per], (unsigned long long)(now - g_phase_last[b]));
     g_phase_last[b] = now;
   }
 }
@@ -58,38 +72,75 @@ __device__ void stamped_syncthreads(int per_chunk) {
 extern "C" int ff_phase_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
 }
-extern "C" int ff_phase_reset() {
+// zero the counters; `per` barriers a chunk
+extern "C" int ff_phase_reset(int per) {
   void* p = nullptr;
   cudaError_t err = cudaGetSymbolAddress(&p, g_phase_cycles);
   if (err == cudaSuccess) err = cudaMemset(p, 0, sizeof(g_phase_cycles));
   if (err == cudaSuccess) err = cudaGetSymbolAddress(&p, g_phase_ord);
   if (err == cudaSuccess) err = cudaMemset(p, 0, sizeof(g_phase_ord));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase_per, &per, sizeof(per));
   return (int)err;
 }
 """
 
 
-def stamped_source(src: Path, per_chunk: int) -> Path:
-    """A copy of ``src`` whose barriers book their cycles. A block's first
-    barrier only starts its clock; the cycles that end at its barrier
-    j >= 1 go to phase (j - 1) mod ``per_chunk``: phase i ends at a chunk's
-    barrier i + 1, and the last phase runs from a chunk's last barrier to
-    the next chunk's first."""
-    text = src.read_text()
-    head = "#include <cuda_runtime.h>\n" + STAMPS % {"n": MAX_PHASES}
-    body = text.replace("__syncthreads();", f"stamped_syncthreads({per_chunk});")
-    ns = body.index("namespace {")
-    out = kernels.BUILD_DIR / f"{src.stem}_phases_{per_chunk}.cu"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(body[:ns] + head + body[ns:])
-    return out
+def stamped_source(src: Path, stamp: str | None = None) -> Path:
+    """A copy of ``src``, beside copies of the files it includes, whose file
+    ``stamp`` (``src`` itself by default) has every barrier book its cycles;
+    the stamps go ahead of the copy of ``src``. Returns that copy."""
+    stamp = stamp or src.name
+    files = kernels.included(src)
+    if stamp not in [f.name for f in files]:
+        raise ValueError(f"{src.name} does not include {stamp}")
+    out = kernels.BUILD_DIR / f"phases_{src.stem}"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in files:
+        text = f.read_text()
+        if f.name == stamp:
+            text = text.replace("__syncthreads();", "stamped_syncthreads();")
+        if f == src:
+            text = STAMPS % {"n": MAX_PHASES} + text
+        (out / f.name).write_text(text)
+    return out / src.name
 
 
-def shares(src: Path, per_chunk: int) -> dict:
-    path = stamped_source(src, per_chunk)
+def span_names(h: int, ring: bool, do_clip: bool = True) -> list[str]:
+    """K2 bf16's work that ends at each barrier of one chunk, in the
+    kernel's order (its weight ring's slab releases too, where it
+    streams)."""
+    names = ["encode: points", "encode: bands"]
+
+    def slabs(stage, *rows):
+        for r in rows:
+            names.extend([f"{stage}: slab"] * (-(-r // SLAB_ROWS) if ring else 0))
+
+    for layer, rows in (("recompute h1", (88,)), ("recompute h2", (h,)),
+                        ("recompute hc", (h, 88)), ("recompute h3", (h,))):
+        slabs(layer, *rows)
+        names.append(layer)
+    slabs("recompute hcol, hclip", h, 48, *((h, 48) if do_clip else ()))
+    names.append("recompute hcol, hclip")
+    names += ["colour head", "d_hcol, small grads"]
+    for stage, rows in (("b: col/clip grads, d_h3", (h, 48)), ("c: mid2", (h,)),
+                        ("d: cat", (h, 88)), ("e: mid1", (h,)), ("f: in", (88,))):
+        slabs(stage, *rows)
+        names.append(stage)
+    return names + ["g: d_proj", "g: d_dirs"]
+
+
+def _stage(span: str) -> str:
+    return span.split(":")[0].split(" h")[0] if span.startswith("recompute") else span.split(":")[0]
+
+
+def shares(src: Path, per_chunk: int | None = None, k2_bf16: bool = False) -> dict:
+    """Each shape's phase shares of K1 (``per_chunk`` barriers a chunk) or,
+    with ``k2_bf16``, of K2 bf16, named."""
+    path = stamped_source(src, K2_BF16_STAMPED if k2_bf16 else None)
     kernels.build([path])
     lib = ff._lib(path)
     lib.ff_phase_read.argtypes = [ctypes.c_void_p]
+    lib.ff_phase_reset.argtypes = [ctypes.c_int]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -101,35 +152,79 @@ def shares(src: Path, per_chunk: int) -> dict:
             lambda x: x + 0.05 * torch.randn(x.shape, generator=gen, device=dev), params)
         w = ff._pack_params(params, h, True).contiguous()
         pts = (0.5 * torch.randn((o, n, 3), generator=gen, device=dev)).contiguous()
-        outs = [torch.empty((o, n, k), device=dev) for k in (1, 3, h)]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        lib.ff_phase_reset()
-        err = lib.ff_forward(pts.data_ptr(), w.data_ptr(), *[x.data_ptr() for x in outs],
-                             o, n, h, 1, stream)
-        if err:
-            raise RuntimeError(f"ff_forward: CUDA error {err}")
+        if k2_bf16:
+            cts = [torch.randn((o, n, k), generator=gen, device=dev) for k in (1, 3, h)]
+            tile, n_tiles = ff.bwd_tiling(lib, o, n, h, dev)
+            buf, _ = ff.bwd_scratch(lib, o, n_tiles, h, dev)
+            ring = lib.ff_bwd_max_tile(h) < (1 << 30)
+            names = span_names(h, ring)
+            per = len(names)
+            args = [*[x.data_ptr() for x in cts], buf.data_ptr(), o, n, h, 1, tile, stream]
+            entry = lib.ff_backward
+        else:
+            outs = [torch.empty((o, n, k), device=dev) for k in (1, 3, h)]
+            per = per_chunk
+            args = [*[x.data_ptr() for x in outs], o, n, h, 1, stream]
+            entry = lib.ff_forward
+        if not 0 < per <= MAX_PHASES:
+            raise ValueError(f"{per} barriers a chunk: 1 to {MAX_PHASES}")
+        if lib.ff_phase_reset(per):
+            raise RuntimeError("ff_phase_reset failed")
+        err = entry(pts.data_ptr(), w.data_ptr(), *args)
         torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * MAX_PHASES)()
-        lib.ff_phase_read(ctypes.addressof(buf))
-        cycles = list(buf)[:per_chunk]
+        if err:
+            raise RuntimeError(f"the stamped kernel: CUDA error {err}")
+        buf_c = (ctypes.c_ulonglong * MAX_PHASES)()
+        if lib.ff_phase_read(ctypes.addressof(buf_c)):
+            raise RuntimeError("ff_phase_read failed")
+        cycles = list(buf_c)[:per]
         total = sum(cycles)
-        out[shape["name"]] = {"shares": [round(c / total, 3) for c in cycles], "cycles": total}
-        print(f"[phases] {src.name} {shape['name']}: {out[shape['name']]}", flush=True)
+        if not k2_bf16:
+            out[shape["name"]] = {"shares": [round(c / total, 3) for c in cycles],
+                                  "cycles": total}
+            print(f"[phases] {src.name} {shape['name']}: {out[shape['name']]}", flush=True)
+            continue
+        # phase i ends at a chunk's barrier i + 1: names[(i + 1) mod per]
+        spans: dict[str, int] = {}
+        stages: dict[str, int] = {}
+        for i, c in enumerate(cycles):
+            name = names[(i + 1) % per]
+            spans[name] = spans.get(name, 0) + c
+            stages[_stage(name)] = stages.get(_stage(name), 0) + c
+        out[shape["name"]] = {"o": o, "n": n, "h": h, "tile": tile, "ring": ring,
+                              "barriers_per_chunk": per, "total_cycles": total,
+                              "by_barrier": [[names[(i + 1) % per], c]
+                                             for i, c in enumerate(cycles)],
+                              "share": {k: v / total for k, v in spans.items()},
+                              "stage_share": {k: v / total for k, v in stages.items()}}
+        print(f"[k2 bf16 spans] {shape['name']} O={o} N={n} h={h} tile {tile} "
+              f"({'ring' if ring else 'on chip'}, {per} barriers a chunk): "
+              + ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in stages.items()), flush=True)
+        print(f"[k2 bf16 spans] {shape['name']} by span: "
+              + ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in spans.items()), flush=True)
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", type=Path, default=kernels.CSRC / "fused_field.cu",
-                    help="the fused_field.cu to stamp")
-    ap.add_argument("--per-chunk", type=int, required=True,
+    ap.add_argument("--source", type=Path, default=None,
+                    help="the fused_field.cu (with --k2-bf16: fused_field_bf16.cu) to stamp")
+    ap.add_argument("--per-chunk", type=int, default=None,
                     help="barriers per chunk of points in that source's K1")
+    ap.add_argument("--k2-bf16", action="store_true",
+                    help="stamp K2 bf16 (fused_field_bwd_bf16.cuh) and run ff_backward")
     args = ap.parse_args(argv)
+    if (args.per_chunk is None) != args.k2_bf16:
+        ap.error("give --per-chunk (K1) or --k2-bf16")
     if not torch.cuda.is_available():
         print("k1_phases: no CUDA device", file=sys.stderr)
         return 2
-    res = shares(args.source.resolve(), args.per_chunk)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "phases": res}), flush=True)
+    src = args.source or kernels.CSRC / ("fused_field_bf16.cu" if args.k2_bf16
+                                         else "fused_field.cu")
+    res = shares(src.resolve(), args.per_chunk, args.k2_bf16)
+    key = "k2_bf16_spans" if args.k2_bf16 else "phases"
+    print(json.dumps({"device": torch.cuda.get_device_name(0), key: res}), flush=True)
     return 0
 
 

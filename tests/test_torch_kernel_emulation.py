@@ -63,6 +63,15 @@ STUB = r"""
 //    fragment layout (g = lane >> 2, t = lane & 3; a0..a3 = A[g][t],
 //    A[g+8][t], A[g][t+4], A[g+8][t+4]; b0, b1 = B[t][g], B[t+4][g];
 //    c0..c3 = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]);
+//  * mma.sync m16n8k16 with bf16 operands likewise (each register holds two
+//    bf16, the first in its low half: a regs = A[g][2t..], A[g+8][2t..],
+//    A[g][2t+8..], A[g+8][2t+8..]; b regs = B[2t..][g], B[2t+8..][g]; the
+//    same C), summed in f32 in k order;
+//  * ldmatrix (.x1, .x2, .x4, .trans) is a warp exchange of the lanes' row
+//    addresses: row i of matrix j at lane 8j + i's address; register j of
+//    lane (g, t) holds row g's columns 2t, 2t + 1 of matrix j, or with .trans
+//    column g's rows 2t, 2t + 1;
+//  * __syncwarp is the warp's std::barrier;
 //  * cvt.rna.tf32.f32 rounds to 10 mantissa bits, ties away from zero, and
 //    cvt.rn.bf16x2.f32 to 7, ties to even (finite values);
 //  * dynamic shared memory is filled with NaN before each block, so that a
@@ -103,13 +112,16 @@ STUB = r"""
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint4 { uint32_t x, y, z, w; };
+struct uint2 { uint32_t x, y; };
+struct int2 { int x, y; };
+inline int2 make_int2(int a, int b) { return {a, b}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local uint3 threadIdx, blockIdx;
 inline dim3 gridDim, blockDim;
-struct WarpRegs { uint32_t a[32][4], b[32][2]; float f[32]; };
+struct WarpRegs { uint32_t a[32][4], b[32][2]; float f[32]; const uint16_t* p[32]; };
 struct EmuBlock {   // one running block: its shared memory, barriers and warp exchanges
   float* smem = nullptr;
   std::barrier<>* bar = nullptr;
@@ -162,6 +174,10 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int threads
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+template <class T> cudaError_t cudaMemcpyToSymbol(T& sym, const void* src, size_t n) {
+  std::memcpy(&sym, src, n);
+  return 0;
+}
 inline int g_sm_count = 132;
 extern "C" void emu_set_sm_count(int n) { g_sm_count = n; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
@@ -200,6 +216,62 @@ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[
   }
   t_blk->warp_bar[w]->arrive_and_wait();
 }
+inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int w = threadIdx.x >> 5, L = threadIdx.x & 31;
+  WarpRegs& R = t_blk->wr[w];
+  for (int i = 0; i < 4; ++i) R.a[L][i] = a[i];
+  R.b[L][0] = b[0]; R.b[L][1] = b[1];
+  t_blk->warp_bar[w]->arrive_and_wait();
+  const auto lo = [](uint32_t u) { return __uint_as_float(u << 16); };
+  const auto hi = [](uint32_t u) { return __uint_as_float(u & 0xffff0000u); };
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    for (int i = 0; i < 4; ++i) {   // rows g (+8 for odd i), columns 2t (+8 for i >= 2)
+      const int r = g + 8 * (i & 1), k = 2 * t + 8 * (i >> 1);
+      A[r][k] = lo(R.a[l][i]); A[r][k + 1] = hi(R.a[l][i]);
+    }
+    for (int i = 0; i < 2; ++i) {
+      B[2 * t + 8 * i][g] = lo(R.b[l][i]); B[2 * t + 8 * i + 1][g] = hi(R.b[l][i]);
+    }
+  }
+  const int g = L >> 2, t = L & 3;
+  const int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+  for (int i = 0; i < 4; ++i) {
+    float s = c[i];
+    for (int k = 0; k < 16; ++k) s += A[rows[i]][k] * B[k][cols[i]];
+    c[i] = s;
+  }
+  t_blk->warp_bar[w]->arrive_and_wait();
+}
+template <int NM, bool TRANS>
+inline void emu_ldsm(uint32_t* r, const uint16_t* p) {
+  const int w = threadIdx.x >> 5, L = threadIdx.x & 31;
+  WarpRegs& R = t_blk->wr[w];
+  R.p[L] = p;
+  t_blk->warp_bar[w]->arrive_and_wait();
+  const int g = L >> 2, t = L & 3;
+  for (int j = 0; j < NM; ++j) {
+    const uint16_t* rows = nullptr;
+    uint32_t e0, e1;
+    if (TRANS) {   // column g of rows 2t and 2t + 1
+      e0 = R.p[8 * j + 2 * t][g];
+      e1 = R.p[8 * j + 2 * t + 1][g];
+    } else {       // row g, columns 2t and 2t + 1
+      rows = R.p[8 * j + g];
+      e0 = rows[2 * t];
+      e1 = rows[2 * t + 1];
+    }
+    r[j] = e0 | (e1 << 16);
+  }
+  t_blk->warp_bar[w]->arrive_and_wait();
+}
+inline void ldsm_x1(uint32_t (&r)[1], const uint16_t* p) { emu_ldsm<1, false>(r, p); }
+inline void ldsm_x2(uint32_t (&r)[2], const uint16_t* p) { emu_ldsm<2, false>(r, p); }
+inline void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) { emu_ldsm<4, false>(r, p); }
+inline void ldsm_x1_t(uint32_t (&r)[1], const uint16_t* p) { emu_ldsm<1, true>(r, p); }
+inline void ldsm_x2_t(uint32_t (&r)[2], const uint16_t* p) { emu_ldsm<2, true>(r, p); }
+inline void ldsm_x4_t(uint32_t (&r)[4], const uint16_t* p) { emu_ldsm<4, true>(r, p); }
 inline float __shfl_sync(unsigned, float v, int src) {   // through the warp's exchange
   const int w = threadIdx.x >> 5;
   t_blk->wr[w].f[threadIdx.x & 31] = v;
@@ -208,6 +280,7 @@ inline float __shfl_sync(unsigned, float v, int src) {   // through the warp's e
   t_blk->warp_bar[w]->arrive_and_wait();
   return r;
 }
+inline void __syncwarp() { t_blk->warp_bar[threadIdx.x >> 5]->arrive_and_wait(); }
 inline void cp_async4(float* dst, const float* src) { *dst = *src; }
 inline void cp_async16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
@@ -346,12 +419,17 @@ cudaError_t cudaOccupancyMaxActiveClusters(int* n, F k, const cudaLaunchConfig_t
 """
 
 
-def _host_source(name: str) -> str:
-    """csrc/<name>.cu for the host compiler: dynamic shared memory is the
+def _host_source(name: str, root: Path = CSRC) -> str:
+    """<root>/<name>.cu (csrc/ by default) for the host compiler, with the
+    files it includes from beside it inlined: dynamic shared memory is the
     stub's buffer, and each <<<grid, block, smem, stream>>> launch goes
     through ``emu_launch``."""
-    s = re.sub(r"extern __shared__ (__align__\(16\) )?float sm\[\];", "float* sm = emu_smem();",
-               (CSRC / f"{name}.cu").read_text())
+    def inline(text: str) -> str:
+        return re.sub(r'^#include "([^"]+)"', lambda m: inline((root / m.group(1)).read_text()),
+                      text, flags=re.M)
+
+    s = inline((root / f"{name}.cu").read_text())
+    s = re.sub(r"extern __shared__ (__align__\(16\) )?float sm\[\];", "float* sm = emu_smem();", s)
     return re.sub(r"(\w+(?:<[\w, ]+>)?)<<<([^>]*)>>>\((.*?)\);",
                   r"emu_launch(\2, [&] { \1(\3); });", s, flags=re.S)
 
@@ -396,6 +474,8 @@ def _fused_field_emu(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.emu_set_sm_count.argtypes = [ctypes.c_int]
     lib.ff_param_count.argtypes = [ctypes.c_int]
     lib.ff_param_count.restype = ctypes.c_int
+    lib.ff_bwd_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ff_bwd_scratch.restype = ctypes.c_int
     return lib
 
 
@@ -576,30 +656,42 @@ def test_emulated_k1_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip):
         assert e["ok"], e
 
 
-@pytest.mark.parametrize("o,n,h,do_clip,tile", [
-    (2, 70, 16, True, 64),       # on chip across a tile of 2 chunks
-    (2, 70, 32, True, 64),
-    (1, 40, 48, True, 32),       # from L2, one chunk per tile
-    (2, 40, 64, True, 32),
-    (1, 45, 96, True, 32),
-    (1, 40, 128, True, 32),
-    (2, 37, 32, False, 32),      # clip head off
-    (1, 33, 128, False, 32),
-    (2, 70, 24, True, 64),       # the SIMT kernel
+@pytest.mark.parametrize("o,n,h,do_clip,chunks", [
+    # chunks per tile; K2 bf16's chunk is 64 points at h = 16, 32 and 64 to
+    # 128, 32 at h = 48 (and in the SIMT kernel)
+    (2, 70, 16, True, 2),        # on chip across a tile of 2 chunks (64, then 6)
+    (2, 70, 32, True, 2),
+    (1, 40, 48, True, 1),        # on chip, tiles of one chunk (32, then 8)
+    (2, 40, 64, True, 1),        # the weight ring, one ragged chunk per tile
+    (1, 45, 96, True, 1),
+    (1, 40, 128, True, 1),
+    (2, 37, 32, False, 1),       # clip head off
+    (1, 33, 128, False, 1),
+    (2, 70, 24, True, 2),        # the SIMT kernel
+    # at h = 128 a tile is one chunk: 3 tiles, the last ragged (22 points);
+    # every chunk streams 60 slabs through the ring's stages
+    (1, 150, 128, True, 1),
+    # the ring with the clip head off (32 slabs a chunk) at h = 64, 2 x 2 tiles
+    (2, 100, 64, False, 1),
 ])
-def test_emulated_k2_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip, tile):
+def test_emulated_k2_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip, chunks):
     lib = emu_lib_bf16
+    tile = chunks * lib.ff_bwd_chunk(h)
+    assert tile <= lib.ff_bwd_max_tile(h)
     rng = np.random.default_rng(0)
     w, pts = _field(rng, o, n, h, do_clip)
     cts = [torch.from_numpy(rng.standard_normal((o, n, k)).astype(np.float32)) for k in (1, 3, h)]
     g_bf, g_32 = _bf16_grads(w, pts, cts, h, do_clip)
-    part = np.full((o, -(-n // tile), lib.ff_param_count(h)), np.nan, np.float32)
+    p, n_tiles = lib.ff_param_count(h), -(-n // tile)
+    # the slots, then the scratch the kernel takes after them (the weight
+    # images at a tensor-core width)
+    buf = np.full(o * n_tiles * p + lib.ff_bwd_scratch(o, h), np.nan, np.float32)
     wn, pn, dan, dcn, dhn = (np.ascontiguousarray(x.detach().numpy()) for x in (w, pts, *cts))
     err = lib.ff_backward(_ptr(pn), _ptr(wn), _ptr(dan), _ptr(dcn),
-                          _ptr(dhn) if do_clip else None, _ptr(part), o, n, h,
+                          _ptr(dhn) if do_clip else None, _ptr(buf), o, n, h,
                           int(do_clip), tile, None)
     assert err == 0
-    g_k = torch.from_numpy(part.sum(axis=1))
+    g_k = torch.from_numpy(buf[:o * n_tiles * p].reshape(o, n_tiles, p).sum(axis=1))
     dev = tff.leaf_errors(g_k, g_bf, h)
     dist = tff.leaf_errors(g_bf, g_32, h)
     for name, d in dev.items():
@@ -608,6 +700,77 @@ def test_emulated_k2_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip, tile):
             continue
         limit = min(GRAD_RTOL, 0.1 * dist[name]) if dist[name] > 0 else GRAD_RTOL
         assert d <= limit, (name, d, dist[name])
+
+
+@pytest.mark.parametrize("o,h,do_clip", [(2, 32, True), (1, 128, False), (3, 48, True)])
+def test_emulated_bf16_weight_image_matches_plain(emu_lib_bf16, o, h, do_clip):
+    """ff_bf16_image_kernel, K2 bf16's first launch, against its plain
+    version, fused_field.bf16_weight_image: the images ff_backward leaves in
+    the scratch after the slots (fused_field.bwd_image) equal bit for bit,
+    padding zero."""
+    lib, n = emu_lib_bf16, 4
+    rng = np.random.default_rng(3)
+    w, pts = _field(rng, o, n, h, do_clip)
+    cts = [rng.standard_normal((o, n, k)).astype(np.float32) for k in (1, 3, h)]
+    ref = tff.bf16_weight_image(w, h).view(torch.int16)
+    buf = np.full(o * lib.ff_param_count(h) + lib.ff_bwd_scratch(o, h), np.nan, np.float32)
+    assert lib.ff_bwd_scratch(o, h) >= ref.numel() // 2
+    err = lib.ff_backward(_ptr(np.ascontiguousarray(pts.numpy())),
+                          _ptr(np.ascontiguousarray(w.numpy())), *(_ptr(c) for c in cts),
+                          _ptr(buf), o, n, h, int(do_clip), lib.ff_bwd_chunk(h), None)
+    assert err == 0
+    got = tff.bwd_image(torch.from_numpy(buf), o, 1, h).view(torch.int16)
+    assert torch.equal(got, ref)
+
+
+def _emulated_bf16_copy(src: Path, out: Path) -> ctypes.CDLL:
+    """An edited copy ``src`` of csrc/fused_field_bf16.cu (beside copies of
+    what it includes) for the host, at the tensor-core widths 32 and 128."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the CUDA source")
+    (out / "emu.cpp").write_text(_host_source("fused_field_bf16", src.parent))
+    (out / "stub.h").write_text(STUB)
+    so = out / "libemu.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-Wno-unknown-pragmas", "-DFF_TC_WIDTHS(X)=X(32) X(128)", "-include",
+                    str(out / "stub.h"), "-o", str(so), str(out / "emu.cpp")],
+                   check=True, capture_output=True, text=True)
+    return _fused_field_emu(ctypes.CDLL(str(so)))
+
+
+def test_emulated_k2_bf16_masks_are_the_plain_versions(tmp_path, monkeypatch):
+    """K2 bf16's recompute masks, read from the kernel's own stored operands
+    by bench_fused_field's probed copy (emulated), equal the plain bf16
+    version's at every point and unit of every ReLU layer: on chip across a
+    tile of two chunks (h=32), through the ring with a ragged last tile
+    (h=128), and with the clip head off."""
+    from openobj_torch import kernels
+    from openobj_torch.scripts import bench_fused_field as bench
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    lib = _emulated_bf16_copy(bench.probed_source(), tmp_path)
+    lib.ff_mask_out.argtypes = [ctypes.c_void_p]
+    for o, n, h, do_clip, chunks in ((2, 70, 32, True, 2), (1, 150, 128, True, 1),
+                                     (1, 33, 128, False, 1)):
+        rng = np.random.default_rng(5)
+        w, pts = _field(rng, o, n, h, do_clip)
+        cts = [rng.standard_normal((o, n, k)).astype(np.float32) for k in (1, 3, h)]
+        tile = chunks * lib.ff_bwd_chunk(h)
+        buf = np.zeros(o * -(-n // tile) * w.shape[1] + lib.ff_bwd_scratch(o, h), np.float32)
+        got = np.full((o, n, h), 0xFF, np.uint8)
+        assert lib.ff_mask_out(_ptr(got)) == 0
+        err = lib.ff_backward(_ptr(np.ascontiguousarray(pts.numpy())),
+                              _ptr(np.ascontiguousarray(w.numpy())), *(_ptr(c) for c in cts),
+                              _ptr(buf), o, n, h, int(do_clip), tile, None)
+        lib.ff_mask_out(None)
+        assert err == 0
+        assert not (got >> (6 if do_clip else 5)).any()   # every unit written, no stray bit
+        want = bench.plain_masks(w, pts, torch.from_numpy(cts[2]), h, do_clip)
+        for layer in range(6 if do_clip else 5):          # each layer has both signs
+            assert 0 < int(((want >> layer) & 1).sum()) < o * n * h, layer
+        flips = bench.mask_flips(torch.from_numpy(got), want, do_clip)
+        assert not any(flips.values()), flips
 
 
 def test_emulated_k2_rejects_bad_tiles(emu_lib):
@@ -645,6 +808,116 @@ def test_emulated_tc_width_table(emu_lib, h, chunk, max_tile):
     assert emu_lib.ff_bwd_chunk(h) == chunk
     assert emu_lib.ff_bwd_max_tile(h) == max_tile
 
+
+@pytest.mark.parametrize("h,chunk,max_tile,images", [
+    (16, 64, 1 << 30, True),    # image and accumulators on chip across the tile
+    (32, 64, 1 << 30, True),
+    (48, 32, 1 << 30, True),    # on chip, a shorter chunk beside them
+    (64, 64, 64, True),         # the weight ring: one chunk per tile
+    (96, 64, 64, True),
+    (128, 64, 64, True),
+    (8, 32, 1 << 30, False),    # the SIMT kernel, as in f32
+    (24, 32, 1 << 30, False),
+    (136, 32, 1 << 30, False),
+    (320, 16, 1 << 30, False),
+])
+def test_emulated_tc_width_table_bf16(emu_lib, emu_lib_bf16, h, chunk, max_tile, images):
+    """The bf16 library's table: K2 bf16's chunk and largest tile at the
+    tensor-core widths, and the scratch its weight images take after the
+    slots (O x (5h + 272) x (h + 8) bf16, and 16 bytes of alignment); the
+    SIMT kernel's elsewhere."""
+    lib = emu_lib_bf16
+    assert lib.ff_tc_width(h) == (h in EMU_TC_WIDTHS)
+    assert lib.ff_bwd_chunk(h) == chunk
+    assert lib.ff_bwd_max_tile(h) == max_tile
+    want = 3 * ((5 * h + 272) * (h + 8) // 2) + 4 if images else 0
+    assert lib.ff_bwd_scratch(3, h) == want
+    assert emu_lib.ff_bwd_scratch(3, h) == 0
+
+
+
+# One warp through the stub's ldmatrix and bf16 mma.sync: C = A B from
+# A [16][16] row-major with ldmatrix.x4 and B^T [8][16] with .x2 (the input
+# gradients' pattern), from A^T [16][16] with .x4.trans and B [16][8] with
+# .x2.trans (the weight gradients'), and from the same A^T and two n-tiles of
+# B' [16][16] with .x4.trans; .x1 and .x1.trans of A's first 8 x 8 matrix,
+# register by register.
+STUB_CHECK = r"""
+extern "C" int stub_check(const uint16_t* src, float* out, uint32_t* regs) {
+  emu_launch(dim3(1), 32, 4096, nullptr, [&] {
+    uint16_t* sh = reinterpret_cast<uint16_t*>(emu_smem());
+    const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+    for (int i = lane; i < 1024; i += 32) sh[i] = src[i];
+    __syncthreads();
+    const uint16_t *A = sh, *At = sh + 256, *Bt = sh + 512, *B = sh + 640, *B2 = sh + 768;
+    const auto put = [&](int k, const float (&c)[4], int ldc, int n0) {
+      out[k + g * ldc + n0 + 2 * t] = c[0];
+      out[k + g * ldc + n0 + 2 * t + 1] = c[1];
+      out[k + (g + 8) * ldc + n0 + 2 * t] = c[2];
+      out[k + (g + 8) * ldc + n0 + 2 * t + 1] = c[3];
+    };
+    uint32_t a[4], b[2], b4[4], r1[1];
+    ldsm_x4(a, A + ((lane & 7) + 8 * ((lane >> 3) & 1)) * 16 + 8 * (lane >> 4));
+    ldsm_x2(b, Bt + (lane & 7) * 16 + 8 * ((lane >> 3) & 1));
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_bf16(c, a, b);
+    put(0, c, 8, 0);
+    ldsm_x4_t(a, At + ((lane & 7) + 8 * (lane >> 4)) * 16 + 8 * ((lane >> 3) & 1));
+    ldsm_x2_t(b, B + ((lane & 7) + 8 * ((lane >> 3) & 1)) * 8);
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_bf16(d, a, b);
+    put(128, d, 8, 0);
+    ldsm_x4_t(b4, B2 + ((lane & 7) + 8 * ((lane >> 3) & 1)) * 16 + 8 * (lane >> 4));
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t bj[2] = {b4[2 * j], b4[2 * j + 1]};
+      float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(e, a, bj);
+      put(256, e, 16, 8 * j);
+    }
+    ldsm_x1(r1, A + (lane & 7) * 16);
+    regs[lane] = r1[0];
+    ldsm_x1_t(r1, A + (lane & 7) * 16);
+    regs[32 + lane] = r1[0];
+  });
+  return 0;
+}
+"""
+
+
+def test_stub_ldmatrix_and_bf16_mma_match_numpy(tmp_path):
+    """The stub's m16n8k16 bf16 mma.sync and ldmatrix (.x1, .x2, .x4, and
+    .trans) against numpy on random bf16 tiles, as the PTX fragment layouts
+    define them: C = A B in float64 within f32 rounding (the products are
+    exact), and every .x1 register exactly."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to build the stub")
+    (tmp_path / "stub.h").write_text(STUB)
+    (tmp_path / "check.cpp").write_text(STUB_CHECK)
+    so = tmp_path / "libcheck.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-include",
+                    str(tmp_path / "stub.h"), "-o", str(so), str(tmp_path / "check.cpp")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.stub_check.argtypes = [ctypes.c_void_p] * 3
+    rng = np.random.default_rng(5)
+    bf = lambda shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        torch.bfloat16)
+    a, b, b2 = bf((16, 16)), bf((16, 8)), bf((16, 16))
+    bits = lambda x: x.contiguous().view(torch.int16).numpy().astype(np.uint16).ravel()
+    src = np.concatenate([bits(a), bits(a.T), bits(b.T), bits(b), bits(b2)])
+    out = np.full(512, np.nan, np.float32)
+    regs = np.zeros(64, np.uint32)
+    lib.stub_check(_ptr(src), _ptr(out), _ptr(regs))
+    a64, b64, b264 = (x.double().numpy() for x in (a, b, b2))
+    np.testing.assert_allclose(out[:128].reshape(16, 8), a64 @ b64, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out[128:256].reshape(16, 8), a64 @ b64, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out[256:].reshape(16, 16), a64 @ b264, rtol=1e-5, atol=1e-5)
+    ab = bits(a).reshape(16, 16).astype(np.uint32)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    assert np.array_equal(regs[:32], ab[g, 2 * t] | (ab[g, 2 * t + 1] << 16))
+    assert np.array_equal(regs[32:], ab[2 * t, g] | (ab[2 * t + 1, g] << 16))
 
 @pytest.fixture(scope="module")
 def emu_probes(tmp_path_factory):
@@ -920,17 +1193,81 @@ def test_emulated_part_quad_rejects_bad_arguments(emu_probes):
 
 
 def test_k1_phases_stamps_every_barrier(tmp_path, monkeypatch):
-    """openobj_torch.scripts.k1_phases builds a copy of the source in which
-    every barrier books its cycles, with the stamps ahead of the kernels."""
+    """openobj_torch.scripts.k1_phases builds a copy of the source, beside
+    copies of what it includes, in which every barrier books its cycles,
+    with the stamps ahead of the kernels."""
     from openobj_torch import kernels
     from openobj_torch.scripts import k1_phases
 
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
     src = CSRC / "fused_field.cu"
-    text = k1_phases.stamped_source(src, 7).read_text()
-    assert text.count("stamped_syncthreads(7);") == src.read_text().count("__syncthreads();")
+    out = k1_phases.stamped_source(src)
+    text = out.read_text()
+    assert text.count("stamped_syncthreads();") == src.read_text().count("__syncthreads();")
     assert text.count("__syncthreads();") == 1          # the barrier inside the stamp
     assert text.index("void stamped_syncthreads(") < text.index("namespace {")
+    assert kernels.lib_path(out).name.startswith("libfused_field-")   # its includes are there
+
+
+def test_k2_bf16_phases_names_every_barrier(tmp_path, monkeypatch):
+    """openobj_torch.scripts.k1_phases in its K2 bf16 mode stamps every
+    barrier of K2 bf16 (its weight ring's too) and none of fused_field.cu's
+    kernels, and its span names are the barriers a block passes, in number:
+    the stamped copy, emulated with a stamp that counts block (0, 0)'s
+    barriers, at h=128 (the ring, one chunk a tile, the clip head on and
+    off) and h=32 (on chip, a tile of two chunks)."""
+    from openobj_torch import kernels
+    from openobj_torch.scripts import k1_phases as kp
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    src = kp.stamped_source(CSRC / "fused_field_bf16.cu", kp.K2_BF16_STAMPED)
+    hdr = (src.parent / "fused_field_bwd_bf16.cuh").read_text()
+    assert "__syncthreads();" not in hdr
+    assert hdr.count("stamped_syncthreads();") == (
+        CSRC / "fused_field_bwd_bf16.cuh").read_text().count("__syncthreads();")
+    assert (src.parent / "fused_field.cu").read_text() == (CSRC / "fused_field.cu").read_text()
+    counting = ("#include <atomic>\ninline std::atomic<int> g_bars{0};\n"
+                "inline void stamped_syncthreads() {\n  __syncthreads();\n"
+                "  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) ++g_bars;\n}\n"
+                'extern "C" int emu_bars() { int n = g_bars; g_bars = 0; return n; }\n')
+    src.write_text(counting + (kernels.CSRC / "fused_field_bf16.cu").read_text())
+    lib = _emulated_bf16_copy(src, tmp_path)
+    for o, n, h, do_clip, chunks in ((1, 64, 128, True, 1), (1, 64, 128, False, 1),
+                                     (1, 100, 32, True, 2)):
+        w, pts = _field(np.random.default_rng(0), o, n, h, do_clip)
+        cts = [np.ones((o, n, k), np.float32) for k in (1, 3, h)]
+        tile = chunks * lib.ff_bwd_chunk(h)
+        buf = np.zeros(o * -(-n // tile) * w.shape[1] + lib.ff_bwd_scratch(o, h), np.float32)
+        err = lib.ff_backward(_ptr(pts.numpy()), _ptr(w.numpy()), *(_ptr(c) for c in cts),
+                              _ptr(buf), o, n, h, int(do_clip), tile, None)
+        assert err == 0
+        ring = lib.ff_bwd_max_tile(h) < (1 << 30)
+        assert ring == (h == 128)
+        assert lib.emu_bars() == chunks * len(kp.span_names(h, ring, do_clip))
+
+
+def test_sass_diff_compares_kernels_by_instruction():
+    """openobj_torch.scripts.sass_diff reads cuobjdump's listing per kernel,
+    without addresses, encodings or the namespace hash, and names the
+    kernels that differ or that one side lacks."""
+    from openobj_torch.scripts import sass_diff
+
+    def listing(ns, ops):
+        out = "\n\tcode for sm_90a\n"
+        for name, body in ops.items():
+            out += f"\t\tFunction : _ZN{ns}{name}Ev\n\t.headerflags @\"EF_CUDA_SM90\"\n"
+            out += "".join(f"        /*{16 * i:04x}*/   {op} ;   /* 0x{i:016x} */\n"
+                           for i, op in enumerate(body))
+        return out
+
+    a = sass_diff.functions(listing("_GLOBAL__N__1a2b_", {"k1": ["LDC R1, c[0x0][0x28]", "EXIT"],
+                                                           "k2": ["FFMA R0, R1, R2, R0", "EXIT"]}))
+    b = sass_diff.functions(listing("_GLOBAL__N__9f8e_", {"k1": ["LDC  R1,  c[0x0][0x28]", "EXIT"],
+                                                           "k2": ["FADD R0, R1, R2", "EXIT"],
+                                                           "k3": ["EXIT"]}))
+    assert a["_ZNNS_k1Ev"] == ["LDC R1, c[0x0][0x28] ;", "EXIT ;"]
+    assert sass_diff.compare(a, b) == (1, ["_ZNNS_k2Ev", "_ZNNS_k3Ev"])
+    assert sass_diff.compare(a, a) == (2, [])
 
 
 def test_ens_gemm_parts_edits_the_persistent_kernel(tmp_path, monkeypatch):

@@ -125,8 +125,9 @@ def bf16_limit(dist: float, cap: float) -> float:
     (3, 700, 32, True),      # ragged last chunk, weights on chip
     (2, 90, 32, False),      # clip head off
     (8, 1200, 32, True),     # K2 tiles of several chunks
-    (1, 1000, 128, True),    # the bg width, weights from L2
+    (1, 1000, 128, True),    # the bg width, weights through the ring
     (1, 100, 128, False),
+    (1, 16800, 128, True),   # bg: 263 one-chunk tiles, the last 32 points
     (2, 700, 16, True),
     (1, 1000, 48, True),
     (1, 1792, 64, True),
@@ -142,7 +143,9 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, o, n, h, do_clip):
     off by more than FWD_ATOL, none further off than the plain bf16 is from
     the plain f32, all finite, and plain f32 in K1's place would fail), each
     gradient leaf within a tenth of its bf16-vs-f32 distance in max abs (at
-    most the f32 gate, ``bf16_limit``)."""
+    most the f32 gate, ``bf16_limit``). K2 is ff_bwd_bf16_kernel at the
+    tensor-core widths (behind its weight conversion), the SIMT kernel at
+    24; the worst leaf is printed."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     w = tff._pack_params(_params(gen, o, h, cuda_device), h, do_clip).contiguous()
     pts = 0.5 * torch.randn((o, n, 3), generator=gen, device=cuda_device)
@@ -166,8 +169,9 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, o, n, h, do_clip):
     shown = "; ".join(f"{k} off {e['off']:.2e} (f32 {e['control_off']:.2e}) max abs "
                       f"{e['max_abs']:.2e} (bf16-vs-f32 {e['bf16_max']:.2e})"
                       for k, e in fwd.items())
-    print(f"[bf16] {o}x{n} h={h} clip={do_clip}: fwd {shown}; worst leaf "
-          f"{worst} {dev[worst]:.2e} (bf16-vs-f32 {dist[worst]:.2e})")
+    print(f"[bf16] {o}x{n} h={h} clip={do_clip} ({tff.kernel_names(h, 'bf16')}): fwd {shown}; "
+          f"worst leaf {worst} {dev[worst]:.2e} (bf16-vs-f32 {dist[worst]:.2e}, limit "
+          f"{bf16_limit(dist[worst], GRAD_RTOL):.2e})")
     assert (outs_k[2] is None) == (not do_clip)
     for name, e in fwd.items():
         assert e["ok"], (name, e)
@@ -181,8 +185,9 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, o, n, h, do_clip):
 @pytest.mark.cuda
 def test_bf16_autograd_on_cuda_counts_its_kernels(cuda_device):
     """field_apply_stacked_fused(compute_dtype="bf16") on the card launches
-    the bf16 K1 and K2 and the reduction, never the f32 kernels or the plain
-    version, and agrees with the plain bf16 on the CPU."""
+    the bf16 K1 and K2 (K2 behind its weight conversion) and the reduction,
+    never the f32 kernels or the plain version, and agrees with the plain
+    bf16 on the CPU."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     p_gpu = _params(gen, 3, 32, cuda_device)
     p_cpu = tof.tree_map(lambda x: x.detach().cpu(), p_gpu)
@@ -198,7 +203,8 @@ def test_bf16_autograd_on_cuda_counts_its_kernels(cuda_device):
     tff.reset_counts()
     a_g, g_g = run(p_gpu, pts)
     assert {k: v for k, v in tff.COUNTS.items() if v} == {
-        "fused_field_fwd_bf16": 1, "fused_field_bwd_bf16": 1, "fused_field_bwd_reduce": 1}
+        "fused_field_fwd_bf16": 1, "fused_field_bwd_bf16": 1, "fused_field_bwd_bf16_image": 1,
+        "fused_field_bwd_reduce": 1}
     a_c, g_c = run(p_cpu, pts.cpu())
     assert float((a_g.detach().cpu() - a_c.detach()).abs().max()) <= FWD_ATOL
     assert float((g_g.cpu() - g_c).abs().max()) <= GRAD_RTOL * float(g_c.abs().max())
