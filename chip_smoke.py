@@ -11,11 +11,13 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      at the other widths' shapes: the tensor-core K1/K2 at the room_0 shapes
      with h=64, fg at h=16, 48 and 96, bg at h=80 and 112 (every width they
      are built for), and the SIMT K1/K2/K2r at h=24 (fg-like [8, 1200]);
-     and K1/K2 bf16 (csrc/fused_field_bf16.cu; K2 bf16 is ff_bwd_bf16_kernel
-     behind its weight conversion ff_bf16_image_kernel) against the plain
-     version in bf16 at fg and bg (ff.bf16_output_errors for K1, BF16_RATIO
-     per leaf for K2, the conversion bit for bit), timed with their bounds,
-     and K2r over the bf16 library's slots;
+     and K1/K2 bf16 (csrc/fused_field_bf16.cu; K1 bf16 is ff_fwd_bf16_kernel,
+     K2 bf16 is ff_bwd_bf16_kernel behind its weight conversion
+     ff_bf16_image_kernel) against the plain version in bf16 at fg and bg
+     (ff.bf16_output_errors for K1, BF16_RATIO per leaf for K2, the
+     conversion bit for bit), timed with their bounds (K1's beside its
+     encode's own floor) and K1 bf16's launch, and K2r over the bf16
+     library's slots;
   3. runs the port of examples/synthetic_convergence.py through the kernels
      and a few training steps on the card against the same steps on the CPU;
   4. drives the main path: SceneMapper.process_frame at the Replica room_0
@@ -371,7 +373,7 @@ def check_kernels(device, shapes) -> dict:
         names = ff.kernel_names(h)
         per["fused_field_fwd"].append(dict(
             shape=shape["name"], dims=[o, n, h], ms=t_fwd, plain_ms=t_fwd_plain, bound=b_fwd,
-            bound_simt=simt_fwd, err=fwd_err, library_ms=None))
+            bound_simt=simt_fwd, encode_floor=fb["fwd_encode"][0], err=fwd_err, library_ms=None))
         per["fused_field_bwd"].append(dict(
             shape=shape["name"], dims=[o, n, h], ms=t_bwd, plain_ms=t_bwd_plain, bound=b_bwd,
             bound_simt=simt_bwd, err=bwd_err, rel=worst, library_ms=None))
@@ -383,7 +385,7 @@ def check_kernels(device, shapes) -> dict:
         log(f"[kernels] {shape['name']} O={o} N={n} h={h} ({names['fused_field_fwd']}, "
             f"{names['fused_field_bwd']}): "
             f"K1 err {fwd_err:.2e} {t_fwd:.4f} ms (plain {t_fwd_plain:.4f}, bound {b_fwd[0]:.4f} "
-            f"{b_fwd[1]}, SIMT-only {simt_fwd:.4f}) | "
+            f"{b_fwd[1]}, SIMT-only {simt_fwd:.4f}, encode floor {fb['fwd_encode'][0]:.4f}) | "
             f"K2 err {bwd_err:.2e} worst-leaf rel {worst:.2e} {t_bwd:.4f} ms tile {tile} "
             f"(plain bwd {t_bwd_plain:.4f}, bound {b_bwd[0]:.4f} {b_bwd[1]}, "
             f"SIMT-only {simt_bwd:.4f}) | "
@@ -411,7 +413,10 @@ def check_kernels_bf16(device, shapes) -> dict:
     """K1 and K2 of csrc/fused_field_bf16.cu against the plain version in
     bf16 at each shape (K1 by ff.bf16_output_errors, K2 by BF16_RATIO per
     leaf), and their times: kernel, plain version, bound with bf16 products
-    at the dense bf16 rate. K2 bf16 (ff_backward) launches the weight
+    at the dense bf16 rate (K1's beside its encode's floor, which the bound
+    does not count). K1 bf16 converts its weights to bf16 inside its own
+    blocks (no launch of its own); its launch (blocks resident an SM, tile)
+    is logged. K2 bf16 (ff_backward) launches the weight
     conversion ff_bf16_image_kernel first, and its time holds both; the
     images it leaves in the scratch are held to their plain version
     (ff.bf16_weight_image, bit for bit), the conversion's own time is read
@@ -538,8 +543,9 @@ def check_kernels_bf16(device, shapes) -> dict:
         common = dict(shape=shape["name"], dims=[o, n, h], library_ms=None)
         per["fused_field_fwd_bf16"].append(dict(
             common, kernel=names["fused_field_fwd_bf16"], ms=t_fwd, plain_ms=t_fwd_plain,
-            bound=fb["fwd"], bound_simt=fb["fwd_simt"][0], err=fwd_err,
-            off={k: e["off"] for k, e in errs.items()}))
+            bound=fb["fwd"], bound_simt=fb["fwd_simt"][0], encode_floor=fb["fwd_encode"][0],
+            err=fwd_err, off={k: e["off"] for k, e in errs.items()},
+            launch=ff.fwd_launch(lib, o, n, h)))
         per["fused_field_bwd_bf16"].append(dict(
             common, kernel=names["fused_field_bwd_bf16"], ms=t_bwd, plain_ms=t_bwd_plain,
             bound=fb["bwd"], bound_simt=fb["bwd_simt"][0],
@@ -548,7 +554,8 @@ def check_kernels_bf16(device, shapes) -> dict:
             f"{names['fused_field_bwd_bf16']}): K1 outputs off by > {FWD_ATOL} at most "
             f"{max(e['off'] for e in errs.values()):.2e} (limit {ff.BF16_OFF_FRAC}), max abs "
             f"{fwd_err:.2e}; {t_fwd:.4f} ms (plain {t_fwd_plain:.4f}, bound {fb['fwd'][0]:.4f} "
-            f"{fb['fwd'][1]}) | K2 worst leaf {worst} {dev[worst]:.2e} (bf16-vs-f32 "
+            f"{fb['fwd'][1]}, encode floor {fb['fwd_encode'][0]:.4f}; launch "
+            f"{per['fused_field_fwd_bf16'][-1]['launch']}) | K2 worst leaf {worst} {dev[worst]:.2e} (bf16-vs-f32 "
             f"{dist[worst]:.2e}, limit {bf16_leaf_limit(dist[worst]):.2e}); {t_bwd:.4f} ms tile "
             f"{tile} (plain bwd {t_bwd_plain:.4f}, bound {fb['bwd'][0]:.4f} {fb['bwd'][1]}); "
             f"of it the weight image {t_img:.4f} ms (plain {t_img_plain:.4f}, bound "
@@ -813,7 +820,7 @@ def k1_shape_row(name, wflat, pts, h, launches, compute_dtype: str = "f32") -> d
     were counted at exactly this shape."""
     import torch
     from openobj_torch.ops import fused_field as ff
-    from openobj_torch.scripts._benchlib import bound_ms, fwd_macs_noclip
+    from openobj_torch.scripts._benchlib import SINF_OPS, bound_ms, fwd_macs_noclip
 
     o, n, _ = pts.shape
     cd = compute_dtype
@@ -851,9 +858,11 @@ def k1_shape_row(name, wflat, pts, h, launches, compute_dtype: str = "f32") -> d
     npts = o * n
     nbytes = npts * 12 + wflat.numel() * 4 + npts * 4 * (1 + 3)
     b = bound_ms(2.0 * macs * npts, nbytes, 2.0 * mm * npts, cd)
+    enc = bound_ms((2.0 * 63 + 126 * SINF_OPS) * npts, 0.0)[0]   # the encode's own floor
     log(f"[outputs] K1 {name} [{o},{n},3] h={h} {cd}: err {err:.2e}{gate}, {t_k:.4f} ms "
         f"(plain {t_p:.4f}, bound {b[0]:.4f} {b[1]}, SIMT-only "
-        f"{bound_ms(2.0 * macs * npts, nbytes)[0]:.4f}), {launches} launches at this shape")
+        f"{bound_ms(2.0 * macs * npts, nbytes)[0]:.4f}, encode floor {enc:.4f}; launch "
+        f"{ff.fwd_launch(lib, o, n, h)}), {launches} launches at this shape")
     return {"shape": name, "kernel": ff.kernel_names(h, cd)[ff._FWD[cd]], "dims": [o, n, h],
             "launches": launches, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b[0], "bound_by": b[1],
@@ -2576,9 +2585,9 @@ def main(argv=None) -> int:
         # the weights' astype(cdt) in _bwd_kernel's mmBT
         "fused_field_bwd_bf16_image": "openobj_tpu/ops/fused_field.py:200",
     }
-    # K1 bf16 is fused_field.cu built again with FF_BF16; K2 bf16 and its
-    # weight conversion are that build's own kernels
-    sources = {"fused_field_fwd_bf16": "fused_field_bf16.cu",
+    # K1 bf16, K2 bf16 and its weight conversion are the bf16 build's own
+    # kernels (csrc/fused_field_bf16.cu)
+    sources = {"fused_field_fwd_bf16": "fused_field_fwd_bf16.cuh",
                "fused_field_bwd_bf16": "fused_field_bwd_bf16.cuh",
                "fused_field_bwd_bf16_image": "fused_field_bwd_bf16.cuh"}
     # launches as counted in each run, by (count, O, N, h)
@@ -2631,6 +2640,9 @@ def main(argv=None) -> int:
         })
         if name == "fused_field_fwd_bf16":   # the gate's measure beside the max abs
             rows[-1]["off_share"] = {s["shape"]: s["off"] for s in shapes}
+            rows[-1]["launch"] = {s["shape"]: s["launch"] for s in shapes}
+        if name in ("fused_field_fwd", "fused_field_fwd_bf16"):   # beside the bound
+            rows[-1]["encode_floor_ms"] = sum(s["encode_floor"] for s in shapes)
     rows += probe_rows
     log(f"[time] phases {phase_s}")
     log(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")

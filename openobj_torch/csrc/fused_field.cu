@@ -86,14 +86,11 @@
 // BF16 = true. Then every matrix product but the projection rounds both
 // operands to bf16 (cvt.rn: round to nearest even, as astype(bfloat16))
 // and sums in f32; biases are added, and bias gradients summed, in f32.
-// K1: a bf16 value is exact in TF32, so its tensor-core products take one
-// m16n8k8 tf32 mma.sync on the rounded operands where f32 takes three on
-// hi/lo splits: the same exact products and f32 sums as a bf16 m16n8k16.
-// Bias rows no longer ride in its products (the ones columns are zero): a
-// bias starts its accumulator. The SIMT kernels round their operands
-// before each FMA. K2 at the tensor-core widths is a kernel of its own in
-// the bf16 build, ff_bwd_bf16_kernel (csrc/fused_field_bwd_bf16.cuh, on
-// the bf16 tensor cores); ff_bwd_kernel below is the f32 build's only.
+// The SIMT kernels round their operands before each FMA. K1 and K2 at the
+// tensor-core widths are kernels of their own in the bf16 build, on the
+// bf16 tensor cores: ff_fwd_bf16_kernel (csrc/fused_field_fwd_bf16.cuh) and
+// ff_bwd_bf16_kernel (csrc/fused_field_bwd_bf16.cuh); ff_fwd_kernel and
+// ff_bwd_kernel below are the f32 build's only.
 
 // Without nvcc (tests/test_torch_kernel_emulation.py runs K2 on the CPU), a
 // header included ahead of this file stands in for the CUDA runtime and the
@@ -683,17 +680,10 @@ __device__ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uin
 }
 #endif
 
-// the 3xTF32 split: x = hi + lo + O(2^-22 |x|), hi and lo both tf32; in
-// the bf16 build hi = x rounded to bf16 (exact in tf32) and lo = 0, and the
-// products use hi alone
+// the 3xTF32 split: x = hi + lo + O(2^-22 |x|), hi and lo both tf32
 __device__ inline void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (BF16) {
-    hi = __float_as_uint(round_bf16(x));
-    lo = 0u;
-  } else {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
-  }
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
 }
 
 // out (M x N) = init + A (M x K) . B (K x N) on the tensor cores in 3xTF32
@@ -996,10 +986,8 @@ __device__ void rows_product(FI init, FA a, FB b, FE epi) {
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
           float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          if constexpr (!BF16) {
-            mma_tf32(d, al, bh[j]);
-            mma_tf32(d, ah, bl[j]);
-          }
+          mma_tf32(d, al, bh[j]);
+          mma_tf32(d, ah, bl[j]);
           mma_tf32(d, ah, bh[j]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) c[r][j][i] += d[i];
@@ -1100,9 +1088,8 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     load(w_col, L.w_col, D::RH, D::KX3);
     if (do_clip) load(w_clip, L.w_clip, D::RH, D::KX3);
   }
-  // the ones column of [h2 | e1 | 1], past every column the heads' layout
-  // uses; zero in bf16, where the biases start the accumulators (`row_bias`)
-  for (int p = tid; p < FP; p += NT) X.put(p, H + 87, BF16 ? 0.0f : 1.0f);
+  // the ones column of [h2 | e1 | 1], past every column the heads' layout uses
+  for (int p = tid; p < FP; p += NT) X.put(p, H + 87, 1.0f);
   for (int i = tid; i < ND * 3; i += NT) dirs[i] = W[L.dirs + i];
   for (int i = tid; i < H + 1; i += NT) dirs[ND * 3 + i] = W[L.w_alpha + i];
   for (int i = tid; i < 3 * H + 3; i += NT) dirs[ND * 3 + H + 1 + i] = W[L.w_oc + i];
@@ -1110,13 +1097,10 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
   const auto bias_init = [&](int off) {
     return [=](int, int n) { return make_float2(W[off + n], W[off + n + 1]); };
   };
-  // the start of a product whose bias is a row of its packed weights: zero
-  // in f32 (the bias rides on the ones column), the bias in bf16
-  const auto row_bias = [&](int off) {
-    return [=](int, int n) {
-      if constexpr (BF16) return make_float2(W[off + n], W[off + n + 1]);
-      else return make_float2(0.0f, 0.0f);
-    };
+  // the start of a product whose bias is a row of its packed weights (the
+  // bias rides on the ones column)
+  const auto row_bias = [&](int) {
+    return [=](int, int) { return make_float2(0.0f, 0.0f); };
   };
   const auto relu_to = [](const auto& buf) {   // the next layer's A fragments
     return [=](int mt, int nt, const float (&c)[4]) {
@@ -1180,7 +1164,7 @@ ff_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ w,
     }
     for (int i = tid; i < FP * 6; i += NT) {
       const int p = i / 6, c = i - p * 6;
-      X.put(p, H + 42 + c, c == 0 && !BF16 ? 1.0f : 0.0f);
+      X.put(p, H + 42 + c, c == 0 ? 1.0f : 0.0f);
     }
     rows_product<FP, H, H, F::NB, F::MT>(      // h3
         bias_init(L.b_mid2), ha, wb(w_mid2), [&](int mt, int nt, const float (&c)[4]) {
@@ -1583,17 +1567,19 @@ size_t fwd_smem(int h) {
          (LD_T + LD_P + LD_E1 + LD_E2 + 2 * ld_h(h));
 }
 
-// Points per K1 block: a whole number of chunks that finishes in the fewest
-// waves x tile length (a block fills an SM), among equals the fewest blocks;
-// the rule of ops.fused_field.bwd_tile.
-int fwd_tile(int O, int N, int n_sm) {
-  const int chunks = (N + FP - 1) / FP;
+// Points per K1 block: a whole number of chunks (of `chunk` points) that
+// finishes in the fewest waves x (tile length + `start`, a block's fixed
+// cost in points) over `n_sm` blocks at once (the f32 K1: a block fills an
+// SM, no fixed cost), among equals the fewest blocks; the rule of
+// ops.fused_field.bwd_tile.
+int fwd_tile(int O, int N, int n_sm, int start = 0, int chunk = FP) {
+  const int chunks = (N + chunk - 1) / chunk;
   long best_cost = -1, best_blocks = 0;
-  int best = FP;
+  int best = chunk;
   for (int k = 1; k <= chunks; ++k) {
-    const int tile = k * FP;
+    const int tile = k * chunk;
     const long blocks = (long)O * ((N + tile - 1) / tile);
-    const long cost = (blocks + n_sm - 1) / n_sm * tile;
+    const long cost = (blocks + n_sm - 1) / n_sm * (tile + start);
     if (best_cost < 0 || cost < best_cost || (cost == best_cost && blocks < best_blocks)) {
       best_cost = cost;
       best_blocks = blocks;
@@ -1618,6 +1604,24 @@ int launch_fwd(const float* pts, const float* w, float* alpha, float* color,
   dim3 grid((N + tile - 1) / tile, O);
   ff_fwd_kernel<H><<<grid, NT, smem, stream>>>(pts, w, alpha, color, hclip, N, do_clip, tile);
   return (int)cudaGetLastError();
+}
+
+// The launch ff_fwd_kernel<H> makes (ff_fwd_launch): one block an SM, the
+// tile by fwd_tile over the SMs
+template <int H>
+int plan_fwd(int O, int N, int* out) {
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int tile = fwd_tile(O, N, n_sm);
+  out[0] = 1;
+  out[1] = tile;
+  out[2] = O * ((N + tile - 1) / tile);
+  out[3] = (int)(sizeof(uint32_t) * FwdDims<H>::SMEM_WORDS);
+  out[4] = FP;
+  out[5] = 0;
+  return 0;
 }
 
 template <int H>
@@ -1647,15 +1651,18 @@ struct TcWidth {
   bool smem_w;   // K2 keeps weights and accumulators on chip across a tile
   int chunk;     // K2's points per chunk
   int (*fwd)(const float*, const float*, float*, float*, float*, int, int, int, cudaStream_t);
+  int (*fwd_plan)(int, int, int*);   // K1's launch (ff_fwd_launch)
   int (*bwd)(const float*, const float*, const float*, const float*, const float*, float*, int,
              int, int, int, cudaStream_t);
 };
 
 #ifdef FF_BF16
 #include "fused_field_bwd_bf16.cuh"   // K2 at bf16: ff_bwd_bf16_kernel<H>
-#define FF_TC_ENTRY(H) {H, Bf<H>::SMEM_W, Bf<H>::P, launch_fwd<H>, launch_bwd_bf16<H>},
+#include "fused_field_fwd_bf16.cuh"   // K1 at bf16: ff_fwd_bf16_kernel<H>
+#define FF_TC_ENTRY(H) \
+  {H, Bf<H>::SMEM_W, Bf<H>::P, launch_fwd_bf16<H>, plan_fwd_bf16<H>, launch_bwd_bf16<H>},
 #else
-#define FF_TC_ENTRY(H) {H, Dims<H>::SMEM_W, BP, launch_fwd<H>, launch_bwd<H>},
+#define FF_TC_ENTRY(H) {H, Dims<H>::SMEM_W, BP, launch_fwd<H>, plan_fwd<H>, launch_bwd<H>},
 #endif
 const TcWidth TC_WIDTHS[] = {FF_TC_WIDTHS(FF_TC_ENTRY)};
 #undef FF_TC_ENTRY
@@ -1698,6 +1705,26 @@ int ff_bwd_scratch(int O, int h) {
 #ifdef FF_BF16
   if (tc_width(h)) return (int)image_scratch_floats(O, h);
 #endif
+  return 0;
+}
+
+// The launch ff_forward makes for O objects x N points at width h: {blocks
+// resident an SM, points a block, blocks, dynamic shared memory in bytes,
+// points a chunk, 1 if K1 bf16 streams its weights through its ring} into
+// out[0..5]
+int ff_fwd_launch(int O, int N, int h, int* out) {
+  if (const TcWidth* t = tc_width(h)) return t->fwd_plan(O, N, out);
+  const int tp = chunk_points(h), smem = (int)fwd_smem(h);
+  cudaError_t err = cudaFuncSetAttribute(
+      ff_fwd_generic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], ff_fwd_generic_kernel, NT, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = tp;
+  out[2] = O * ((N + tp - 1) / tp);
+  out[3] = smem;
+  out[4] = tp;
+  out[5] = 0;
   return 0;
 }
 

@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -77,7 +78,8 @@ def lib_path(name) -> Path:
 
 def build(names=SOURCES, verbose: bool = False) -> dict[str, float]:
     """Compile every named source not built yet, one ``nvcc`` per source,
-    all started together. Returns {name: seconds}; raises with the
+    all started together. Returns {name: seconds from the start to that
+    compiler's end}; raises with the
     compiler's output if any build fails. ``verbose`` adds ``-Xptxas -v``
     and prints the compiler's report (registers, shared memory, spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -94,11 +96,22 @@ def build(names=SOURCES, verbose: bool = False) -> dict[str, float]:
         jobs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
-    secs = {}
+    # each compiler's own seconds: its output drained and its end taken by a
+    # thread of its own, so that one build's wait does not count in another's
+    logs, secs = {}, {}
+
+    def reap(name, proc):
+        logs[name] = proc.communicate()[0]
+        secs[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=reap, args=(name, job[0])) for name, job in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     errors = []
     for name, (proc, tmp, out) in jobs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
+        log = logs[name]
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {_source(name)} (rc {proc.returncode}):\n{log}")
             continue

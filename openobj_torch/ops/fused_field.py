@@ -349,6 +349,9 @@ def _lib(source="fused_field"):
         if hasattr(lib, "ff_bwd_scratch"):   # nor older than K2 bf16's weight images
             lib.ff_bwd_scratch.argtypes = [_INT, _INT]
             lib.ff_bwd_scratch.restype = _INT
+        if hasattr(lib, "ff_fwd_launch"):    # nor older than K1 bf16's own kernel
+            lib.ff_fwd_launch.argtypes = [_INT, _INT, _INT, _VP]
+            lib.ff_fwd_launch.restype = _INT
         lib.ff_forward.argtypes = [_VP] * 5 + [_INT] * 4 + [_VP]
         lib.ff_forward.restype = _INT
         lib.ff_backward.argtypes = [_VP] * 6 + [_INT] * 5 + [_VP]
@@ -369,20 +372,34 @@ def tensor_core_width(h: int) -> bool:
 def kernel_names(h: int, compute_dtype: str = "f32") -> dict:
     """The CUDA kernel behind each launch count at hidden width ``h``
     (in bf16: the kernels of ``csrc/fused_field_bf16.cu``, named with
-    " bf16"; at the tensor-core widths its K2 is ``ff_bwd_bf16_kernel``,
-    behind the weight conversion ``ff_bf16_image_kernel``)."""
+    " bf16"; at the tensor-core widths its K1 is ``ff_fwd_bf16_kernel``
+    and its K2 ``ff_bwd_bf16_kernel``, behind the weight conversion
+    ``ff_bf16_image_kernel``)."""
     tc = tensor_core_width(h)
     fwd, bwd = ((f"ff_fwd_kernel<{h}>", f"ff_bwd_kernel<{h}>") if tc
                 else ("ff_fwd_generic_kernel", "ff_bwd_generic_kernel"))
     if compute_dtype != "bf16":
         return {_FWD[compute_dtype]: fwd, _BWD[compute_dtype]: bwd,
                 "fused_field_bwd_reduce": "ff_reduce_kernel"}
-    out = {_FWD[compute_dtype]: fwd + " bf16",
+    out = {_FWD[compute_dtype]: (f"ff_fwd_bf16_kernel<{h}>" if tc else fwd) + " bf16",
            _BWD[compute_dtype]: (f"ff_bwd_bf16_kernel<{h}>" if tc else bwd) + " bf16",
            "fused_field_bwd_reduce": "ff_reduce_kernel"}
     if tc:
         out["fused_field_bwd_bf16_image"] = "ff_bf16_image_kernel bf16"
     return out
+
+
+def fwd_launch(lib, o: int, n: int, h: int) -> dict:
+    """The launch K1 of ``lib`` makes for O objects x N points at width h
+    (``ff_fwd_launch``): blocks resident on an SM (the occupancy the tile
+    rule counts), points a block, blocks, dynamic shared memory in bytes,
+    points a chunk, and whether K1 bf16 streams its weights through its
+    ring (else they are on chip, or it is another K1)."""
+    out = (ctypes.c_int * 6)()
+    _raise_on(lib.ff_fwd_launch(o, n, h, ctypes.addressof(out)), "ff_fwd_launch")
+    plan = dict(zip(("blocks_per_sm", "tile", "blocks", "smem", "chunk", "ring"), out))
+    plan["ring"] = bool(plan["ring"])
+    return plan
 
 
 def _check(x: torch.Tensor, name: str, shape: tuple) -> None:

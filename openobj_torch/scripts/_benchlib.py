@@ -45,6 +45,12 @@ PEAK_F32 = 67e12
 PEAK_TF32 = 494.7e12
 PEAK_BF16 = 989.4e12
 PEAK_BYTES = 3.35e12
+# operations charged per sinf in the chain's bound and in the field
+# forward's encode floor: the 24 SASS instructions of sinf's path for
+# |x| < 105615 on sm_90a (8 to the range check's branch, 16 after it, not
+# counting the convergence barrier's two; the SASS that ``step_chain_parts``
+# writes), each one issue slot of the 67 TFLOP/s of FMAs (2 FLOP)
+SINF_OPS = 2 * 24
 
 
 def fwd_mm_macs(h: int) -> int:
@@ -100,7 +106,10 @@ def field_bounds(o: int, n: int, h: int, p: int, compute_dtype: str = "f32") -> 
     objects x N points at width h, P packed parameters per object: the
     points, weights and cotangents read once, the outputs (or one gradient
     per object) written once; ``*_simt`` with every product on the SIMT
-    cores. Values are ``bound_ms`` pairs (ms, what bounds it)."""
+    cores. Values are ``bound_ms`` pairs (ms, what bounds it).
+    ``fwd_encode`` is the forward's encode alone on the SIMT cores, which
+    the bound does not count: the projection's 63 multiply-adds and 126
+    sines a point, each sine SINF_OPS."""
     cd = compute_dtype
     npts = o * n
     wbytes = o * p * 4
@@ -110,6 +119,7 @@ def field_bounds(o: int, n: int, h: int, p: int, compute_dtype: str = "f32") -> 
         "fwd": bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes, 2.0 * fwd_mm_macs(h) * npts, cd),
         "bwd": bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes, 2.0 * bwd_mm_macs(h) * npts, cd),
         "fwd_simt": bound_ms(2.0 * fwd_macs(h) * npts, fwd_bytes),
+        "fwd_encode": bound_ms((2.0 * 63 + 126 * SINF_OPS) * npts, 0.0),
         "bwd_simt": bound_ms(2.0 * bwd_macs(h) * npts, bwd_bytes),
     }
 

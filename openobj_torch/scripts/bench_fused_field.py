@@ -34,7 +34,9 @@ that file, beside its own ``fused_field.cu``) at the main path's two
 shapes, against the plain version in bf16, and counts the ReLU masks of
 the recomputed forward that differ between the plain version and K2 bf16,
 read from the kernel's own stored operands by a copy of the source with a
-probe (``probed_source``):
+probe (``probed_source``); then K1 bf16 alone at the render shape (48
+objects x 305,152 points, h=32, clip head off), each library's outputs
+held to the plain bf16 by ``fused_field.bf16_output_errors``:
 
     mkdir -p chip_proof/parent && git archive HEAD~1 openobj_torch/csrc | tar -x -C chip_proof/parent
     python -m openobj_torch.scripts.bench_fused_field --dtype bf16 \\
@@ -54,7 +56,7 @@ import torch
 from openobj_torch import kernels
 from openobj_torch.models import object_field
 from openobj_torch.ops import fused_field as ff
-from openobj_torch.scripts._benchlib import field_bounds
+from openobj_torch.scripts._benchlib import bound_ms, field_bounds, fwd_macs_noclip
 
 SHAPES = (
     dict(name="fg", o=64, n=1200, h=32), dict(name="bg", o=1, n=16800, h=128),
@@ -62,6 +64,8 @@ SHAPES = (
     dict(name="fg_h64", o=64, n=1200, h=64), dict(name="bg_h64", o=1, n=16800, h=64),
     dict(name="fg_h16", o=64, n=1200, h=16), dict(name="fg_h96", o=64, n=1200, h=96),
 )
+# K1 bf16's render shape (phase 4b's), clip head off
+RENDER = dict(o=48, n=2048 * 149, h=32)
 ITERS = 20      # timed launches per reading, after 3 warm-ups
 _RELU_LAYERS = ("h1", "h2", "hc", "h3", "hcol", "hclip")
 
@@ -256,7 +260,8 @@ def run(against: Path | None, compute_dtype: str = "f32") -> dict:
         bounds = field_bounds(o, n, h, ff.packed_size(h), compute_dtype)
         row = {"o": o, "n": n, "h": h, "plain_vs_f64": _leaf_rel(ref, ref64, h)[0],
                "kernels": ff.kernel_names(h, compute_dtype),
-               "bound_fwd_ms": bounds["fwd"][0], "bound_ms": bounds["bwd"][0]}
+               "bound_fwd_ms": bounds["fwd"][0], "bound_ms": bounds["bwd"][0],
+               "encode_floor_ms": bounds["fwd_encode"][0]}
         if bf16:
             row["mask_flips"] = kernel_mask_flips(probe, wflat, pts, cts, h)
             row["mask_units"] = o * n * h
@@ -287,7 +292,8 @@ def run(against: Path | None, compute_dtype: str = "f32") -> dict:
               + "; ".join(f"{k} {['%.4f' % t for t in row[k]['fwd_ms']]} ms "
                           f"(max abs {row[k]['fwd_max_abs']:.2e})" for k in runs)
               + f"; plain forward {row['plain_fwd_ms']:.4f} ms; bound "
-              f"{row['bound_fwd_ms']:.4f} ms", flush=True)
+              f"{row['bound_fwd_ms']:.4f} ms, encode floor {row['encode_floor_ms']:.4f} ms",
+              flush=True)
         print(f"[k2] {shape['name']} O={o} N={n} h={h} ({row['kernels'][bwd_name]}): "
               + "; ".join(f"{k} {['%.4f' % t for t in row[k]['ms']]} ms (tile {row[k]['tile']}, "
                           f"worst leaf rel {row[k]['worst_leaf_rel']:.2e} at {row[k]['worst_leaf']}, "
@@ -296,7 +302,57 @@ def run(against: Path | None, compute_dtype: str = "f32") -> dict:
               + f"; plain backward {row['plain_ms']:.4f} ms (vs f64 {row['plain_vs_f64']:.2e}); "
               f"bound {row['bound_ms']:.4f} ms", flush=True)
         del params, wflat, pts, cts, w_req, obj, ref, ref64, runs, outs_p
+    if bf16:
+        out["render"] = _render_k1(libs, gen, device)
     return out
+
+
+def _render_k1(libs: dict, gen, device) -> dict:
+    """K1 bf16 of each library at the render shape (phase 4b's stack of 48
+    objects x a chunk of 2048 rays x 149 samples, h=32, clip head off), in
+    turns, each held to the plain bf16 by ``bf16_output_errors``."""
+    o, n, h = RENDER["o"], RENDER["n"], RENDER["h"]
+    params = object_field.init_stacked_fields(gen, o, hidden=h, clip_size=512, scale=2.0,
+                                              device=device)
+    wflat = ff._pack_params(params, h, False).contiguous()
+    pts = (0.5 * torch.randn((o, n, 3), generator=gen, device=device)).contiguous()
+    with torch.no_grad():
+        ref = ff.fused_field_plain(wflat, pts, h, False, "bf16")[:2]
+        ref32 = ff.fused_field_plain(wflat, pts, h, False)[:2]
+    outs = {k: [torch.empty((o, n, c), device=device) for c in (1, 3)] for k in libs}
+
+    def fwd(k):
+        a, c = outs[k]
+        err = libs[k].ff_forward(pts.data_ptr(), wflat.data_ptr(), a.data_ptr(), c.data_ptr(),
+                                 None, o, n, h, 0, ff._stream(pts))
+        if err:
+            raise RuntimeError(f"ff_forward ({k}): CUDA error {err}")
+
+    # the bound as chip_smoke.py's K1 rows take it: points and weights read,
+    # alpha and colour written, products at the bf16 rate
+    npts = o * n
+    macs, mm = fwd_macs_noclip(h)
+    bound = bound_ms(2.0 * macs * npts, npts * 12 + wflat.numel() * 4 + npts * 16, 2.0 * mm * npts,
+                     "bf16")
+    row = {"o": o, "n": n, "h": h, "kernels": ff.kernel_names(h, "bf16"),
+           "bound_fwd_ms": bound[0], "encode_floor_ms": field_bounds(o, n, h, 1)["fwd_encode"][0]}
+    for k in libs:
+        fwd(k)
+        torch.cuda.synchronize()
+        errs = {name: ff.bf16_output_errors(x, r, r32, 1e-4)
+                for name, x, r, r32 in zip(("alpha", "color"), outs[k], ref, ref32)}
+        if not all(e["ok"] for e in errs.values()):
+            raise AssertionError(f"K1 bf16 ({k}) at the render shape: outside the gate {errs}")
+        row[k] = {"off": {name: e["off"] for name, e in errs.items()},
+                  "max_abs": max(e["max_abs"] for e in errs.values()), "fwd_ms": []}
+    for k in (["this", "other", "other", "this"] if "other" in libs else ["this", "this"]):
+        row[k]["fwd_ms"].append(_time(lambda: fwd(k)))
+    print(f"[k1] render O={o} N={n} h={h} clip off ({row['kernels']['fused_field_fwd_bf16']}): "
+          + "; ".join(f"{k} {['%.4f' % t for t in row[k]['fwd_ms']]} ms (off {row[k]['off']})"
+                      for k in libs) + f"; bound {bound[0]:.4f} ms {bound[1]}, encode floor "
+          f"{row['encode_floor_ms']:.4f} ms", flush=True)
+    del params, wflat, pts, ref, ref32, outs
+    return row
 
 
 def main(argv=None) -> int:

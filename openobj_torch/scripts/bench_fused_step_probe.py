@@ -41,6 +41,8 @@ import sys
 
 import torch
 
+from openobj_torch.scripts._benchlib import SINF_OPS
+
 # room_0 per-step ensemble shape: O objects x (120 rays x 10 pts) x 87-d
 # embedding into h=32, the biggest GEMM of the step
 O_TILE = 16
@@ -50,12 +52,6 @@ H = 32
 STEPS = 100
 
 CHAIN_RTOL = 1e-4     # max|d| / max|ref|: five layers amplify rounding and relu kinks
-# operations charged per sinf in the chain's bound: the 24 SASS instructions
-# of sinf's path for |x| < 105615 on sm_90a (8 to the range check's branch,
-# 16 after it, not counting the convergence barrier's two; the SASS that
-# ``step_chain_parts`` writes), each one issue slot of the 67 TFLOP/s of FMAs
-# (2 FLOP)
-SINF_OPS = 2 * 24
 GEMM_RTOL = 1e-5      # max|d| / max|ref|: FP32 sums over 87-512 products in another order
 
 SCRIPT = "scripts/bench_fused_step_probe.py"

@@ -1,26 +1,32 @@
-"""Where K1, the fused-field forward, or K2 bf16 (``ff_bwd_bf16_kernel``)
-spends its block cycles: the share of each barrier-to-barrier phase, at the
-main path's two shapes, on one card.
+"""Where K1, the fused-field forward, K1 bf16 (``ff_fwd_bf16_kernel``) or
+K2 bf16 (``ff_bwd_bf16_kernel``) spends its block cycles: the share of each
+barrier-to-barrier phase, at the main path's two shapes, on one card.
 
     python -m openobj_torch.scripts.k1_phases --per-chunk 7
     python -m openobj_torch.scripts.k1_phases --per-chunk 15 \\
         --source chip_proof/parent/openobj_torch/csrc/fused_field.cu
+    python -m openobj_torch.scripts.k1_phases --k1-bf16
     python -m openobj_torch.scripts.k1_phases --k2-bf16
+    python -m openobj_torch.scripts.k1_phases --per-chunk 7 --stamp fused_field.cu \\
+        --source chip_proof/parent/openobj_torch/csrc/fused_field_bf16.cu
 
 It builds a copy of the source (this checkout's ``csrc/fused_field.cu`` by
 default, or another with the same entry points, e.g. an older commit's from
-a ``git archive``; with ``--k2-bf16``, ``csrc/fused_field_bf16.cu``), beside
-copies of the files it includes, in which every ``__syncthreads()`` of the
-stamped file (the source; with ``--k2-bf16``, ``fused_field_bwd_bf16.cuh``,
-so that its weight ring's barriers count and K1's do not) also has thread 0
-of the block add the ``clock64()`` cycles since its previous barrier to a
-counter of that barrier's place within the block's chunk of points. It
-runs the kernel once at fg (64 objects x 1200 points, h=32) and bg (1 x
-16800, h=128), clip head on, inputs from a seed: K1 through ``ff_forward``
-with ``--per-chunk`` barriers a chunk (K1's in that source); K2 bf16 through
-``ff_backward``, whose barriers are named (``span_names``), and sums them by
-stage (the recompute, the colour head, each backward layer, the PE
-backward). It prints each phase's share of the summed cycles; what comes
+a ``git archive``; with ``--k1-bf16`` or ``--k2-bf16``,
+``csrc/fused_field_bf16.cu``), beside copies of the files it includes, in
+which every ``__syncthreads()`` of the stamped file (the source, or the one
+``--stamp`` names; with ``--k1-bf16``, ``fused_field_fwd_bf16.cuh``; with
+``--k2-bf16``, ``fused_field_bwd_bf16.cuh``, so that only that kernel's
+barriers, its weight ring's too, count) also has thread 0 of the block add
+the ``clock64()`` cycles since its previous barrier to a counter of that
+barrier's place within the block's chunk of points. It runs the kernel
+once at fg (64 objects x 1200 points, h=32) and bg (1 x 16800, h=128), clip
+head on, inputs from a seed: K1 through ``ff_forward`` with ``--per-chunk``
+barriers a chunk (K1's in that source: 7 in f32, and in the bf16 library
+before K1 bf16 had a kernel of its own, with ``--stamp fused_field.cu``);
+K1 bf16 through ``ff_forward``, K2 bf16 through ``ff_backward``, each with
+its barriers named (``k1_bf16_span_names``, ``span_names``) and summed by
+stage. It prints each phase's share of the summed cycles; what comes
 before a block's first barrier and after its last is not counted. Stamps
 cost time of their own, so read the shares, not the stamped kernel's time.
 The copy is written under ``build/kernels/`` and never loaded by the
@@ -44,7 +50,9 @@ from openobj_torch.ops import fused_field as ff
 SHAPES = (dict(name="fg", o=64, n=1200, h=32), dict(name="bg", o=1, n=16800, h=128))
 MAX_PHASES = 256
 SLAB_ROWS = 32      # csrc/fused_field_bwd_bf16.cuh's SLAB_ROWS
+FW_SLAB = 64        # csrc/fused_field_fwd_bf16.cuh's FW_SLAB
 K2_BF16_STAMPED = "fused_field_bwd_bf16.cuh"
+K1_BF16_STAMPED = "fused_field_fwd_bf16.cuh"
 
 STAMPS = r"""
 #include <cuda_runtime.h>
@@ -93,7 +101,7 @@ def stamped_source(src: Path, stamp: str | None = None) -> Path:
     files = kernels.included(src)
     if stamp not in [f.name for f in files]:
         raise ValueError(f"{src.name} does not include {stamp}")
-    out = kernels.BUILD_DIR / f"phases_{src.stem}"
+    out = kernels.BUILD_DIR / f"phases_{src.stem}_{Path(stamp).stem}"
     out.mkdir(parents=True, exist_ok=True)
     for f in files:
         text = f.read_text()
@@ -129,14 +137,34 @@ def span_names(h: int, ring: bool, do_clip: bool = True) -> list[str]:
     return names + ["g: d_proj", "g: d_dirs"]
 
 
+def k1_bf16_span_names(h: int, ring: bool, do_clip: bool = True) -> list[str]:
+    """K1 bf16's work that ends at each barrier of one chunk, in the
+    kernel's order: the encode (after the previous chunk's alpha, colour and
+    hclip stores, which have no barrier of their own), then each layer, the
+    two heads ending at one barrier. Through the weight ring a barrier
+    follows each slab's rounding into bf16 instead, so each span holds the
+    slab before's products (its layer's epilogue after the last) and that
+    rounding; it is named after the rounded slab's layer."""
+    names = ["out + encode"]
+    if not ring:
+        return names + ["h1", "h2", "hc", "h3", "heads"]
+    layers = [("h1", (96,)), ("h2", (h,)), ("hc", (h, 96)), ("h3", (h,)), ("hcol", (h, 48))]
+    for layer, rows in layers + ([("hclip", (h, 48))] if do_clip else []):
+        names += [f"{layer}: slab"] * sum(-(-r // FW_SLAB) for r in rows)
+    return names + ["heads"]
+
+
 def _stage(span: str) -> str:
     return span.split(":")[0].split(" h")[0] if span.startswith("recompute") else span.split(":")[0]
 
 
-def shares(src: Path, per_chunk: int | None = None, k2_bf16: bool = False) -> dict:
-    """Each shape's phase shares of K1 (``per_chunk`` barriers a chunk) or,
-    with ``k2_bf16``, of K2 bf16, named."""
-    path = stamped_source(src, K2_BF16_STAMPED if k2_bf16 else None)
+def shares(src: Path, per_chunk: int | None = None, k2_bf16: bool = False,
+           k1_bf16: bool = False, stamp: str | None = None) -> dict:
+    """Each shape's phase shares of K1 (``per_chunk`` barriers a chunk, in
+    the file ``stamp`` of the source's, the source by default) or, with
+    ``k1_bf16`` or ``k2_bf16``, of K1 bf16 or K2 bf16, named."""
+    stamp = K2_BF16_STAMPED if k2_bf16 else K1_BF16_STAMPED if k1_bf16 else stamp
+    path = stamped_source(src, stamp)
     kernels.build([path])
     lib = ff._lib(path)
     lib.ff_phase_read.argtypes = [ctypes.c_void_p]
@@ -167,6 +195,11 @@ def shares(src: Path, per_chunk: int | None = None, k2_bf16: bool = False) -> di
             per = per_chunk
             args = [*[x.data_ptr() for x in outs], o, n, h, 1, stream]
             entry = lib.ff_forward
+            if k1_bf16:
+                launch = ff.fwd_launch(lib, o, n, h)
+                ring = launch["ring"]
+                names = k1_bf16_span_names(h, ring)
+                per = len(names)
         if not 0 < per <= MAX_PHASES:
             raise ValueError(f"{per} barriers a chunk: 1 to {MAX_PHASES}")
         if lib.ff_phase_reset(per):
@@ -180,6 +213,19 @@ def shares(src: Path, per_chunk: int | None = None, k2_bf16: bool = False) -> di
             raise RuntimeError("ff_phase_read failed")
         cycles = list(buf_c)[:per]
         total = sum(cycles)
+        if k1_bf16:   # one barrier before the first chunk: phase i ends at a chunk's barrier i
+            spans: dict[str, int] = {}
+            for i, c in enumerate(cycles):
+                spans[names[i].split(":")[0]] = spans.get(names[i].split(":")[0], 0) + c
+            out[shape["name"]] = {"o": o, "n": n, "h": h, **launch,
+                                  "barriers_per_chunk": per, "total_cycles": total,
+                                  "by_barrier": [[names[i], c] for i, c in enumerate(cycles)],
+                                  "share": {k: v / total for k, v in spans.items()}}
+            print(f"[k1 bf16 spans] {shape['name']} O={o} N={n} h={h} tile {launch['tile']} "
+                  f"({launch['blocks_per_sm']} blocks an SM, {'ring' if ring else 'on chip'}, "
+                  f"{per} barriers a chunk): "
+                  + ", ".join(f"{k} {100 * v / total:.1f}%" for k, v in spans.items()), flush=True)
+            continue
         if not k2_bf16:
             out[shape["name"]] = {"shares": [round(c / total, 3) for c in cycles],
                                   "cycles": total}
@@ -209,21 +255,28 @@ def shares(src: Path, per_chunk: int | None = None, k2_bf16: bool = False) -> di
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--source", type=Path, default=None,
-                    help="the fused_field.cu (with --k2-bf16: fused_field_bf16.cu) to stamp")
+                    help="the fused_field.cu (with --k1-bf16 or --k2-bf16: fused_field_bf16.cu) "
+                         "to build")
+    ap.add_argument("--stamp", default=None,
+                    help="with --per-chunk: the file of the source's that K1's barriers are in")
     ap.add_argument("--per-chunk", type=int, default=None,
                     help="barriers per chunk of points in that source's K1")
+    ap.add_argument("--k1-bf16", action="store_true",
+                    help="stamp K1 bf16 (fused_field_fwd_bf16.cuh) and run ff_forward")
     ap.add_argument("--k2-bf16", action="store_true",
                     help="stamp K2 bf16 (fused_field_bwd_bf16.cuh) and run ff_backward")
     args = ap.parse_args(argv)
-    if (args.per_chunk is None) != args.k2_bf16:
-        ap.error("give --per-chunk (K1) or --k2-bf16")
+    if (args.per_chunk is not None) + args.k1_bf16 + args.k2_bf16 != 1:
+        ap.error("give one of --per-chunk (K1), --k1-bf16 or --k2-bf16")
+    if args.stamp and args.per_chunk is None:
+        ap.error("--stamp goes with --per-chunk")
     if not torch.cuda.is_available():
         print("k1_phases: no CUDA device", file=sys.stderr)
         return 2
-    src = args.source or kernels.CSRC / ("fused_field_bf16.cu" if args.k2_bf16
-                                         else "fused_field.cu")
-    res = shares(src.resolve(), args.per_chunk, args.k2_bf16)
-    key = "k2_bf16_spans" if args.k2_bf16 else "phases"
+    bf16 = args.k1_bf16 or args.k2_bf16
+    src = args.source or kernels.CSRC / ("fused_field_bf16.cu" if bf16 else "fused_field.cu")
+    res = shares(src.resolve(), args.per_chunk, args.k2_bf16, args.k1_bf16, args.stamp)
+    key = "k2_bf16_spans" if args.k2_bf16 else "k1_bf16_spans" if args.k1_bf16 else "phases"
     print(json.dumps({"device": torch.cuda.get_device_name(0), key: res}), flush=True)
     return 0
 

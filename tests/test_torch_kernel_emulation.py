@@ -114,7 +114,9 @@ struct float4 { float x, y, z, w; };
 struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
 struct int2 { int x, y; };
+struct int4 { int x, y, z, w; };
 inline int2 make_int2(int a, int b) { return {a, b}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct uint3 { unsigned x, y, z; };
@@ -476,6 +478,8 @@ def _fused_field_emu(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ff_param_count.restype = ctypes.c_int
     lib.ff_bwd_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ff_bwd_scratch.restype = ctypes.c_int
+    lib.ff_fwd_launch.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.ff_fwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -630,11 +634,21 @@ def _bf16_grads(w, pts, cts, h, do_clip):
 # plain bf16 and f32 gradients where bf16 moves the leaf at all (it does
 # not move b_alpha)
 @pytest.mark.parametrize("o,n,h,do_clip", [
-    # one block per object walks a chunk, then 6 points
+    # on one emulated SM, K1 bf16 (ff_fwd_bf16_kernel) tiles by its resident
+    # blocks: at h = 16 to 48 the image in shared memory, 64-point chunks,
+    # two blocks an SM (four at 16 by the stub's count), so a block walks
+    # both chunks (64, then 6) of an object where there are two objects, and
+    # each is a block of its own where there is one; from 64 the ring, one
+    # ragged chunk of 128
     *((2 if h <= 32 else 1, 70, h, True) for h in EMU_TC_WIDTHS),
     (1, 37, 32, False),          # clip head off, one ragged chunk
     (1, 37, 96, False),
     (2, 40, 24, True),           # the SIMT kernel
+    # the ring at h = 128, one block an SM: a tile of two chunks, 128, then 72
+    (1, 200, 128, True),
+    (2, 100, 64, False),         # the ring with the clip head off, a ragged chunk an object
+    # the tile rule puts two blocks on the one emulated SM: 3 chunks, then 2 (64 + 44)
+    (1, 300, 32, True),
 ])
 def test_emulated_k1_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip):
     lib = emu_lib_bf16
@@ -643,11 +657,15 @@ def test_emulated_k1_bf16_matches_plain(emu_lib_bf16, o, n, h, do_clip):
     ref32 = tff.fused_field_plain(w, pts, h, do_clip)
     outs = [np.full((o, n, k), np.nan, np.float32) for k in (1, 3, h)]
     wn, pn = (np.ascontiguousarray(x.numpy()) for x in (w, pts))
-    lib.emu_set_sm_count(1)      # one block per object walks both chunks
+    lib.emu_set_sm_count(1)
+    plan = tff.fwd_launch(lib, o, n, h)
     err = lib.ff_forward(_ptr(pn), _ptr(wn), _ptr(outs[0]), _ptr(outs[1]),
                          _ptr(outs[2]) if do_clip else None, o, n, h, int(do_clip), None)
     lib.emu_set_sm_count(132)
     assert err == 0
+    if (o, n, h) in ((1, 200, 128), (2, 100, 64), (1, 300, 32)):   # the cases' launches
+        assert (plan["tile"], plan["blocks"]) == {128: (256, 1), 64: (128, 2), 32: (192, 2)}[h]
+        assert (plan["blocks_per_sm"], plan["ring"]) == ((2, False) if h == 32 else (1, True))
     for got, want, want32 in zip(outs, ref, ref32):
         if want is None:
             assert np.isnan(got).all()
@@ -825,7 +843,14 @@ def test_emulated_tc_width_table_bf16(emu_lib, emu_lib_bf16, h, chunk, max_tile,
     """The bf16 library's table: K2 bf16's chunk and largest tile at the
     tensor-core widths, and the scratch its weight images take after the
     slots (O x (5h + 272) x (h + 8) bf16, and 16 bytes of alignment); the
-    SIMT kernel's elsewhere."""
+    SIMT kernel's elsewhere. And K1's launch (ff_fwd_launch) for 3 x 1000
+    points on 4 emulated SMs: K1 bf16 with its image on chip (h = 16 to 48)
+    sized for at least two resident blocks an SM of 256 threads (the stub's
+    occupancy counts threads and shared memory), tiles of 64-point chunks,
+    and 16 points of fixed cost a block for the image's conversion; through
+    its ring (64 to 128) one block of 512 threads, 128-point chunks; tiles
+    by fwd_tile over every resident block. The f32 K1 one block an SM; the
+    SIMT kernel a chunk a block."""
     lib = emu_lib_bf16
     assert lib.ff_tc_width(h) == (h in EMU_TC_WIDTHS)
     assert lib.ff_bwd_chunk(h) == chunk
@@ -834,6 +859,51 @@ def test_emulated_tc_width_table_bf16(emu_lib, emu_lib_bf16, h, chunk, max_tile,
     assert lib.ff_bwd_scratch(3, h) == want
     assert emu_lib.ff_bwd_scratch(3, h) == 0
 
+    def rule(o, n, slots, start, chunk):   # fused_field.cu's fwd_tile
+        best = None
+        for k in range(1, -(-n // chunk) + 1):
+            blocks = o * -(-n // (chunk * k))
+            cost = (-(-blocks // slots) * (chunk * k + start), blocks)
+            best = best if best is not None and best[0] <= cost else (cost, chunk * k)
+        return best[1]
+
+    for lb, cd in ((lib, "bf16"), (emu_lib, "f32")):
+        lb.emu_set_sm_count(4)
+        plan = tff.fwd_launch(lb, 3, 1000, h)
+        lb.emu_set_sm_count(132)
+        if not images:   # the SIMT kernel: a chunk a block
+            tp = 64 if h <= 64 else 32
+            assert (plan["tile"], plan["blocks"]) == (tp, 3 * -(-1000 // tp)), (cd, plan)
+            continue
+        per, ring = plan["blocks_per_sm"], plan["ring"]
+        assert ring == (cd == "bf16" and h >= 64), (cd, plan)
+        assert plan["chunk"] == (128 if ring else 64), (cd, plan)
+        threads = 4 * plan["chunk"]
+        assert per == (min(2048 // threads, 232448 // plan["smem"]) if cd == "bf16" else 1)
+        assert per >= (2 if cd == "bf16" and not ring else 1), plan
+        start = 16 if cd == "bf16" and not ring else 0
+        assert plan["tile"] == rule(3, 1000, 4 * per, start, plan["chunk"]), (cd, plan)
+        assert plan["blocks"] == 3 * -(-1000 // plan["tile"]), (cd, plan)
+
+
+
+def test_bf16_source_compiles_at_every_tensor_core_width(tmp_path):
+    """csrc/fused_field_bf16.cu through the host compiler's semantic checks
+    with every width the card builds (FF_TC_WIDTHS as the source has it:
+    16 to 128), so that a static_assert of a width the emulation does not
+    build (80, 112) fails here rather than in nvcc on the card."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to check the CUDA source")
+    src = (CSRC / "fused_field.cu").read_text()
+    widths = re.search(r"#define FF_TC_WIDTHS\(X\) (.*)", src).group(1)
+    assert widths.split() == [f"X({h})" for h in range(16, 129, 16)]
+    (tmp_path / "emu.cpp").write_text(_host_source("fused_field_bf16"))
+    (tmp_path / "stub.h").write_text(STUB)
+    proc = subprocess.run([cxx, "-std=c++20", "-fsyntax-only", "-pthread", "-Wno-unknown-pragmas",
+                           "-include", str(tmp_path / "stub.h"), str(tmp_path / "emu.cpp")],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 # One warp through the stub's ldmatrix and bf16 mma.sync: C = A B from
@@ -918,6 +988,69 @@ def test_stub_ldmatrix_and_bf16_mma_match_numpy(tmp_path):
     g, t = lane >> 2, lane & 3
     assert np.array_equal(regs[:32], ab[g, 2 * t] | (ab[g, 2 * t + 1] << 16))
     assert np.array_equal(regs[32:], ab[2 * t, g] | (ab[2 * t + 1, g] << 16))
+
+# One block through the stub's bulk copy and mbarrier as K1 bf16's weight
+# ring uses them: a slab's rows from the 16-byte boundary at or below them,
+# into one of two stages, each stage's mbarrier reused (its phase parity
+# alternating), the rows read back past the skipped floats.
+STUB_BULK = r"""
+extern "C" int stub_bulk(const float* src, int n, const int* starts, int k, float* out) {
+  emu_launch(dim3(1), 32, 4 * 2 * (n + 4) + 16, nullptr, [&] {
+    float* stage = emu_smem();
+    uint64_t* bar = reinterpret_cast<uint64_t*>(stage + 2 * (n + 4));
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      mbar_init(bar + 1, 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    for (int j = 0; j < k; ++j) {
+      const float* p = src + starts[j];
+      const float* a = reinterpret_cast<const float*>(reinterpret_cast<uintptr_t>(p) & ~(uintptr_t)15);
+      const int skip = (int)(p - a);
+      const unsigned bytes = (unsigned)(4 * (skip + n) + 15) & ~15u;
+      if (threadIdx.x == 0) {
+        fence_proxy_async();
+        mbar_arrive_expect_tx(bar + (j & 1), bytes);
+        bulk_copy_g2s(stage + (j & 1) * (n + 4), a, bytes, bar + (j & 1));
+      }
+      mbar_wait(bar + (j & 1), (j >> 1) & 1);
+      for (int i = threadIdx.x; i < n; i += 32) out[j * n + i] = stage[(j & 1) * (n + 4) + skip + i];
+      __syncthreads();
+    }
+  });
+  return 0;
+}
+"""
+
+
+def test_stub_bulk_copy_and_mbarrier_match_numpy(tmp_path):
+    """The stub's bulk copy (cp.async.bulk on an mbarrier) and mbarrier
+    phases as K1 bf16's ring uses them: rows copied from the 16-byte boundary
+    at or below them, at every misalignment of 0 to 3 floats, into two
+    stages whose mbarriers are each waited on at parity 0, 1, 0: every row
+    read back past its skipped floats equals numpy's slice of the source."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to build the stub")
+    (tmp_path / "stub.h").write_text(STUB)
+    (tmp_path / "check.cpp").write_text(STUB_BULK)
+    so = tmp_path / "libbulk.so"
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-include",
+                    str(tmp_path / "stub.h"), "-o", str(so), str(tmp_path / "check.cpp")],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.stub_bulk.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p]
+    src = np.random.default_rng(7).standard_normal(4096).astype(np.float32)
+    assert src.ctypes.data % 16 == 0
+    n = 96
+    starts = np.array([63, 300, 1001, 2046, 4, 513], np.int32)   # 3, 0, 1, 2, 0, 1 floats past
+    out = np.full(len(starts) * n, np.nan, np.float32)
+    lib.stub_bulk(_ptr(src), n, _ptr(starts), len(starts), _ptr(out))
+    want = np.concatenate([src[s:s + n] for s in starts])
+    assert np.array_equal(out, want)
+
 
 @pytest.fixture(scope="module")
 def emu_probes(tmp_path_factory):
@@ -1244,6 +1377,48 @@ def test_k2_bf16_phases_names_every_barrier(tmp_path, monkeypatch):
         ring = lib.ff_bwd_max_tile(h) < (1 << 30)
         assert ring == (h == 128)
         assert lib.emu_bars() == chunks * len(kp.span_names(h, ring, do_clip))
+
+
+def test_k1_bf16_phases_names_every_barrier(tmp_path, monkeypatch):
+    """openobj_torch.scripts.k1_phases in its K1 bf16 mode stamps every
+    barrier of K1 bf16 (its weight ring's too) and none of fused_field.cu's
+    or K2 bf16's, and its span names are the barriers a block passes, in
+    number, after the one before its first chunk: the stamped copy,
+    emulated with a stamp that counts block (0, 0)'s barriers, at h=128
+    (the ring, the clip head on and off, tiles of one and two 128-point
+    chunks) and h=32 (the image on chip, a tile of three chunks)."""
+    from openobj_torch import kernels
+    from openobj_torch.scripts import k1_phases as kp
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    src = kp.stamped_source(CSRC / "fused_field_bf16.cu", kp.K1_BF16_STAMPED)
+    hdr = (src.parent / kp.K1_BF16_STAMPED).read_text()
+    assert "__syncthreads();" not in hdr
+    assert hdr.count("stamped_syncthreads();") == (
+        CSRC / kp.K1_BF16_STAMPED).read_text().count("__syncthreads();")
+    for other in ("fused_field.cu", kp.K2_BF16_STAMPED):
+        assert (src.parent / other).read_text() == (CSRC / other).read_text()
+    counting = ("#include <atomic>\ninline std::atomic<int> g_bars{0};\n"
+                "inline void stamped_syncthreads() {\n  __syncthreads();\n"
+                "  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) ++g_bars;\n}\n"
+                'extern "C" int emu_bars() { int n = g_bars; g_bars = 0; return n; }\n')
+    src.write_text(counting + (kernels.CSRC / "fused_field_bf16.cu").read_text())
+    lib = _emulated_bf16_copy(src, tmp_path)
+    lib.emu_set_sm_count(1)
+    for o, n, h, do_clip in ((1, 64, 128, True), (1, 64, 128, False), (1, 200, 128, True),
+                             (1, 300, 32, True)):
+        w, pts = _field(np.random.default_rng(0), o, n, h, do_clip)
+        outs = [np.zeros((o, n, k), np.float32) for k in (1, 3, h)]
+        plan = tff.fwd_launch(lib, o, n, h)
+        err = lib.ff_forward(_ptr(pts.numpy()), _ptr(w.numpy()), *(_ptr(x) for x in outs),
+                             o, n, h, int(do_clip), None)
+        assert err == 0
+        assert plan["ring"] == (h == 128)
+        chunks = -(-min(plan["tile"], n) // plan["chunk"])
+        assert chunks == (2 if n == 200 else 3 if n == 300 else 1)
+        names = kp.k1_bf16_span_names(h, plan["ring"], do_clip)
+        assert lib.emu_bars() == 1 + chunks * len(names)   # and one before the first chunk
+    lib.emu_set_sm_count(132)
 
 
 def test_sass_diff_compares_kernels_by_instruction():

@@ -128,6 +128,8 @@ def bf16_limit(dist: float, cap: float) -> float:
     (1, 1000, 128, True),    # the bg width, weights through the ring
     (1, 100, 128, False),
     (1, 16800, 128, True),   # bg: 263 one-chunk tiles, the last 32 points
+    (64, 1200, 32, True),    # fg
+    (4, 305152, 32, False),  # the render chunk's shape, clip head off
     (2, 700, 16, True),
     (1, 1000, 48, True),
     (1, 1792, 64, True),
@@ -143,9 +145,10 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, o, n, h, do_clip):
     off by more than FWD_ATOL, none further off than the plain bf16 is from
     the plain f32, all finite, and plain f32 in K1's place would fail), each
     gradient leaf within a tenth of its bf16-vs-f32 distance in max abs (at
-    most the f32 gate, ``bf16_limit``). K2 is ff_bwd_bf16_kernel at the
-    tensor-core widths (behind its weight conversion), the SIMT kernel at
-    24; the worst leaf is printed."""
+    most the f32 gate, ``bf16_limit``). K1 is ff_fwd_bf16_kernel and K2
+    ff_bwd_bf16_kernel at the tensor-core widths (K2 behind its weight
+    conversion), the SIMT kernels at 24; the kernels, K1's launch and the
+    worst leaf are printed."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     w = tff._pack_params(_params(gen, o, h, cuda_device), h, do_clip).contiguous()
     pts = 0.5 * torch.randn((o, n, 3), generator=gen, device=cuda_device)
@@ -169,7 +172,8 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, o, n, h, do_clip):
     shown = "; ".join(f"{k} off {e['off']:.2e} (f32 {e['control_off']:.2e}) max abs "
                       f"{e['max_abs']:.2e} (bf16-vs-f32 {e['bf16_max']:.2e})"
                       for k, e in fwd.items())
-    print(f"[bf16] {o}x{n} h={h} clip={do_clip} ({tff.kernel_names(h, 'bf16')}): fwd {shown}; "
+    print(f"[bf16] {o}x{n} h={h} clip={do_clip} ({tff.kernel_names(h, 'bf16')}; K1 launch "
+          f"{tff.fwd_launch(tff._lib('fused_field_bf16'), o, n, h)}): fwd {shown}; "
           f"worst leaf {worst} {dev[worst]:.2e} (bf16-vs-f32 {dist[worst]:.2e}, limit "
           f"{bf16_limit(dist[worst], GRAD_RTOL):.2e})")
     assert (outs_k[2] is None) == (not do_clip)
@@ -180,6 +184,26 @@ def test_cuda_bf16_kernels_match_plain(cuda_device, o, n, h, do_clip):
             assert d == 0.0, name
             continue
         assert d <= bf16_limit(dist[name], GRAD_RTOL), (name, d, dist[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,n,h", [(64, 1200, 32), (1, 16800, 128), (48, 305152, 32),
+                                   (2, 700, 16), (1, 1000, 48), (1, 1792, 64), (1, 800, 80),
+                                   (1, 2000, 96), (1, 500, 112)])
+def test_cuda_k1_bf16_launch(cuda_device, o, n, h):
+    """K1 bf16's launch on the card (ff_fwd_launch): with the image on chip
+    (h = 16 to 48) at least two blocks resident an SM (its shared memory and
+    registers are sized for two) and 64-point chunks; through the ring (64
+    to 128) one block of 512 threads and 128-point chunks; tiles of whole
+    chunks, as many blocks as the tile implies."""
+    plan = tff.fwd_launch(tff._lib("fused_field_bf16"), o, n, h)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    print(f"[bf16 K1 launch] {o}x{n} h={h}: {plan} on {n_sm} SMs")
+    assert plan["ring"] == (h >= 64)
+    assert plan["blocks_per_sm"] >= (1 if plan["ring"] else 2)
+    assert plan["chunk"] == (128 if plan["ring"] else 64)
+    assert plan["tile"] % plan["chunk"] == 0 and plan["blocks"] == o * -(-n // plan["tile"])
+    assert plan["smem"] <= 232448
 
 
 @pytest.mark.cuda
