@@ -47,6 +47,19 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      the plain version in bf16 (on the boxes phase 4b fitted); one frame
      each with z_per_step and sample_per_step through the kernels (finite
      losses, launch counts);
+  4i. room_0 sharded: from phase 4's mapper (its state, tables and frame
+     store) one frame trained unsharded and one through
+     parallel.sharding.shard_scene and train_frame inside use_mesh, on a
+     mesh of the one card ("object" of size 1; NCCL as a group of one), the
+     same start state and generator seed, counts reset around the sharded
+     frame: K1/K2/K2r 200 times at the room_0 shapes and nothing plain or
+     eager, losses equal to the unsharded frame's bit for bit (on a mesh of
+     one; within SHARDED_RTOL on more ranks); then one more frame of each,
+     in the order sharded, unsharded, for ms per frame; then
+     save_scene_sharded (a DCP directory) and load_scene_sharded into a
+     fresh mapper sharded on the same mesh: every leaf bit-identical, the
+     registry equal; prints ms per sharded frame, the largest relative loss
+     difference, the snapshot's seconds and bytes;
   4c. the port of examples/run_synthetic_scene.py on a scene with ground
      truth, with the counts reset before and read after: stage 1, the
      association (perception.pipeline.associate, its similarity matrices
@@ -186,6 +199,10 @@ GRAD_RTOL = 1e-3
 BF16_RATIO = 0.1
 # card-vs-CPU step losses at bf16 (the f32 gate is 1e-4)
 STEP_RTOL_BF16 = 1e-3
+# phase 4i: the sharded frame's losses against the unsharded frame's on a
+# mesh of more than one rank (the CPU tests' tolerance for 2 and 4 ranks,
+# tests/test_torch_sharding.py); on a mesh of one they are equal
+SHARDED_RTOL = 2e-5
 # phase 4b meshes this many objects (and keeps its one-mesh breakdown)
 MESH_OBJECTS = 4
 # phase 4b: K1's render against the plain field on the card (one chunk of
@@ -1221,6 +1238,162 @@ def run_room0_bf16(device, frames, f32_vecs, f32_mapper) -> dict:
     log(f"[room_0 bf16] phase 4h took {time.perf_counter() - t_all:.1f} s")
     return {"by_shape": by_shape, "by_shape_options": options, "ms_per_frame": ms,
             "vecs": vecs, "steps": pairs, "render_chunk": chunk, "k1_rows": k1_rows}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4i: room_0 sharded
+# --------------------------------------------------------------------------- #
+
+
+def _clone_state(st):
+    from openobj_torch.core import optim, trainer
+    from openobj_torch.models.object_field import tree_map
+
+    def clone(tree):
+        return tree_map(lambda x: x.clone(), tree)
+
+    def opt(o):
+        return optim.AdamWState(clone(o.mu), clone(o.nu), o.count.clone())
+
+    return trainer.TrainState(clone(st.fg_params), opt(st.fg_opt), clone(st.bg_params),
+                              opt(st.bg_opt))
+
+
+def run_room0_sharded(device, cfg, mapper) -> dict:
+    """Phase 4i: one frame of phase 4's mapper (its state, tables and
+    store) trained unsharded and one through shard_scene and the sharded
+    train_frame on a mesh of the one card (NCCL as a group of one), from
+    the same start state and seed, counts reset around the sharded frame,
+    and one more frame of each (sharded, then unsharded) for the times;
+    then the sharded snapshot saved and loaded into a fresh mapper, every
+    leaf bit-identical. Leaves ``mapper`` with the sharded frame's state."""
+    import torch
+    import torch.distributed as dist
+    from openobj_torch.config import make_mapper
+    from openobj_torch.core import checkpoint, trainer
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.parallel import distributed, sharding
+
+    t_all = time.perf_counter()
+    tc = cfg.train
+    start = _clone_state(mapper.state)
+    fg_tables, bg_tables = mapper._fg_tables_device(), mapper._bg_tables_device()
+    store, dirs = mapper.store, mapper.cam_dirs
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(11)
+
+    def unsharded():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = trainer.train_frame(_clone_state(start), store, dirs, fg_tables,
+                                        bg_tables, gen(), tc)
+        losses = losses.cpu().numpy()
+        return losses, 1e3 * (time.perf_counter() - t0)
+
+    single, single_ms = unsharded()
+    snap = tempfile.mkdtemp(prefix="room0_sharded_", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0,
+                           device="cuda")
+    try:
+        mesh = sharding.make_mesh()
+        distributed.barrier("room_0 sharded")   # NCCL makes its communicator here
+        init_s = time.perf_counter() - t0
+        if (mesh.device_type, mesh.mesh_dim_names, tuple(mesh.shape)) != ("cuda", ("object",),
+                                                                          (1,)) \
+                or dist.get_backend() != "nccl":
+            raise AssertionError(f"[room_0 sharded] mesh {mesh}, backend {dist.get_backend()}")
+
+        def sharded_frame():
+            s_state, s_tables, s_store = sharding.shard_scene(mesh, start, fg_tables, store)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sharding.use_mesh(mesh):
+                new, losses = trainer.train_frame(s_state, s_store, dirs, s_tables,
+                                                  bg_tables, gen(), tc)
+            losses = losses.cpu().numpy()
+            return new, losses, 1e3 * (time.perf_counter() - t0)
+
+        ff.reset_counts()
+        new_state, sharded, frame_ms = sharded_frame()
+        counts, by_shape = dict(ff.COUNTS), dict(ff.COUNTS_BY_SHAPE)
+        steps = tc.n_iters_per_frame
+        want = {(k, s["o"], s["n"], s["h"]): steps for s in (FG, BG)
+                for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce")}
+        if by_shape != want or counts["fused_field_plain"] or counts["field_eager"]:
+            raise AssertionError(f"[room_0 sharded] launches {by_shape} (counts {counts}), "
+                                 f"expected {want} and nothing plain or eager")
+        if sharded.shape != single.shape or not np.isfinite(sharded).all():
+            raise AssertionError(f"[room_0 sharded] losses {sharded}")
+        rel = float(np.max(np.abs(sharded - single) / np.abs(single)))
+        # on a mesh of one every op is the unsharded path's
+        limit = 0.0 if mesh.size() == 1 else SHARDED_RTOL
+        if not (np.array_equal(sharded, single) if limit == 0.0 else rel <= limit):
+            raise AssertionError(f"[room_0 sharded] losses {rel:.3e} apart (limit "
+                                 f"{limit}): {sharded} vs {single}")
+        # a second frame of each, in the other order (unsharded, sharded,
+        # sharded, unsharded), so that neither is timed only first
+        frame_ms = [frame_ms, sharded_frame()[2]]
+        single_ms = [single_ms, unsharded()[1]]
+        log(f"[room_0 sharded] one frame on a mesh of one card ({dict(zip(mesh.mesh_dim_names, mesh.shape))},"
+            f" NCCL; group, mesh and communicator made in {init_s:.3f} s): "
+            f"{frame_ms[0]:.1f}, {frame_ms[1]:.1f} ms (unsharded, same start and seed: "
+            f"{single_ms[0]:.1f}, {single_ms[1]:.1f} ms, run in the order unsharded, sharded, "
+            f"sharded, unsharded after phase 4h); launches by shape {by_shape}; largest "
+            f"relative loss difference {rel:.3e} (limit {limit}); last losses "
+            f"{float(sharded[-1]):.6f} / {float(single[-1]):.6f}")
+
+        # ---- the sharded snapshot, saved (twice: the first save also
+        # imports DCP and plans) and loaded into a fresh mapper ----
+        mapper.state = new_state
+        save_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sharding.use_mesh(mesh):
+                checkpoint.save_scene_sharded(snap, mapper)
+            save_s.append(time.perf_counter() - t0)
+        n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(snap) for f in fs)
+        fresh = make_mapper(cfg, frame_capacity=8, device=device)
+        fresh.state, _ = sharding.shard_scene(mesh, fresh.state, {})
+        t0 = time.perf_counter()
+        with sharding.use_mesh(mesh):
+            checkpoint.load_scene_sharded(snap, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        a = dict(_named_leaves(checkpoint._device_state_tree(new_state)))
+        b = dict(_named_leaves(checkpoint._device_state_tree(fresh.state)))
+        differ = [k for k in a if k not in b or a[k].dtype != b[k].dtype
+                  or a[k].device != b[k].device or not torch.equal(a[k], b[k])]
+        if sorted(a) != sorted(b) or differ:
+            raise AssertionError(f"[room_0 sharded] restored leaves differ: {differ}")
+        reg, reg2 = mapper.registry, fresh.registry
+        if reg2.inst_to_slot != reg.inst_to_slot or not all(
+                np.array_equal(getattr(reg, t), getattr(reg2, t))
+                for t in ("kf_frames", "kf_bbox", "n_kf", "latest2", "active", "obj_inst")):
+            raise AssertionError("[room_0 sharded] restored registry differs")
+        distributed.barrier("room_0 sharded")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(snap, ignore_errors=True)
+    log(f"[room_0 sharded] save_scene_sharded {save_s[0]:.3f} s (again: {save_s[1]:.3f} s), "
+        f"{n_bytes} bytes (DCP state + "
+        f"scene_meta.npz); load_scene_sharded into a fresh mapper ({fresh.state.n_slots} slots "
+        f"after growing from 8) {load_s:.3f} s; {len(a)} leaves bit-identical, registry equal")
+    log(f"[room_0 sharded] phase 4i took {time.perf_counter() - t_all:.1f} s")
+    return {"by_shape": by_shape, "frame_ms": frame_ms, "rel": rel, "save_s": save_s,
+            "load_s": load_s, "bytes": n_bytes}
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
 
 
 # --------------------------------------------------------------------------- #
@@ -2555,6 +2728,8 @@ def main(argv=None) -> int:
                                                      profile=args.profile)
     k1_output_rows, by_shape_out = phase("4b outputs", run_outputs, device, cfg, mapper, frames)
     bf16 = phase("4h room_0 bf16", run_room0_bf16, device, frames, vecs, mapper)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    sharded = phase("4i room_0 sharded", run_room0_sharded, device, cfg, mapper)
     del mapper, frames
     torch.cuda.empty_cache()
     syn = phase("4c synthetic", run_synthetic_scene, device)
@@ -2595,7 +2770,7 @@ def main(argv=None) -> int:
              "synthetic scene": syn["by_shape"], "room_0 from disk": disk["by_shape"],
              "room_0 auto perception": auto["by_shape"],
              "room_0 export": exported["by_shape"], "scannet": scannet["by_shape"],
-             "room_0 bf16": bf16["by_shape"],
+             "room_0 bf16": bf16["by_shape"], "room_0 sharded": sharded["by_shape"],
              **{f"room_0 bf16 {k}": v for k, v in bf16["by_shape_options"].items()}}
 
     def launches_at(name, dims):

@@ -11,7 +11,13 @@ stacked params, the AdamW moments and counts, and the registry tables. Key
 names, dtypes and shapes are the JAX package's, so a file written by either
 package loads in the other.
 
-The sharded snapshot of the JAX package (orbax) is not ported here.
+The sharded snapshot (``save_scene_sharded`` / ``load_scene_sharded``) is a
+``torch.distributed.checkpoint`` (DCP) directory where the JAX package
+writes an orbax one: under ``parallel.sharding.use_mesh`` each rank writes
+its own block of the object axis, with no gather to one host, and a load
+puts each block back on its rank. Beside it, ``scene_meta.npz`` holds the
+registry tables under the JAX package's keys. ``save_scene``'s npz stays
+the format both packages read.
 """
 
 from __future__ import annotations
@@ -101,6 +107,150 @@ def load_object_checkpoint(path: str, params_template: dict) -> dict:
             extent=z["bbox_extent"].astype(np.float64),
         )
     return out
+
+
+def _device_state_tree(st) -> dict:
+    """The mapper's device state as one nested dict (the snapshot's
+    state dict)."""
+    tree = {
+        "fg_params": st.fg_params,
+        "fg_mu": st.fg_opt.mu,
+        "fg_nu": st.fg_opt.nu,
+        "fg_count": st.fg_opt.count,
+    }
+    if st.bg_params is not None:
+        tree.update(bg_params=st.bg_params, bg_mu=st.bg_opt.mu, bg_nu=st.bg_opt.nu,
+                    bg_count=st.bg_opt.count)
+    return tree
+
+
+_OBJECT_AXIS = ("fg_params", "fg_mu", "fg_nu", "fg_count")
+
+
+def _on_mesh(tree: dict, mesh) -> dict:
+    """``tree`` with its object-axis leaves as DTensors of this rank's
+    block on ``mesh`` (split over "object", whole over "data"); the rest
+    as it is, replicated. DTensors exist only here, at DCP's boundary."""
+    if mesh is None:
+        return tree
+    from torch.distributed.tensor import DTensor
+
+    from openobj_torch.models.object_field import tree_map
+    from openobj_torch.parallel import sharding
+
+    place = sharding.object_sharding(mesh)
+
+    def wrap(x):
+        return DTensor.from_local(x, mesh, place, run_check=False)
+
+    return {k: tree_map(wrap, v) if k in _OBJECT_AXIS else v for k, v in tree.items()}
+
+
+def save_state_sharded(path: str, state) -> None:
+    """TrainState -> a DCP directory. Inside ``sharding.use_mesh`` the
+    state is this rank's block of slots, and each rank writes its own
+    block (no gather to one host); outside, the state as it is."""
+    import torch.distributed.checkpoint as dcp
+
+    from openobj_torch.parallel import sharding
+
+    tree = _on_mesh(_device_state_tree(state), sharding.current_mesh())
+    # an existing snapshot at ``path`` is replaced, as the JAX package's
+    # orbax save does with force=True
+    dcp.save(tree, storage_writer=dcp.FileSystemWriter(os.path.abspath(path), overwrite=True))
+
+
+def load_state_sharded(path: str, state_template):
+    """Restore a ``save_state_sharded`` snapshot into the template's
+    placement: every leaf with the template's shape, dtype and device,
+    and inside ``sharding.use_mesh`` the template's block of slots read
+    from the blocks that were written, whatever mesh wrote them. Returns a
+    new TrainState (bg from the template when it has none)."""
+    import torch.distributed.checkpoint as dcp
+
+    from openobj_torch.core import optim, trainer
+    from openobj_torch.models.object_field import tree_map
+    from openobj_torch.parallel import sharding
+
+    mesh = sharding.current_mesh()
+    tree = _on_mesh(tree_map(torch.empty_like, _device_state_tree(state_template)), mesh)
+    dcp.load(tree, checkpoint_id=os.path.abspath(path))
+    if mesh is not None:
+        tree = {k: tree_map(lambda x: x.to_local(), v) if k in _OBJECT_AXIS else v
+                for k, v in tree.items()}
+    bg = "bg_params" in tree
+    return trainer.TrainState(
+        fg_params=tree["fg_params"],
+        fg_opt=optim.AdamWState(tree["fg_mu"], tree["fg_nu"], tree["fg_count"]),
+        bg_params=tree["bg_params"] if bg else state_template.bg_params,
+        bg_opt=optim.AdamWState(tree["bg_mu"], tree["bg_nu"], tree["bg_count"])
+        if bg else state_template.bg_opt,
+    )
+
+
+def _is_writer() -> bool:
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def save_scene_sharded(dirpath: str, mapper) -> None:
+    """Scene snapshot for scale-out runs: the device state as a DCP
+    directory (``save_state_sharded``: each rank its own block inside
+    ``sharding.use_mesh``), the host registry as ``scene_meta.npz`` beside
+    it, written by rank 0. Counterpart of ``save_scene``."""
+    from openobj_torch.parallel import sharding
+
+    dirpath = os.path.abspath(dirpath)
+    os.makedirs(dirpath, exist_ok=True)
+    if _is_writer():
+        # written before the state, whose save ends with a collective: no
+        # rank returns before the metadata is on disk
+        np.savez_compressed(
+            os.path.join(dirpath, "scene_meta.npz"),
+            n_slots=np.asarray(mapper.state.n_slots * sharding.axis_size("object"), np.int64),
+            has_bg=np.asarray(int(mapper.state.bg_params is not None), np.int64),
+            **_registry_meta(mapper),
+        )
+    save_state_sharded(os.path.join(dirpath, "dcp_state"), mapper.state)
+
+
+def load_scene_sharded(dirpath: str, mapper) -> None:
+    """Restore a ``save_scene_sharded`` snapshot into the mapper's current
+    placement: construct the mapper (and ``shard_scene`` its state inside
+    ``sharding.use_mesh`` if desired) first; each leaf is read with the
+    shape, dtype and device of the mapper's state, a sharded state's block
+    from the blocks on disk. A snapshot with more slots grows the state
+    first."""
+    from openobj_torch.core import trainer
+    from openobj_torch.parallel import sharding
+
+    dirpath = os.path.abspath(dirpath)
+    z = np.load(os.path.join(dirpath, "scene_meta.npz"))
+    n_slots = int(z["n_slots"])
+    n_shards = sharding.axis_size("object")
+    have = mapper.state.n_slots * n_shards
+    if have > n_slots:
+        raise ValueError(
+            f"snapshot has {n_slots} object slots but the mapper already "
+            f"has {have}; construct the mapper with "
+            f"initial_bucket <= {n_slots} before restoring")
+    snap_bg = bool(int(z["has_bg"])) if "has_bg" in z else True
+    if snap_bg != (mapper.state.bg_params is not None):
+        raise ValueError(
+            "snapshot and mapper disagree on the background model "
+            f"(snapshot has_bg={snap_bg}); construct the mapper with the "
+            "same do_bg config")
+    if have != n_slots:
+        if n_slots % n_shards:
+            raise ValueError(
+                f"object slots ({n_slots}) must divide the 'object' mesh "
+                f"axis ({n_shards}); grow the bucket first")
+        gen = torch.Generator(device=mapper.device).manual_seed(0)
+        mapper.state = trainer.grow_train_state(gen, mapper.state, mapper.cfg,
+                                                n_slots // n_shards)
+    mapper.state = load_state_sharded(os.path.join(dirpath, "dcp_state"), mapper.state)
+    _restore_registry_meta(mapper, z)
 
 
 def _registry_meta(mapper) -> dict:

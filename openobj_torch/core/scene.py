@@ -24,6 +24,7 @@ from openobj_torch.core.frame_store import FrameStore, append_frame, init_frame_
 from openobj_torch.core.registry import ObjectRegistry
 from openobj_torch.models import object_field
 from openobj_torch.ops import sampling
+from openobj_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -160,6 +161,12 @@ class SceneMapper:
         train=False."""
         from openobj_torch.data.transforms import instance_bboxes
 
+        if sharding.axis_size("object") > 1:
+            # the registry's tables and slot writes are the whole run's
+            raise NotImplementedError(
+                "SceneMapper.process_frame on a state split over the 'object' "
+                "mesh axis is not ported (ROADMAP A16c); train a sharded state "
+                "with trainer.train_frame")
         at = None
         if self.store.n_frames >= self.store.capacity:
             at = self._evict_frame_slot()

@@ -12,6 +12,16 @@ its own rays (``n_iters=1``), so the two latest keyframes, forced to the
 end of a draw list, land in every step's window, as in the JAX package.
 Every draw comes from the one ``torch.Generator`` of the frame.
 
+Inside ``parallel.sharding.use_mesh(mesh)`` the state and the fg tables
+are this rank's block of object slots (``sharding.shard_scene``), as the
+JAX trainer's arrays are under ``jax.set_mesh``: ``train_frame`` gathers
+the small tables, draws for every slot exactly what the unsharded run
+draws, and each step keeps the rank's block of slots and, on a "data"
+axis, its share of the rays (``sharding.maybe_constrain``); the masked
+means' counts and the gradients are summed over "data", and the per-step
+losses over the mesh once a frame. Outside a mesh none of this does
+anything.
+
 Workload shape at the Replica room_0 envelope: per object and step 120 rays
 (win 5 x 24 pixels) x 10 samples; background 1200 rays x 14 samples with its
 own 128-wide field; one AdamW over everything, lr 1e-3, wd 0.013.
@@ -44,6 +54,7 @@ from openobj_torch.core import optim
 from openobj_torch.core.frame_store import FrameStore
 from openobj_torch.models import object_field
 from openobj_torch.ops import fused_field, losses, sampling
+from openobj_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -371,9 +382,17 @@ def run_step(state: TrainState, fg_sl: dict, bg_sl: dict | None,
     for fg, [R, ...] for bg). A slice carries either ``partfeat`` (already
     gathered) or ``partfeat_idx`` into ``partfeat``, and either ``z`` or
     the ``max_bound`` from which ``gen`` draws it (``resolve_z``). Returns
-    (new state, the step's total loss as a 0-d tensor on the device)."""
+    (new state, the step's total loss as a 0-d tensor on the device).
+    Inside ``sharding.use_mesh`` the state and ``active`` are this rank's
+    block of slots and the slices the whole step's, and the loss is this
+    rank's share: ``sharding.mesh_sum`` of it is the step's loss."""
     fg_sl = resolve_z(gen, dict(fg_sl), cfg, is_bg=False)
     bg_sl = None if bg_sl is None else resolve_z(gen, dict(bg_sl), cfg, is_bg=True)
+    # ray-level data parallelism: under a ("data", "object") mesh each rank
+    # takes its block of slots and its share of the step's rays
+    fg_sl = {k: sharding.maybe_constrain(v, "object", "data") for k, v in fg_sl.items()}
+    if bg_sl is not None:
+        bg_sl = {k: sharding.maybe_constrain(v, "data") for k, v in bg_sl.items()}
     if cfg.part_mode:
         fg_sl = gather_partfeat(fg_sl, partfeat)
         if bg_sl is not None:
@@ -381,15 +400,19 @@ def run_step(state: TrainState, fg_sl: dict, bg_sl: dict | None,
 
     fg_p, fg_wrt = differentiable(state.fg_params)
     total, _ = _loss_for_slice(fg_p, fg_sl, active, cfg, is_bg=False)
+    loss = total.detach()
     wrt = [("fg",) + p for p, _ in fg_wrt]
     leaves = [x for _, x in fg_wrt]
     if bg_sl is not None:
         bg_p, bg_wrt = differentiable(state.bg_params)
         bg_total, _ = _loss_for_slice(bg_p, bg_sl, None, cfg, is_bg=True)
         total = total + bg_total
+        if sharding.axis_rank("object") == 0:    # the bg's term counted once
+            loss = total.detach()
         wrt += [("bg",) + p for p, _ in bg_wrt]
         leaves += [x for _, x in bg_wrt]
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = sharding.data_sum_all(grads)
     grads = optim.unflatten(zip(wrt, grads))
 
     fg_params, fg_opt = optim.adamw_update(
@@ -400,7 +423,7 @@ def run_step(state: TrainState, fg_sl: dict, bg_sl: dict | None,
         bg_params, bg_opt = optim.adamw_update(
             state.bg_params, grads["bg"], state.bg_opt,
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
-    return TrainState(fg_params, fg_opt, bg_params, bg_opt), total.detach()
+    return TrainState(fg_params, fg_opt, bg_params, bg_opt), loss
 
 
 def train_frame(
@@ -416,8 +439,13 @@ def train_frame(
     up front, or each step its own with ``cfg.sample_per_step``), then
     n_iters optimizer steps, each consuming win*samples rays per object
     (+ the bg window). Returns (new state, per-step losses [n_iters]) with
-    the losses left on the device."""
+    the losses left on the device. Inside ``sharding.use_mesh`` the state
+    and ``fg_tables`` are this rank's block of slots, and the losses are
+    the whole run's."""
     active = fg_tables["active"]
+    # every rank draws for every slot, as the unsharded run does, so its
+    # block's rays are the unsharded run's; run_step keeps the block
+    fg_tables = sharding.gather_objects(fg_tables)
     do_bg = cfg.do_bg and state.bg_params is not None and bg_tables is not None
     if not cfg.sample_per_step:
         fg_batch = sample_fg_batch(gen, store, cam_dirs, fg_tables, cfg, scan_order=True)
@@ -434,4 +462,4 @@ def train_frame(
             bg_sl = {k: x[i] for k, x in bg_batch.items()} if do_bg else None
         state, loss = run_step(state, fg_sl, bg_sl, active, cfg, store.partfeat, gen)
         step_losses.append(loss)
-    return state, torch.stack(step_losses)
+    return state, sharding.mesh_sum(torch.stack(step_losses))

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from openobj_torch.parallel import sharding
+
 FREE_PROB_EPS = 1e-10
 INFO_EPS = 1e-4
 MASK_EPS = 1e-10
@@ -63,7 +65,9 @@ def reduce_masked_loss(
     loss_type: str = "L1",
 ) -> torch.Tensor:
     """Masked mean over the last axis, per leading row; rows with no valid
-    samples give exactly zero."""
+    samples give exactly zero. Inside ``sharding.use_mesh`` with a "data"
+    axis the rays are split across its ranks: each row's count is summed
+    over them, so this rank's term is its share of the whole mean."""
     if var is not None:
         if loss_type == "L2":
             information = 1.0 / (var + INFO_EPS)
@@ -72,7 +76,7 @@ def reduce_masked_loss(
         loss_mat = loss_mat * information
     mask_f = mask.to(loss_mat.dtype)
     num = torch.sum(loss_mat * mask_f, dim=-1)
-    den = torch.sum(mask_f, dim=-1)
+    den = sharding.data_sum(torch.sum(mask_f, dim=-1))
     return torch.where(den > 0, num / (den + MASK_EPS), torch.zeros_like(num))
 
 

@@ -1,4 +1,4 @@
-"""Scene-level scale-out: device groups in one process (``multislice``) and
-processes joined by ``torch.distributed`` (``distributed``). Port of
-``openobj_tpu.parallel``'s scene-level half; the object-axis sharding
-(``sharding``) is ROADMAP A16b."""
+"""Scale-out: the object axis split across GPUs, one process each
+(``sharding``), processes joined by ``torch.distributed`` (``distributed``),
+and scenes on device groups in one process (``multislice``). Port of
+``openobj_tpu.parallel``."""

@@ -3,7 +3,8 @@ chip_smoke.py, which drives it on the card) pulls in neither jax nor
 openobj_tpu, nor OpenCV, scikit-learn, networkx, PyYAML, PIL or transformers,
 which the card's machine does not have (the image readers, the loaders, the
 scene-level scale-out, the multi-scene runner, the dataset preflight and
-chip_smoke.py do not import PIL even lazily). networkx may be imported only inside
+chip_smoke.py do not import PIL even lazily); neither do the modules that
+parallel.sharding and the sharded snapshot import at first use. networkx may be imported only inside
 perception/graph.py's branch for the non-default Greedy/GNewman methods, and
 transformers only in the constructors of perception/encoders.py's
 transformers-based encoders. No module imports PyYAML, not even lazily: the
@@ -47,6 +48,14 @@ def test_import_without_jax():
         "sys.modules['transformers'] = None\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
+        # what parallel.sharding and the sharded snapshot import at first use
+        "for name in ('torch.distributed.checkpoint', 'torch.distributed.tensor',\n"
+        "             'torch.distributed.device_mesh'):\n"
+        "    importlib.import_module(name)\n"
+        "from openobj_torch.core.checkpoint import (load_scene_sharded, load_state_sharded,\n"
+        "                                           save_scene_sharded, save_state_sharded)\n"
+        "from openobj_torch.parallel.sharding import (make_mesh, make_mesh_2d, maybe_constrain,\n"
+        "                                             object_sharding, replicated, shard_scene)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
         "       and (m == 'jax' or m.startswith(('jax.', 'openobj_tpu')))]\n"
         "assert not bad, bad\n"
