@@ -5,7 +5,8 @@ ring of cameras, then check that held-out rendered depth and colour
 converge and the loss drops.
 
 The field goes through ``ops.fused_field``: the CUDA kernels on a GPU, their
-plain version on the CPU.
+plain version on the CPU. The default device is the card; without one the
+script stops and names the device (``--device cpu`` runs it on the CPU).
 
 Run:  python examples/torch_synthetic_convergence.py [--device cpu|cuda]
 """
@@ -48,8 +49,12 @@ def make_rays(gen, o, device):
     return cam, d, depth, hit
 
 
-def run(device="cpu", n_steps=300, seed=1):
-    """Train and evaluate; returns {"losses", "depth_mae", "color_mae"}."""
+def run(device="cuda", n_steps=300, seed=1):
+    """Train and evaluate; returns {"losses", "depth_mae", "color_mae"}.
+    Raises when ``device`` is a card and none is present."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = object_field.init_stacked_fields(gen, O, hidden=32, clip_size=8,
@@ -108,13 +113,18 @@ def check(res: dict) -> None:
         raise AssertionError(f"color did not converge: MAE {res['color_mae']}")
 
 
-if __name__ == "__main__":
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
-    args = ap.parse_args()
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
     out = run(args.device)
     print("loss trajectory:", [round(x, 3) for x in out["losses"]])
     print(f"depth MAE on held-out rays (obj0): {out['depth_mae']:.4f} m")
     print(f"color MAE: {out['color_mae']:.4f}")
     check(out)
     print("CONVERGED OK")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,9 @@ writes an orbax one: under ``parallel.sharding.use_mesh`` each rank writes
 its own block of the object axis, with no gather to one host, and a load
 puts each block back on its rank. Beside it, ``scene_meta.npz`` holds the
 registry tables under the JAX package's keys. ``save_scene``'s npz stays
-the format both packages read.
+the format both packages read: from a mapper split over "object" it is
+the whole state, gathered, written once, and ``load_scene`` gives each
+rank its block of it.
 """
 
 from __future__ import annotations
@@ -185,6 +187,7 @@ def load_state_sharded(path: str, state_template):
         bg_params=tree["bg_params"] if bg else state_template.bg_params,
         bg_opt=optim.AdamWState(tree["bg_mu"], tree["bg_nu"], tree["bg_count"])
         if bg else state_template.bg_opt,
+        n_shards=state_template.n_shards,
     )
 
 
@@ -199,8 +202,9 @@ def save_scene_sharded(dirpath: str, mapper) -> None:
     directory (``save_state_sharded``: each rank its own block inside
     ``sharding.use_mesh``), the host registry as ``scene_meta.npz`` beside
     it, written by rank 0. Counterpart of ``save_scene``."""
-    from openobj_torch.parallel import sharding
+    from openobj_torch.core import trainer
 
+    trainer.check_mesh(mapper.state)
     dirpath = os.path.abspath(dirpath)
     os.makedirs(dirpath, exist_ok=True)
     if _is_writer():
@@ -208,7 +212,7 @@ def save_scene_sharded(dirpath: str, mapper) -> None:
         # rank returns before the metadata is on disk
         np.savez_compressed(
             os.path.join(dirpath, "scene_meta.npz"),
-            n_slots=np.asarray(mapper.state.n_slots * sharding.axis_size("object"), np.int64),
+            n_slots=np.asarray(mapper.state.global_slots, np.int64),
             has_bg=np.asarray(int(mapper.state.bg_params is not None), np.int64),
             **_registry_meta(mapper),
         )
@@ -223,13 +227,12 @@ def load_scene_sharded(dirpath: str, mapper) -> None:
     from the blocks on disk. A snapshot with more slots grows the state
     first."""
     from openobj_torch.core import trainer
-    from openobj_torch.parallel import sharding
 
     dirpath = os.path.abspath(dirpath)
     z = np.load(os.path.join(dirpath, "scene_meta.npz"))
     n_slots = int(z["n_slots"])
-    n_shards = sharding.axis_size("object")
-    have = mapper.state.n_slots * n_shards
+    trainer.check_mesh(mapper.state)
+    have = mapper.state.global_slots
     if have > n_slots:
         raise ValueError(
             f"snapshot has {n_slots} object slots but the mapper already "
@@ -242,13 +245,8 @@ def load_scene_sharded(dirpath: str, mapper) -> None:
             f"(snapshot has_bg={snap_bg}); construct the mapper with the "
             "same do_bg config")
     if have != n_slots:
-        if n_slots % n_shards:
-            raise ValueError(
-                f"object slots ({n_slots}) must divide the 'object' mesh "
-                f"axis ({n_shards}); grow the bucket first")
         gen = torch.Generator(device=mapper.device).manual_seed(0)
-        mapper.state = trainer.grow_train_state(gen, mapper.state, mapper.cfg,
-                                                n_slots // n_shards)
+        mapper.state = trainer.grow_train_state(gen, mapper.state, mapper.cfg, n_slots)
     mapper.state = load_state_sharded(os.path.join(dirpath, "dcp_state"), mapper.state)
     _restore_registry_meta(mapper, z)
 
@@ -280,45 +278,59 @@ def _registry_meta(mapper) -> dict:
 
 
 def save_scene(dirpath: str, mapper) -> None:
-    """Resumable snapshot of a SceneMapper's device and host state."""
-    os.makedirs(dirpath, exist_ok=True)
+    """Resumable snapshot of a SceneMapper's device and host state. Inside
+    ``sharding.use_mesh`` with the object axis split, every rank gathers
+    the fg leaves over "object" (a collective: every rank calls it), the
+    mesh's first rank alone writes the whole state, the file the unsharded
+    mapper would write, and no rank returns before it is on disk."""
+    from openobj_torch.core import trainer
+    from openobj_torch.parallel import distributed, sharding
+
     st = mapper.state
-    data = {}
-    data.update(_flatten(st.fg_params, "fg_params/"))
-    data.update(_flatten(st.fg_opt.mu, "fg_mu/"))
-    data.update(_flatten(st.fg_opt.nu, "fg_nu/"))
-    data["fg_count"] = st.fg_opt.count.cpu().numpy()
-    if st.bg_params is not None:
-        data.update(_flatten(st.bg_params, "bg_params/"))
-        data.update(_flatten(st.bg_opt.mu, "bg_mu/"))
-        data.update(_flatten(st.bg_opt.nu, "bg_nu/"))
-        data["bg_count"] = st.bg_opt.count.cpu().numpy()
-    data.update(_registry_meta(mapper))
-    np.savez_compressed(os.path.join(dirpath, "scene_state.npz"), **data)
+    trainer.check_mesh(st)
+    fg = sharding.gather_objects({"fg_params": st.fg_params, "fg_mu": st.fg_opt.mu,
+                                  "fg_nu": st.fg_opt.nu, "fg_count": st.fg_opt.count})
+    if sharding.mesh_leader():
+        os.makedirs(dirpath, exist_ok=True)
+        data = _flatten(fg, "")
+        if st.bg_params is not None:
+            data.update(_flatten(st.bg_params, "bg_params/"))
+            data.update(_flatten(st.bg_opt.mu, "bg_mu/"))
+            data.update(_flatten(st.bg_opt.nu, "bg_nu/"))
+            data["bg_count"] = st.bg_opt.count.cpu().numpy()
+        data.update(_registry_meta(mapper))
+        np.savez_compressed(os.path.join(dirpath, "scene_state.npz"), **data)
+    mesh = sharding.current_mesh()
+    if mesh is not None and mesh.size() > 1:
+        distributed.barrier("save_scene")
 
 
 def load_scene(dirpath: str, mapper) -> None:
     """Restore a ``save_scene`` snapshot into a freshly constructed mapper
     with the same config (device state and keyframe tables; the per-slot
-    host policy counters resume approximately: frame counts restart)."""
+    host policy counters resume approximately: frame counts restart). A
+    mapper whose state is cut over the ambient "object" axis
+    (``sharding.shard_scene`` inside ``sharding.use_mesh``) gets its block
+    of the snapshot's slots on each rank."""
     from openobj_torch.core import optim, trainer
+    from openobj_torch.parallel import sharding
 
+    st = mapper.state
+    trainer.check_mesh(st)
     z = np.load(os.path.join(dirpath, "scene_state.npz"))
     n_slots = z["fg_count"].shape[0]
-    if mapper.state.n_slots > n_slots:
+    if st.global_slots > n_slots:
         raise ValueError(
             f"snapshot has {n_slots} object slots but the mapper already "
-            f"has {mapper.state.n_slots}; construct the mapper with "
+            f"has {st.global_slots}; construct the mapper with "
             f"initial_bucket <= {n_slots} before restoring")
-    if mapper.state.n_slots != n_slots:
-        gen = torch.Generator(device=mapper.device).manual_seed(0)
-        mapper.state = trainer.grow_train_state(gen, mapper.state, mapper.cfg, n_slots)
-    st = mapper.state
     dev = st.fg_opt.count.device
 
     def count(key, like):
         return torch.as_tensor(z[key], dtype=like.dtype, device=dev)
 
+    # the leaves as the file holds them (every slot), typed and placed like
+    # the mapper's, then cut to this rank's block
     fg_params = _unflatten(z, "fg_params/", st.fg_params)
     fg_opt = optim.AdamWState(
         mu=_unflatten(z, "fg_mu/", st.fg_opt.mu),
@@ -338,7 +350,10 @@ def load_scene(dirpath: str, mapper) -> None:
             mu=_unflatten(z, "bg_mu/", st.bg_opt.mu),
             nu=_unflatten(z, "bg_nu/", st.bg_opt.nu),
             count=count("bg_count", st.bg_opt.count))
-    mapper.state = trainer.TrainState(fg_params, fg_opt, bg_params, bg_opt)
+    state = trainer.TrainState(fg_params, fg_opt, bg_params, bg_opt)
+    if st.n_shards > 1:
+        state, _ = sharding.shard_scene(sharding.current_mesh(), state, {})
+    mapper.state = state
     _restore_registry_meta(mapper, z)
 
 

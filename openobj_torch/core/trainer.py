@@ -19,8 +19,10 @@ the small tables, draws for every slot exactly what the unsharded run
 draws, and each step keeps the rank's block of slots and, on a "data"
 axis, its share of the rays (``sharding.maybe_constrain``); the masked
 means' counts and the gradients are summed over "data", and the per-step
-losses over the mesh once a frame. Outside a mesh none of this does
-anything.
+losses over the mesh once a frame. ``grow_train_state`` grows a block the
+same way: every rank draws the whole new stack and keeps its block. The
+state records how many blocks it was cut into, and a block used outside
+its mesh is refused. Outside a mesh none of this does anything.
 
 Workload shape at the Replica room_0 envelope: per object and step 120 rays
 (win 5 x 24 pixels) x 10 samples; background 1200 rays x 14 samples with its
@@ -116,10 +118,31 @@ class TrainState:
     fg_opt: optim.AdamWState
     bg_params: dict | None
     bg_opt: optim.AdamWState | None
+    # the blocks of the object axis the fg leaves were cut into
+    # (``sharding.shard_scene``): this state is one of them
+    n_shards: int = 1
 
     @property
     def n_slots(self) -> int:
+        """The slots this state holds (its block's, when cut)."""
         return self.fg_params["mlp"]["in_layer"]["w"].shape[0]
+
+    @property
+    def global_slots(self) -> int:
+        """The whole run's slots."""
+        return self.n_slots * self.n_shards
+
+
+def check_mesh(state: TrainState) -> None:
+    """Raise unless ``state`` was cut for the ambient "object" axis: a block
+    used outside its mesh (or under another one), or a whole state inside
+    a split object axis, would train or write the wrong slots."""
+    n = sharding.axis_size("object")
+    if state.n_shards != n:
+        raise ValueError(
+            f"the state was cut into {state.n_shards} object block(s) but the ambient "
+            f"'object' mesh axis is {n}: run a state inside sharding.use_mesh of the "
+            "mesh it was cut for (sharding.shard_scene)")
 
 
 def init_train_state(gen: torch.Generator, cfg: TrainConfig, n_slots: int,
@@ -141,22 +164,32 @@ def init_train_state(gen: torch.Generator, cfg: TrainConfig, n_slots: int,
 
 def grow_train_state(gen: torch.Generator, state: TrainState, cfg: TrainConfig,
                      new_n_slots: int) -> TrainState:
-    """Pad the stacked fg axis with freshly initialized slots."""
-    old = state.n_slots
+    """Pad the stacked fg axis with freshly initialized slots, to
+    ``new_n_slots`` for the whole run. Inside ``sharding.use_mesh`` with
+    the object axis split, ``state`` is this rank's block: every rank
+    draws the whole new stack, as the unsharded run does, so that the
+    generators stay in step, and keeps its block of the grown axis
+    (``sharding.grow_objects``). ``new_n_slots`` must then be a multiple
+    of the axis."""
+    check_mesh(state)
+    n = state.n_shards
+    if new_n_slots % n:
+        raise ValueError(f"bucket {new_n_slots} is not a multiple of the 'object' mesh "
+                         f"axis ({n}): every rank holds an equal block")
+    extra_n = new_n_slots - state.global_slots
     dev = state.fg_opt.count.device
     extra = object_field.init_stacked_fields(
-        gen, new_n_slots - old, hidden=cfg.hidden, clip_size=cfg.clip_size,
+        gen, extra_n, hidden=cfg.hidden, clip_size=cfg.clip_size,
         scale=cfg.obj_scale, max_deg=cfg.max_deg, device=dev)
-    tm = object_field.tree_map
-    fg = tm(lambda a, b: torch.cat([a, b], dim=0), state.fg_params, extra)
 
-    def pad0(a):
-        return torch.cat([a, a.new_zeros((new_n_slots - old, *a.shape[1:]))], dim=0)
+    def pad0(tree):
+        zeros = object_field.tree_map(lambda a: a.new_zeros((extra_n, *a.shape[1:])), tree)
+        return sharding.grow_objects(tree, zeros)
 
-    opt = optim.AdamWState(mu=tm(pad0, state.fg_opt.mu), nu=tm(pad0, state.fg_opt.nu),
+    opt = optim.AdamWState(mu=pad0(state.fg_opt.mu), nu=pad0(state.fg_opt.nu),
                            count=pad0(state.fg_opt.count))
-    return TrainState(fg_params=fg, fg_opt=opt, bg_params=state.bg_params,
-                      bg_opt=state.bg_opt)
+    return TrainState(fg_params=sharding.grow_objects(state.fg_params, extra), fg_opt=opt,
+                      bg_params=state.bg_params, bg_opt=state.bg_opt, n_shards=n)
 
 
 # --------------------------------------------------------------------------- #
@@ -423,7 +456,7 @@ def run_step(state: TrainState, fg_sl: dict, bg_sl: dict | None,
         bg_params, bg_opt = optim.adamw_update(
             state.bg_params, grads["bg"], state.bg_opt,
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
-    return TrainState(fg_params, fg_opt, bg_params, bg_opt), loss
+    return TrainState(fg_params, fg_opt, bg_params, bg_opt, state.n_shards), loss
 
 
 def train_frame(
@@ -441,7 +474,9 @@ def train_frame(
     (+ the bg window). Returns (new state, per-step losses [n_iters]) with
     the losses left on the device. Inside ``sharding.use_mesh`` the state
     and ``fg_tables`` are this rank's block of slots, and the losses are
-    the whole run's."""
+    the whole run's; a state cut for another "object" axis is refused
+    (``check_mesh``)."""
+    check_mesh(state)
     active = fg_tables["active"]
     # every rank draws for every slot, as the unsharded run does, so its
     # block's rays are the unsharded run's; run_step keeps the block

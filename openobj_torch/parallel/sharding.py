@@ -153,10 +153,25 @@ def replicated(mesh) -> list:
     return [Replicate()] * mesh.ndim
 
 
-def gather_objects(tree: dict) -> dict:
+def slot_offset(n_block: int) -> int:
+    """The whole run's index of the first slot of this rank's block of
+    ``n_block`` slots; 0 where the "object" axis is whole."""
+    return axis_rank("object") * n_block
+
+
+def mesh_leader() -> bool:
+    """Whether this rank is the ambient mesh's first (every coordinate 0):
+    the one that writes what every rank holds alike. True without a mesh."""
+    ambient = _MESH.get()
+    return ambient is None or all(r == 0 for _, r in ambient[1].values())
+
+
+def gather_objects(tree):
     """The whole run's [O, ...] leaves from every rank's block of ``tree``
-    (an all-gather over "object"); ``tree`` itself where that axis is
-    whole."""
+    (a dict of tensors, nested or not, or one tensor; an all-gather over
+    "object", leaf by leaf); ``tree`` itself where that axis is whole."""
+    from openobj_torch.models.object_field import tree_map
+
     n = axis_size("object")
     if n == 1:
         return tree
@@ -168,7 +183,63 @@ def gather_objects(tree: dict) -> dict:
         dist.all_gather(parts, y, group=group)
         return torch.cat(parts).to(x.dtype)
 
-    return {k: gather(v) for k, v in tree.items()}
+    return tree_map(gather, tree)
+
+
+def grow_objects(tree, extra):
+    """``tree``'s [O, ...] leaves followed by ``extra``'s [E, ...] along the
+    slot axis, as this rank's block of the O + E slots: ``tree`` is this
+    rank's block of the old axis and ``extra`` the same whole stack on
+    every rank, so each rank gathers the old blocks over "object",
+    appends ``extra`` and keeps its block of the result. Both may be
+    nested dicts or tensors. ``torch.cat`` of the two where the axis is
+    whole. Raises when O + E does not divide the axis."""
+    from openobj_torch.models.object_field import tree_map
+
+    n = axis_size("object")
+    grown = tree_map(lambda a, b: torch.cat([a, b], dim=0), gather_objects(tree), extra)
+    if n == 1:
+        return grown
+    total = next(iter(_leaves(grown))).shape[0]
+    if total % n:
+        raise ValueError(f"object slots ({total}) must divide the 'object' mesh axis ({n})")
+    size = total // n
+    return tree_map(lambda x: _block(x, axis_rank("object") * size, size), grown)
+
+
+def broadcast_slot(tree, slot: int):
+    """The leaves of the whole run's slot ``slot`` (the slot axis dropped)
+    on every rank, sent over "object" from the rank whose block of
+    ``tree`` holds it. A collective: every rank of the object group calls
+    it with the same slot, in the same order. Where the axis is whole, the
+    slot's views of ``tree``."""
+    from openobj_torch.models.object_field import tree_map
+
+    n = axis_size("object")
+    if n == 1:
+        return tree_map(lambda x: x[slot], tree)
+    n_block = next(iter(_leaves(tree))).shape[0]
+    if not 0 <= slot < n_block * n:
+        raise IndexError(f"slot {slot} outside the {n_block * n} slots of the run")
+    owner, local = divmod(slot, n_block)
+    group = current_mesh().get_group("object")
+    src = dist.get_global_rank(group, owner)
+    mine = axis_rank("object") == owner
+
+    def send(x):
+        y = x[local].contiguous() if mine else x.new_empty(x.shape[1:])
+        dist.broadcast(y, src=src, group=group)
+        return y
+
+    return tree_map(send, tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def data_sum(x: torch.Tensor) -> torch.Tensor:
@@ -215,12 +286,16 @@ def shard_scene(mesh, state, fg_tables: dict, store=None):
     """This rank's share of a TrainState and the fg keyframe tables: every
     stacked [O, ...] leaf (fg params, AdamW mu/nu/count, the tables) cut
     to the rank's contiguous block of slots, as plain contiguous tensors;
-    the bg model and its moments replicated (kept). Returns (state,
-    fg_tables[, store replicated])."""
+    the bg model and its moments replicated (kept). The state records the
+    number of blocks it was cut into (``TrainState.n_shards``), and the
+    trainer and the mapper refuse it under any other "object" axis.
+    Returns (state, fg_tables[, store replicated])."""
     from openobj_torch.core import optim, trainer
     from openobj_torch.models.object_field import tree_map
 
     n_shards = axis_size("object", mesh)
+    if state.n_shards != 1:
+        raise ValueError(f"the state is already cut into {state.n_shards} object blocks")
     if state.n_slots % n_shards:
         raise ValueError(
             f"object slots ({state.n_slots}) must divide the 'object' mesh "
@@ -237,6 +312,7 @@ def shard_scene(mesh, state, fg_tables: dict, store=None):
                                 count=_block(state.fg_opt.count, start, n)),
         bg_params=state.bg_params,
         bg_opt=state.bg_opt,
+        n_shards=n_shards,
     )
     out = (new_state, cut(fg_tables))
     if store is not None:

@@ -66,3 +66,17 @@ def test_example_cut_runs(name, argv, tmp_path):
         assert res["buckets"] == [8, 16, 32] and res["rendered"] > 0
     if name == "torch_open_vocab_demo":
         assert res["meshed"] == 2 and Path(res["html"]).stat().st_size > 0
+
+
+def test_convergence_example_needs_a_card_by_default():
+    """Its CLI defaults to the card, as every other example's does: without
+    one it stops and names the device instead of running on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    conv = _example("torch_synthetic_convergence")
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        conv.main([])
+    with pytest.raises(RuntimeError, match="device 'cuda'"):
+        conv.run()
