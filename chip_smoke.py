@@ -59,7 +59,17 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      save_scene_sharded (a DCP directory) and load_scene_sharded into a
      fresh mapper sharded on the same mesh: every leaf bit-identical, the
      registry equal; prints ms per sharded frame, the largest relative loss
-     difference, the snapshot's seconds and bytes;
+     difference, the snapshot's seconds and bytes. Then the mapper on that
+     mesh: a fresh mapper of phase 4's config and seed, its state cut by
+     shard_scene at bucket 8, runs phase 4's frames through process_frame
+     inside use_mesh, counts reset around them: the bucket grows 8 -> 64
+     inside the mesh, the loss vectors equal phase 4's bit for bit, K1/K2/K2r
+     only; save_scene under the mesh and load_scene into a fresh sharded
+     mapper, every leaf bit-identical (bytes and seconds printed); and
+     render_frame_batched of its trained state, inside the mesh and outside
+     it with one seed, over a band of one 680x1200 pose's rays on the boxes
+     phase 4b fitted: winner and n_hit equal, depth and colour bit-equal,
+     K1's launches counted at their shapes;
   4c. the port of examples/run_synthetic_scene.py on a scene with ground
      truth, with the counts reset before and read after: stage 1, the
      association (perception.pipeline.associate, its similarity matrices
@@ -203,6 +213,7 @@ STEP_RTOL_BF16 = 1e-3
 # mesh of more than one rank (the CPU tests' tolerance for 2 and 4 ranks,
 # tests/test_torch_sharding.py); on a mesh of one they are equal
 SHARDED_RTOL = 2e-5
+SHARDED_BAND = 64           # rows of the pose phase 4i renders inside and outside the mesh
 # phase 4b meshes this many objects (and keeps its one-mesh breakdown)
 MESH_OBJECTS = 4
 # phase 4b: K1's render against the plain field on the card (one chunk of
@@ -1259,7 +1270,7 @@ def _clone_state(st):
                               opt(st.bg_opt))
 
 
-def run_room0_sharded(device, cfg, mapper) -> dict:
+def run_room0_sharded(device, cfg, mapper, frames, vecs) -> dict:
     """Phase 4i: one frame of phase 4's mapper (its state, tables and
     store) trained unsharded and one through shard_scene and the sharded
     train_frame on a mesh of the one card (NCCL as a group of one), from
@@ -1374,18 +1385,146 @@ def run_room0_sharded(device, cfg, mapper) -> dict:
                 np.array_equal(getattr(reg, t), getattr(reg2, t))
                 for t in ("kf_frames", "kf_bbox", "n_kf", "latest2", "active", "obj_inst")):
             raise AssertionError("[room_0 sharded] restored registry differs")
+        log(f"[room_0 sharded] save_scene_sharded {save_s[0]:.3f} s (again: {save_s[1]:.3f} s), "
+            f"{n_bytes} bytes (DCP state + scene_meta.npz); load_scene_sharded into a fresh "
+            f"mapper ({fresh.state.n_slots} slots after growing from 8) {load_s:.3f} s; "
+            f"{len(a)} leaves bit-identical, registry equal")
+        del fresh
+        mapper_run = sharded_mapper(device, cfg, mesh, frames, vecs, snap, mapper.registry)
         distributed.barrier("room_0 sharded")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(snap, ignore_errors=True)
-    log(f"[room_0 sharded] save_scene_sharded {save_s[0]:.3f} s (again: {save_s[1]:.3f} s), "
-        f"{n_bytes} bytes (DCP state + "
-        f"scene_meta.npz); load_scene_sharded into a fresh mapper ({fresh.state.n_slots} slots "
-        f"after growing from 8) {load_s:.3f} s; {len(a)} leaves bit-identical, registry equal")
     log(f"[room_0 sharded] phase 4i took {time.perf_counter() - t_all:.1f} s")
     return {"by_shape": by_shape, "frame_ms": frame_ms, "rel": rel, "save_s": save_s,
-            "load_s": load_s, "bytes": n_bytes}
+            "load_s": load_s, "bytes": n_bytes, **mapper_run}
+
+
+def sharded_mapper(device, cfg, mesh, frames, vecs, snap, boxed_registry) -> dict:
+    """Phase 4i's mapper on ``mesh``: a fresh mapper of phase 4's config and
+    seed, cut at bucket 8, trains phase 4's frames inside use_mesh (its
+    loss vectors ``vecs``, bit for bit), saves and reloads its npz
+    snapshot under the mesh, then renders a band of one pose inside the
+    mesh and outside it (on the boxes of ``boxed_registry``)."""
+    import torch
+    from openobj_torch.config import make_mapper
+    from openobj_torch.core import checkpoint, renderer
+    from openobj_torch.ops import fused_field as ff
+    from openobj_torch.ops import sampling
+    from openobj_torch.parallel import sharding
+
+    tc, cam = cfg.train, cfg.camera
+    m = make_mapper(cfg, frame_capacity=8, device=device)
+    bucket0 = m.state.global_slots
+    m.state, _ = sharding.shard_scene(mesh, m.state, {})
+    ff.reset_counts()
+    times, got = [], []
+    with sharding.use_mesh(mesh):
+        for rgb, depth, inst, t_wc, pf in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(m.process_frame(rgb, depth, inst, t_wc, partfeat=pf))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        m.finish()
+    counts, train_shapes = dict(ff.COUNTS), dict(ff.COUNTS_BY_SHAPE)
+    got = [x.cpu().numpy() for x in got]
+    steps = len(frames) * tc.n_iters_per_frame
+    want = {(k, s["o"], s["n"], s["h"]): steps for s in (FG, BG)
+            for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce")}
+    if train_shapes != want or counts["fused_field_plain"] or counts["field_eager"]:
+        raise AssertionError(f"[room_0 sharded mapper] launches {train_shapes} (counts "
+                             f"{counts}), expected {want} and nothing plain or eager")
+    if (bucket0, m.state.global_slots, m.state.n_shards) != (8, FG["o"], 1):
+        raise AssertionError(f"[room_0 sharded mapper] bucket {bucket0} -> "
+                             f"{m.state.global_slots} over {m.state.n_shards} shard(s)")
+    same = len(got) == len(vecs) and all(np.array_equal(a, b) for a, b in zip(got, vecs))
+    if not same:
+        raise AssertionError(f"[room_0 sharded mapper] losses differ from phase 4's: "
+                             f"{[float(v[-1]) for v in got]} vs {[float(v[-1]) for v in vecs]}")
+    log(f"[room_0 sharded mapper] a fresh mapper cut at bucket {bucket0} on a mesh of one card "
+        f"trained phase 4's {len(frames)} frames through process_frame inside use_mesh: bucket "
+        f"{bucket0} -> {m.state.global_slots}, loss vectors bit-equal to phase 4's; frame times "
+        f"{[round(t, 1) for t in times]} ms (first includes the growth); launches by shape "
+        f"{train_shapes}, nothing plain or eager")
+
+    # the npz snapshot under the mesh, loaded into a fresh sharded mapper
+    path = os.path.join(snap, "npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sharding.use_mesh(mesh):
+        checkpoint.save_scene(path, m)
+    save_s = time.perf_counter() - t0
+    n_bytes = os.path.getsize(os.path.join(path, "scene_state.npz"))
+    fresh = make_mapper(cfg, frame_capacity=8, device=device)
+    fresh.state, _ = sharding.shard_scene(mesh, fresh.state, {})
+    t0 = time.perf_counter()
+    with sharding.use_mesh(mesh):
+        checkpoint.load_scene(path, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a = dict(_named_leaves(checkpoint._device_state_tree(m.state)))
+    b = dict(_named_leaves(checkpoint._device_state_tree(fresh.state)))
+    differ = [k for k in a if k not in b or a[k].dtype != b[k].dtype
+              or a[k].device != b[k].device or not torch.equal(a[k], b[k])]
+    if sorted(a) != sorted(b) or differ:
+        raise AssertionError(f"[room_0 sharded mapper] reloaded leaves differ: {differ}")
+    del fresh
+    log(f"[room_0 sharded mapper] save_scene under the mesh {save_s:.3f} s, {n_bytes} bytes "
+        f"(scene_state.npz); load_scene into a fresh sharded mapper {load_s:.3f} s; {len(a)} "
+        f"leaves bit-identical")
+
+    # render_frame_batched of the trained state, inside the mesh and outside
+    reg = boxed_registry
+    o = m.state.global_slots
+    t_wo = np.tile(np.eye(4, dtype=np.float32), (o, 1, 1))
+    ext = np.ones((o, 3), np.float32)
+    cen = np.zeros((o, 3), np.float32)
+    act = np.zeros(o, bool)
+    for slot, st in reg.slots.items():
+        if st.bbox3d is not None:
+            t_wo[slot, :3, :3], t_wo[slot, :3, 3] = st.bbox3d.r, st.bbox3d.center
+            ext[slot], cen[slot], act[slot] = st.bbox3d.extent, st.obj_center, True
+    geo = [torch.as_tensor(x, device=device) for x in (t_wo, ext, cen, act)]
+    rows = slice(cam.height // 2 - SHARDED_BAND // 2, cam.height // 2 + SHARDED_BAND // 2)
+    dirs_c = m.cam_dirs[rows].reshape(-1, 3)
+    tw = torch.as_tensor(frames[-1][3], dtype=torch.float32, device=device)
+    origins, dirs_w = sampling.origin_dirs_w(tw.expand(dirs_c.shape[0], 4, 4), dirs_c)
+    need = int(renderer.obb_hit_counts(geo[0], geo[1], geo[3], origins, dirs_w).max())
+    cap = max(1, -(-need // RENDER_CHUNK)) * RENDER_CHUNK
+    kw = dict(n_bins=RENDER_BINS, max_hit_rays=cap, chunk=RENDER_CHUNK, max_deg=tc.max_deg)
+
+    def render(inside):
+        gen = torch.Generator(device=device).manual_seed(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sharding.use_mesh(mesh) if inside else contextlib.nullcontext():
+            out = renderer.render_frame_batched(m.state.fg_params, *geo, origins, dirs_w,
+                                                gen, **kw)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    ff.reset_counts()
+    (inside, in_ms), (outside, out_ms) = render(True), render(False)
+    counts, render_shapes = dict(ff.COUNTS), dict(ff.COUNTS_BY_SHAPE)
+    n_chunks = cap // RENDER_CHUNK
+    want = {("fused_field_fwd", o, RENDER_CHUNK * (RENDER_BINS - 1), tc.hidden): 2 * n_chunks}
+    if render_shapes != want or counts["fused_field_plain"] or counts["field_eager"]:
+        raise AssertionError(f"[room_0 sharded render] launches {render_shapes} (counts "
+                             f"{counts}), expected {want} and nothing plain or eager")
+    differ = [k for k in inside if not torch.equal(inside[k], outside[k])]
+    covered = int((inside["winner"] >= 0).sum())
+    if differ or not covered:
+        raise AssertionError(f"[room_0 sharded render] inside vs outside the mesh: {differ} "
+                             f"differ, {covered} rays covered")
+    log(f"[room_0 sharded render] {o} slots ({int(act.sum())} boxed), a band of "
+        f"{SHARDED_BAND}x{cam.width} rays of one pose, {RENDER_BINS} bins, cap {cap} ({need} "
+        f"hit at most): inside the mesh {in_ms:.1f} ms, outside {out_ms:.1f} ms; winner, n_hit "
+        f"equal, depth and colour bit-equal, {covered} rays covered; launches {render_shapes}")
+    return {"mapper_shapes": train_shapes, "render_shapes": render_shapes,
+            "mapper_frame_ms": times, "npz_save_s": save_s, "npz_load_s": load_s,
+            "npz_bytes": n_bytes, "render_ms": [in_ms, out_ms]}
 
 
 def _named_leaves(tree, prefix=""):
@@ -2729,7 +2868,7 @@ def main(argv=None) -> int:
     k1_output_rows, by_shape_out = phase("4b outputs", run_outputs, device, cfg, mapper, frames)
     bf16 = phase("4h room_0 bf16", run_room0_bf16, device, frames, vecs, mapper)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    sharded = phase("4i room_0 sharded", run_room0_sharded, device, cfg, mapper)
+    sharded = phase("4i room_0 sharded", run_room0_sharded, device, cfg, mapper, frames, vecs)
     del mapper, frames
     torch.cuda.empty_cache()
     syn = phase("4c synthetic", run_synthetic_scene, device)
@@ -2771,6 +2910,8 @@ def main(argv=None) -> int:
              "room_0 auto perception": auto["by_shape"],
              "room_0 export": exported["by_shape"], "scannet": scannet["by_shape"],
              "room_0 bf16": bf16["by_shape"], "room_0 sharded": sharded["by_shape"],
+             "room_0 sharded mapper": sharded["mapper_shapes"],
+             "room_0 sharded render": sharded["render_shapes"],
              **{f"room_0 bf16 {k}": v for k, v in bf16["by_shape_options"].items()}}
 
     def launches_at(name, dims):

@@ -11,9 +11,11 @@ Port of the JAX package's ``core.renderer``:
     background ids excluded from the depth buffer;
   * ``render_frame_batched``: every object of a stack at one pose, each
     object evaluating only the rays that hit its box (compaction to a fixed
-    cap ``max_hit_rays``), composited by a z-buffer on the device;
-    ``obb_hit_counts`` sizes the cap; ``render_frame_bucketed`` gives small
-    objects proportionally fewer bins (``bucket_bin_counts``);
+    cap ``max_hit_rays``), composited by a z-buffer on the device; on a
+    split object axis (``parallel.sharding``) each rank renders its block
+    and the blocks merge in rank order; ``obb_hit_counts`` sizes the cap;
+    ``render_frame_bucketed`` gives small objects proportionally fewer
+    bins (``bucket_bin_counts``);
   * ``two_pass``: an alpha-only probe (``_probe_tighten``) narrows each
     ray's interval around the surface before the full pass.
 
@@ -42,6 +44,7 @@ import torch
 
 from openobj_torch.models import object_field
 from openobj_torch.ops import fused_field, mlp, rendering, sampling
+from openobj_torch.parallel import sharding
 
 _F32 = torch.float32
 
@@ -51,14 +54,22 @@ def _uniform(gen: torch.Generator, shape: tuple, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device)
 
 
-def _bin_midpoints(gen, near, far, n_bins: int) -> torch.Tensor:
+def _bin_midpoints(gen, near, far, n_bins: int, rows=None) -> torch.Tensor:
     """Stratified bins over [near, far] per ray (bin i starts at
     near + i * span / n_bins, plus U(0, span / n_bins) jitter), then the
-    midpoints of neighbouring bins: [..., n_bins - 1]."""
+    midpoints of neighbouring bins: [..., n_bins - 1]. ``rows=(start,
+    total)``: ``near`` is rows start.. of a leading axis of ``total``, and
+    the jitter is drawn for all of them and these rows kept, so that a
+    block draws what the whole would."""
     span = far - near
     edges = torch.linspace(0.0, 1.0, n_bins + 1, device=near.device)[:-1]
     lower = span[..., None] * edges + near[..., None]
-    z = lower + _uniform(gen, (*near.shape, n_bins), near.device) * (span[..., None] / n_bins)
+    if rows is None:
+        u = _uniform(gen, (*near.shape, n_bins), near.device)
+    else:
+        u = _uniform(gen, (rows[1], *near.shape[1:], n_bins), near.device)
+        u = u[rows[0]:rows[0] + near.shape[0]]
+    z = lower + u * (span[..., None] / n_bins)
     return 0.5 * (z[..., 1:] + z[..., :-1])
 
 
@@ -308,9 +319,29 @@ def render_frame_batched(
     object's true hit count: where ``n_hit[o] > max_hit_rays`` the surplus
     rays were not rendered, so callers size the cap from ``obb_hit_counts``.
     The z-buffer takes objects in stack order and a later object only where
-    it is strictly nearer, as the JAX package's does."""
+    it is strictly nearer, as the JAX package's does.
+
+    Inside ``sharding.use_mesh`` with the object axis split, and
+    ``stacked_params`` this rank's block of the O objects (the boxes,
+    centres and ``active`` whole), each rank renders its block, drawing
+    each chunk's jitter for all O objects and keeping its rows, then the
+    ranks' buffers merge in rank order, a later rank winning only where it
+    is strictly nearer: every rank returns the unsharded result. A whole
+    stack renders whole on every rank. The ranks of one "data" group
+    render alike."""
     field = _evaluator(stacked_params, True, max_deg, compute_dtype)
-    o_count, n, m = extents.shape[0], origins.shape[0], max_hit_rays
+    o_all, n, m = extents.shape[0], origins.shape[0], max_hit_rays
+    o_count = _stack_size(stacked_params)
+    n_shards = sharding.axis_size("object") if o_count != o_all else 1
+    if o_count * n_shards != o_all:
+        raise ValueError(
+            f"a stack of {o_count} objects against {o_all} boxes: inside a mesh the "
+            f"params are the whole stack or this rank's block of the 'object' axis "
+            f"({sharding.axis_size('object')})")
+    start = sharding.slot_offset(o_count) if n_shards > 1 else 0
+    if n_shards > 1:
+        t_wo, extents, centers, active = (x.narrow(0, start, o_count)
+                                          for x in (t_wo, extents, centers, active))
     dev = origins.device
 
     near, far, hit = _obb_ray_geometry(t_wo, extents, active, origins, dirs_w,
@@ -344,7 +375,7 @@ def render_frame_batched(
         nr, fr, dg = near_p[:, sl], far_p[:, sl], dirs_p[:, sl]
         if two_pass:
             nr, fr = _probe_tighten(field, origin, dg, nr, fr, center, n_probe)
-        z = _bin_midpoints(gen, nr, fr, n_bins)
+        z = _bin_midpoints(gen, nr, fr, n_bins, rows=(start, o_all))
         a, col, _ = field(origin + dg[..., None, :] * z[..., None] - center)
         w = rendering.occupancy_to_termination(rendering.occupancy_activation(a[..., 0]))
         depth_m[:, sl], color_m[:, sl], opac_m[:, sl] = _composite(w, z, col)
@@ -361,9 +392,31 @@ def render_frame_batched(
         upd = (d < zb[idx_c[o]]) & (i < n)
         tgt = torch.where(upd, i, n)
         zb[tgt] = d
-        win[tgt] = o
+        win[tgt] = start + o
         rgbb[tgt] = color_m[o]
-    return {"depth": zb[:n], "winner": win[:n], "color": rgbb[:n], "n_hit": n_hit}
+    out = {"depth": zb[:n], "winner": win[:n], "color": rgbb[:n], "n_hit": n_hit}
+    if n_shards > 1:
+        out = _merge_blocks(out)
+    return out
+
+
+def _stack_size(stacked_params: dict) -> int:
+    return stacked_params["mlp"]["in_layer"]["w"].shape[0]
+
+
+def _merge_blocks(out: dict) -> dict:
+    """Every rank's block render, gathered over "object" and merged in rank
+    order: a later rank's object wins only where it is strictly nearer,
+    the unsharded z-buffer's rule. ``n_hit`` becomes the whole [O]."""
+    g = sharding.gather_objects({"depth": out["depth"][None], "winner": out["winner"][None],
+                                 "color": out["color"][None], "n_hit": out["n_hit"]})
+    depth, winner, color = g["depth"][0], g["winner"][0], g["color"][0]
+    for r in range(1, g["depth"].shape[0]):
+        better = g["depth"][r] < depth
+        depth = torch.where(better, g["depth"][r], depth)
+        winner = torch.where(better, g["winner"][r], winner)
+        color = torch.where(better[:, None], g["color"][r], color)
+    return {"depth": depth, "winner": winner, "color": color, "n_hit": g["n_hit"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -428,8 +481,13 @@ def render_frame_bucketed(
     and the buckets' z-buffers merge by strictly nearer depth. Returns the
     ``render_frame_batched`` dict (winner indices into the full stack) plus
     ``"bins"`` [O] (numpy). ``hit_counts``: a precomputed
-    ``obb_hit_counts`` [O], so the slab test runs once per frame."""
+    ``obb_hit_counts`` [O], so the slab test runs once per frame. The
+    stack is whole, also on a split object axis (``sharding.gather_objects``
+    of a block): its buckets pick objects across the blocks."""
     o_count = extents.shape[0]
+    if _stack_size(stacked_params) != o_count:
+        raise ValueError(f"render_frame_bucketed takes the whole stack of {o_count} "
+                         f"objects, not {_stack_size(stacked_params)}")
     n = origins.shape[0]
     dev = origins.device
     bins = bucket_bin_counts(extents.cpu().numpy(), active.cpu().numpy(), n_bins,

@@ -10,6 +10,14 @@ The stacked object axis grows in power-of-two buckets (8, 16, 32, ...)
 capped at ``max_objects``. A frame's loss vector stays on the device until
 the next frame is dispatched (one-deep pipelining), so the host prepares
 frame N+1 while the device trains frame N.
+
+On a split object axis (``sharding.shard_scene`` of ``mapper.state``, then
+``process_frame`` inside ``sharding.use_mesh``) each rank holds its block
+of slots and the registry and frame store whole. Every rank makes every
+draw the unsharded mapper makes (new slots' params, the grown bucket, the
+frame's rays), so the generators stay in step and each block trains as the
+unsharded mapper's slots do; a slot's params are written by the rank that
+holds it, and ``slot_params`` sends them from there to every rank.
 """
 
 from __future__ import annotations
@@ -102,39 +110,52 @@ class SceneMapper:
     # ------------------------------------------------------------------ #
 
     def _ensure_capacity(self, n_objects: int):
-        if n_objects <= self.state.n_slots:
+        if n_objects <= self.state.global_slots:
             return
         # never outgrow the registry, whose tables are sized [max_objects]
         bucket = min(_next_bucket(n_objects), self.max_objects)
         self.state = trainer.grow_train_state(self.gen, self.state, self.cfg, bucket)
 
+    def _block(self) -> slice:
+        """This rank's slots of the whole run's."""
+        n = self.state.n_slots
+        start = sharding.slot_offset(n)
+        return slice(start, start + n)
+
     def _allocate_new_slots(self, slots: list[int]):
-        """Fresh params + zeroed optimizer state for reused/new slots."""
+        """Fresh params + zeroed optimizer state for reused/new slots. Every
+        rank draws each slot's params, so that the generators stay in step;
+        the rank holding the slot writes them."""
+        block = self._block()
         for slot in slots:
             p = object_field.init_field_params(
                 self.gen, hidden=self.cfg.hidden, clip_size=self.cfg.clip_size,
                 scale=self.cfg.obj_scale, max_deg=self.cfg.max_deg,
                 device=self.device)
-            self.state.fg_params = object_field.write_slot(self.state.fg_params, slot, p)
-            self.state.fg_opt = optim.reset_slot(self.state.fg_opt, slot)
+            if block.start <= slot < block.stop:
+                at = slot - block.start
+                self.state.fg_params = object_field.write_slot(self.state.fg_params, at, p)
+                self.state.fg_opt = optim.reset_slot(self.state.fg_opt, at)
 
     def _to_dev(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), device=self.device)
 
     def _fg_tables_device(self) -> dict:
-        n = self.state.n_slots
+        """The fg keyframe tables of this rank's slots, as ``train_frame``
+        takes them."""
+        b = self._block()
         r = self.registry
         centers = np.zeros((self.max_objects, 3), np.float32)
         for slot, st in r.slots.items():
             centers[slot] = st.obj_center
         return {
-            "kf_frames": self._to_dev(r.kf_frames[:n]),
-            "kf_bbox": self._to_dev(r.kf_bbox[:n]),
-            "n_kf": self._to_dev(r.n_kf[:n]),
-            "latest2": self._to_dev(r.latest2[:n]),
-            "active": self._to_dev(r.active[:n]),
-            "obj_inst": self._to_dev(r.obj_inst[:n]),
-            "obj_center": self._to_dev(centers[:n]),
+            "kf_frames": self._to_dev(r.kf_frames[b]),
+            "kf_bbox": self._to_dev(r.kf_bbox[b]),
+            "n_kf": self._to_dev(r.n_kf[b]),
+            "latest2": self._to_dev(r.latest2[b]),
+            "active": self._to_dev(r.active[b]),
+            "obj_inst": self._to_dev(r.obj_inst[b]),
+            "obj_center": self._to_dev(centers[b]),
         }
 
     def _bg_tables_device(self) -> dict:
@@ -158,15 +179,18 @@ class SceneMapper:
     ):
         """Ingest one posed RGB-D frame and run one frame's optimization.
         Returns the per-step loss vector (a device tensor) or None if
-        train=False."""
+        train=False. Inside ``sharding.use_mesh`` every rank calls it with
+        the same frame; the state must have been cut for that mesh's
+        "object" axis, and ``max_objects`` must be a multiple of it."""
         from openobj_torch.data.transforms import instance_bboxes
 
-        if sharding.axis_size("object") > 1:
-            # the registry's tables and slot writes are the whole run's
-            raise NotImplementedError(
-                "SceneMapper.process_frame on a state split over the 'object' "
-                "mesh axis is not ported (ROADMAP A16c); train a sharded state "
-                "with trainer.train_frame")
+        trainer.check_mesh(self.state)
+        n_shards = self.state.n_shards
+        if self.max_objects % n_shards:
+            # the bucket stops at max_objects, which every rank must split alike
+            raise ValueError(
+                f"max_objects ({self.max_objects}) is not a multiple of the 'object' "
+                f"mesh axis ({n_shards})")
         at = None
         if self.store.n_frames >= self.store.capacity:
             at = self._evict_frame_slot()
@@ -250,9 +274,16 @@ class SceneMapper:
         return self.registry.n_objects
 
     def slot_params(self, slot: int) -> dict:
-        return object_field.slice_slot(self.state.fg_params, slot)
+        """One slot's params, by the whole run's slot index. On a split
+        object axis, a collective: the rank holding the slot sends it to
+        every rank, so every rank calls this for the same slots in the
+        same order."""
+        trainer.check_mesh(self.state)
+        return sharding.broadcast_slot(self.state.fg_params, slot)
 
     def params_for_instance(self, inst_id: int) -> dict:
+        """An instance's params (the background model's for id 0 with
+        ``do_bg``); a collective as ``slot_params`` is."""
         if self.cfg.do_bg and inst_id == 0:
             return self.state.bg_params
         return self.slot_params(self.registry.inst_to_slot[inst_id])

@@ -34,6 +34,18 @@ same state, tables and store, e.g. built from the same seed)::
         state, losses = trainer.train_frame(state, store, cam_dirs, tables,
                                             bg_tables, gen, cfg)
 
+The mapper runs on a split axis too: every rank builds the same
+``SceneMapper`` (same config and seed), cuts its state and feeds it the same
+frames. Growth (``trainer.grow_train_state``) has every rank draw the new
+slots and keep its block of the grown axis (``grow_objects``); one slot's
+params go from the rank holding it to every rank (``broadcast_slot``); the
+npz snapshot gathers the state and one rank writes it; the batched render
+merges the blocks' z-buffers in rank order::
+
+    mapper.state, _ = shard_scene(mesh, mapper.state, {})
+    with use_mesh(mesh):
+        losses = mapper.process_frame(rgb, depth, inst, t_wc)
+
 NCCL joins ranks on the cards, one card each; gloo joins CPU processes, which
 is how the tests run 2 and 4 ranks.
 """

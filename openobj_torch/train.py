@@ -145,9 +145,13 @@ def render_stack(mapper, bg_ids=(0, 2, 3)):
     box whose id is not a background id, in registry order. Returns
     (instance ids [O] int32 numpy, stacked params, OBB->world [O, 4, 4],
     extents [O, 3], centres [O, 3]) on the mapper's device, or None when
-    there is no such object."""
+    there is no such object. On a split object axis the stack is gathered
+    whole on every rank (a collective: every rank calls it)."""
+    from openobj_torch.core import trainer
     from openobj_torch.models import object_field
+    from openobj_torch.parallel import sharding
 
+    trainer.check_mesh(mapper.state)
     reg = mapper.registry
     fg = [(i, s) for i, s in reg.inst_to_slot.items()
           if reg.slots[s].bbox3d is not None and i not in bg_ids]
@@ -162,7 +166,8 @@ def render_stack(mapper, bg_ids=(0, 2, 3)):
     centers = np.asarray([reg.slots[s].obj_center for _, s in fg], np.float32)
     slot_idx = torch.as_tensor([s for _, s in fg], device=dev)
     return (np.asarray([i for i, _ in fg], np.int32),
-            object_field.tree_map(lambda x: x[slot_idx], mapper.state.fg_params),
+            object_field.tree_map(lambda x: x[slot_idx],
+                                  sharding.gather_objects(mapper.state.fg_params)),
             *(torch.as_tensor(x, device=dev) for x in (t_wo, extents, centers)))
 
 
