@@ -54,8 +54,7 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      same start state and generator seed, counts reset around the sharded
      frame: K1/K2/K2r 200 times at the room_0 shapes and nothing plain or
      eager, losses equal to the unsharded frame's bit for bit (on a mesh of
-     one; within SHARDED_RTOL on more ranks); then one more frame of each,
-     in the order sharded, unsharded, for ms per frame; then
+     one; within SHARDED_RTOL on more ranks), ms per frame of each; then
      save_scene_sharded (a DCP directory) and load_scene_sharded into a
      fresh mapper sharded on the same mesh: every leaf bit-identical, the
      registry equal; prints ms per sharded frame, the largest relative loss
@@ -1274,10 +1273,10 @@ def run_room0_sharded(device, cfg, mapper, frames, vecs) -> dict:
     """Phase 4i: one frame of phase 4's mapper (its state, tables and
     store) trained unsharded and one through shard_scene and the sharded
     train_frame on a mesh of the one card (NCCL as a group of one), from
-    the same start state and seed, counts reset around the sharded frame,
-    and one more frame of each (sharded, then unsharded) for the times;
+    the same start state and seed, counts reset around the sharded frame;
     then the sharded snapshot saved and loaded into a fresh mapper, every
-    leaf bit-identical. Leaves ``mapper`` with the sharded frame's state."""
+    leaf bit-identical; then ``sharded_mapper``. Leaves ``mapper`` with the
+    sharded frame's state."""
     import torch
     import torch.distributed as dist
     from openobj_torch.config import make_mapper
@@ -1343,15 +1342,10 @@ def run_room0_sharded(device, cfg, mapper, frames, vecs) -> dict:
         if not (np.array_equal(sharded, single) if limit == 0.0 else rel <= limit):
             raise AssertionError(f"[room_0 sharded] losses {rel:.3e} apart (limit "
                                  f"{limit}): {sharded} vs {single}")
-        # a second frame of each, in the other order (unsharded, sharded,
-        # sharded, unsharded), so that neither is timed only first
-        frame_ms = [frame_ms, sharded_frame()[2]]
-        single_ms = [single_ms, unsharded()[1]]
         log(f"[room_0 sharded] one frame on a mesh of one card ({dict(zip(mesh.mesh_dim_names, mesh.shape))},"
             f" NCCL; group, mesh and communicator made in {init_s:.3f} s): "
-            f"{frame_ms[0]:.1f}, {frame_ms[1]:.1f} ms (unsharded, same start and seed: "
-            f"{single_ms[0]:.1f}, {single_ms[1]:.1f} ms, run in the order unsharded, sharded, "
-            f"sharded, unsharded after phase 4h); launches by shape {by_shape}; largest "
+            f"{frame_ms:.1f} ms (unsharded, same start and seed, run first after phase 4h: "
+            f"{single_ms:.1f} ms); launches by shape {by_shape}; largest "
             f"relative loss difference {rel:.3e} (limit {limit}); last losses "
             f"{float(sharded[-1]):.6f} / {float(single[-1]):.6f}")
 
