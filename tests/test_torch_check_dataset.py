@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 cv2 = pytest.importorskip("cv2")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 

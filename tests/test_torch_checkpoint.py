@@ -29,6 +29,7 @@ from openobj_torch.core import scene as tscene  # noqa: E402
 from openobj_torch.core import trainer as ttrainer  # noqa: E402
 from openobj_torch.models import object_field as tof  # noqa: E402
 from openobj_torch.ops import fused_field as tff  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 CFG_KW = dict(n_iters_per_frame=2, win_size=2, n_samples_per_frame=8, win_size_bg=2,
               n_samples_per_frame_bg=16, hidden=8, hidden_bg=16, clip_size=16)

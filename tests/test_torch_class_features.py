@@ -19,6 +19,7 @@ from openobj_tpu.viz import viewer as jviewer
 from openobj_torch import train as ttrain
 from openobj_torch.perception import class_features as tcf
 from openobj_torch.viz import viewer as tviewer
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 RENDER_CONFIG = (
     "# render settings\n"

@@ -7,6 +7,7 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 sys.path.insert(0, os.path.dirname(__file__))
 

@@ -12,20 +12,9 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The examples' CPU training is many small ops: one intra-op thread
-    runs them as fast alone and far faster beside other test workers."""
-    import torch
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _example(name):

@@ -23,6 +23,7 @@ from openobj_tpu.ops import fused_field as jff  # noqa: E402
 from openobj_torch import convert  # noqa: E402
 from openobj_torch.models import object_field as tof  # noqa: E402
 from openobj_torch.ops import fused_field as tff  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FWD_ATOL = 1e-5
 

@@ -38,6 +38,7 @@ from test_interop import (  # noqa: E402
     CLIP, HIDDEN, TorchOccupancyMap, TorchUniDirsEmbed, _save_reference_pth,
 )
 from test_torch_outputs import VERT_ATOL  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FIELD_ATOL = 1e-5     # one f32 MLP of width 16 evaluated by two libraries
 PART_ATOL = 1e-3      # unit part features at vertices up to VERT_ATOL apart

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 cv2 = pytest.importorskip("cv2")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

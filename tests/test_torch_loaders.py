@@ -26,6 +26,7 @@ from openobj_torch.config import load_scene_config as tload  # noqa: E402
 from openobj_torch.data import loaders as tl  # noqa: E402
 from openobj_torch.data import transforms as ttf  # noqa: E402
 from test_dataset_cli import H, W, _config_json, write_replica_dataset  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 RGB_LSB = 1
 PART_ATOL = 1e-6

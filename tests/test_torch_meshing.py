@@ -26,6 +26,7 @@ from openobj_torch.ops import fused_field as tff  # noqa: E402
 from openobj_torch.ops import marching as tmarch  # noqa: E402
 from openobj_torch.ops import rendering as trend  # noqa: E402
 from openobj_torch.utils.geometry import OrientedBox as TBox  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _field(h=32, bias=0.3, seed=0):

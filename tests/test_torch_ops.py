@@ -22,6 +22,7 @@ from openobj_torch.models import object_field as tof  # noqa: E402
 from openobj_torch.ops import embedding as temb  # noqa: E402
 from openobj_torch.ops import losses as tlosses  # noqa: E402
 from openobj_torch.ops import sampling as tsamp  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _t(x):

@@ -12,6 +12,7 @@ from openobj_tpu.core import optim as joptim  # noqa: E402
 from openobj_tpu.models import object_field as jof  # noqa: E402
 from openobj_torch import convert  # noqa: E402
 from openobj_torch.core import optim as toptim  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # same formulas and operation order; the float32 power b^t may differ by an
 # ulp between the two libraries

@@ -49,6 +49,7 @@ from openobj_torch.utils import geometry as tgeom  # noqa: E402
 from openobj_torch.utils import png  # noqa: E402
 from openobj_torch.viz import export as texport  # noqa: E402
 from test_torch_renderer import Replay, batched_draws, obb_draws  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 CFG_KW = dict(n_iters_per_frame=2, win_size=2, n_samples_per_frame=8, win_size_bg=2,
               n_samples_per_frame_bg=16, hidden=32, hidden_bg=16, clip_size=16)

@@ -33,6 +33,7 @@ from openobj_torch.perception import pipeline as tpipe  # noqa: E402
 from openobj_torch.perception import projection as tproj  # noqa: E402
 from openobj_torch.perception import similarity as tsim  # noqa: E402
 from openobj_torch.utils.dbscan import dbscan_labels  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SIM_ATOL = 1e-6
 

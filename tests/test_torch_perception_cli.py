@@ -35,6 +35,7 @@ from openobj_torch.data import synthetic  # noqa: E402
 from openobj_torch.perception import auto as tauto  # noqa: E402
 from openobj_torch.perception import cli as tcli  # noqa: E402
 from openobj_torch.utils import yaml_subset  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 W, H, N_FRAMES = 64, 48, 20
 CAM = dict(width=W, height=H, fx=0.65 * W, fy=0.65 * W, cx=W / 2.0, cy=H / 2.0)

@@ -33,6 +33,7 @@ from openobj_torch.perception import mask_generation as tmg  # noqa: E402
 from openobj_torch.perception import partfeat as tpf  # noqa: E402
 from openobj_torch.perception import tracking as ttr  # noqa: E402
 from openobj_torch.perception.segmentation import GraphSegmenter as TSeg  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 W, H = 96, 72
 FX = 0.65 * W

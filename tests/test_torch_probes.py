@@ -30,6 +30,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from openobj_torch.ops import probes  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 RTOL = 1e-5          # max|d| / max|ref|: FP32 sums in another order

@@ -29,6 +29,7 @@ from openobj_tpu.utils.geometry import OrientedBox  # noqa: E402
 from openobj_torch import convert  # noqa: E402
 from openobj_torch.core import renderer as tr  # noqa: E402
 from openobj_torch.ops import fused_field as tff  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = {"color": 5e-5, "partfeat": 2e-4}   # else 1e-5
 # bf16: the two encodings differ by up to 1e-5 (test_torch_ops.PE_ATOL), so

@@ -18,6 +18,7 @@ from openobj_torch import native  # noqa: E402
 from openobj_torch.core.scene import Camera  # noqa: E402
 from openobj_torch.data import synthetic  # noqa: E402
 from openobj_torch.perception import segmentation as tseg  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 W, H = 96, 72
 FX = 0.65 * W

@@ -20,6 +20,7 @@ from openobj_tpu.viz import viewer as jviewer
 from openobj_torch.viz import server as tserver
 from openobj_torch.viz import viewer as tviewer
 from test_torch_viewer import exact_pca, make_bundle  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 QUERIES = [("a red chair", None, None), ("wooden table", None, 1), ("wall", None, 2),
            ("a red chair", "leg", None), ("lamp", "shade", 2), ("sofa", "cushion", 3)]

@@ -26,19 +26,10 @@ from openobj_torch.config import load_scene_config, make_mapper  # noqa: E402
 from openobj_torch.core.checkpoint import load_scene  # noqa: E402
 from openobj_torch.viz import query as tquery  # noqa: E402
 from test_dataset_cli import _config_json, _unit, write_replica_dataset  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 PCA_ATOL = 1e-5
 QUERY_ATOL = 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The CPU training here is many small ops: one intra-op thread runs
-    them as fast alone and far faster beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

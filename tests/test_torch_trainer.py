@@ -1,7 +1,9 @@
 """The slice as a whole: the port's training steps and SceneMapper against
-the JAX package.
+the JAX package (the step losses of each field path and dtype are
+tests/test_torch_trainer_steps.py's, the field's dispatch by shape
+tests/test_torch_trainer_dispatch.py's, on this file's helpers).
 
-The step test feeds both packages byte-identical ray batches: the JAX
+The step tests feed both packages byte-identical ray batches: the JAX
 ``train_frame`` regenerates them internally from its key, and
 ``scripts/reference_twin.py``'s ``export_frame_batches`` replays the same key
 splits to export them as numpy, which the port's ``run_step`` consumes from
@@ -9,7 +11,6 @@ the JAX initial state carried across by ``convert``.
 """
 
 import dataclasses
-import functools
 import importlib.util
 from pathlib import Path
 
@@ -29,6 +30,7 @@ from openobj_torch import convert  # noqa: E402
 from openobj_torch.core import frame_store as tfs  # noqa: E402
 from openobj_torch.core import scene as tscene  # noqa: E402
 from openobj_torch.core import trainer as ttrainer  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -107,81 +109,6 @@ def _step_losses(monkeypatch, jcfg, tcfg):
             {k: torch.from_numpy(np.array(v)) for k, v in bsl.items()}, active, tcfg)
         tlosses.append(float(loss))
     return np.array(tlosses), jlosses
-
-
-def _jax_kernel_at(monkeypatch, compute_dtype):
-    """The JAX trainer's pallas path calls its kernel without the config's
-    compute_dtype (trainer._loss_for_slice: the kernel runs in f32 and only
-    the part loss follows compute_dtype); the port's kernels follow it, so
-    the JAX kernel is handed it here."""
-    from openobj_tpu.ops import fused_field as jff
-
-    for name in ("field_apply_stacked_fused", "field_apply_fused"):
-        monkeypatch.setattr(jff, name, functools.partial(getattr(jff, name),
-                                                         compute_dtype=compute_dtype))
-
-
-# (field_impl, overrides): f32 on both fields; bf16 through the kernels (the
-# port's plain version against the JAX kernel in bf16), and at max_deg 4,
-# which the kernels do not cover, through both packages' eager field in bf16
-# (the JAX package's XLA field). Losses rel 1e-4 in all five: bf16's own
-# rounding is the same on both sides, and where the two round an element
-# differently (one bf16 ulp, after a sum in another order or the encodings'
-# 1e-5 difference) AdamW's normalised step barely notices. "xla-bf16" is
-# the default config at bf16 against the JAX trainer as it is: the port
-# takes its kernels' plain version (the JAX kernel's numerics), the JAX
-# trainer its XLA field, whose weight gradients are rounded to bf16 (8e-3
-# apart on the worst leaf); measured 5.1e-5 over these 4 steps, and the
-# two drift apart with more steps (2.9e-4 by step 6 of 8).
-_STEP_CASES = {
-    "xla": ("xla", {}),
-    "pallas": ("pallas", {}),
-    "pallas-bf16": ("pallas", dict(compute_dtype="bf16")),
-    "xla-bf16": ("xla", dict(compute_dtype="bf16")),
-    "xla-bf16-max_deg4": ("xla", dict(compute_dtype="bf16", max_deg=4)),
-}
-
-
-@pytest.mark.parametrize("case", list(_STEP_CASES))
-def test_step_losses_match_jax_train_frame(case, monkeypatch):
-    field_impl, kw = _STEP_CASES[case]
-    if field_impl == "pallas" and kw:
-        _jax_kernel_at(monkeypatch, kw["compute_dtype"])
-    jcfg = jtrainer.TrainConfig(field_impl=field_impl, **CFG_KW, **kw)
-    tcfg = ttrainer.TrainConfig(field_impl=field_impl, **CFG_KW, **kw)
-    tlosses, jlosses = _step_losses(monkeypatch, jcfg, tcfg)
-    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
-    assert len(set(tlosses)) == len(tlosses)   # every step moved the params
-
-
-# (config overrides, fg steps through the kernels' plain version, bg steps
-# through it); every other field call takes the eager field
-_C1_CASES = {
-    "max_deg4": (dict(max_deg=4, hidden=32, hidden_bg=128), 0, 0),
-    "h32_bg16": (dict(hidden=32), 1, 1),
-    "h32_bg128": (dict(hidden=32, hidden_bg=128), 1, 1),    # the tensor-core widths
-}
-
-
-@pytest.mark.parametrize("case", list(_C1_CASES))
-def test_field_dispatch_by_shape(case, monkeypatch):
-    """A shape the kernels do not cover (another PE band count) trains
-    through the eager field and matches JAX's default XLA field, rel 1e-4;
-    covered shapes (max_deg 5, f32, any hidden width: K1 and K2 have a
-    SIMT kernel beside the tensor-core ones) take the kernels' path, their
-    plain version here, on both fields. (CFG_KW's own widths, 8 and 16, are
-    covered too: the test above.)"""
-    from openobj_torch.ops import fused_field as tff
-
-    kw, fg_fused, bg_fused = _C1_CASES[case]
-    cfg_kw = dict(CFG_KW, **kw)
-    jcfg, tcfg = jtrainer.TrainConfig(**cfg_kw), ttrainer.TrainConfig(**cfg_kw)
-    tff.reset_counts()
-    tlosses, jlosses = _step_losses(monkeypatch, jcfg, tcfg)
-    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
-    steps = cfg_kw["n_iters_per_frame"]
-    assert tff.COUNTS["fused_field_plain"] == steps * (fg_fused + bg_fused)
-    assert tff.COUNTS["field_eager"] == steps * (2 - fg_fused - bg_fused)
 
 
 def test_port_train_frame_runs_and_grows():
@@ -301,16 +228,6 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.fixture
-def one_torch_thread():
-    """Many small CPU ops: one intra-op thread runs them as fast alone and
-    far faster beside other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _ks_per_bin(zj, zt):
     """Two-sample KS per order statistic (the lattice's bins)."""
     from scipy import stats
@@ -375,7 +292,7 @@ def test_sample_per_step_draws_match_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(z_per_step=True), dict(sample_per_step=True)])
-def test_draw_order_options_train_like_upfront(kw, one_torch_thread):
+def test_draw_order_options_train_like_upfront(kw):
     """20 steps with the option land near the upfront path's loss (the JAX
     package's test_z_per_step_trains: the trailing 5 losses' means within
     half of the upfront path's)."""

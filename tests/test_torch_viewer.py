@@ -36,6 +36,7 @@ from openobj_torch.viz import colors as tcolors
 from openobj_torch.viz import query as tquery
 from openobj_torch.viz import viewer as tviewer
 from openobj_torch.viz import viewer_math as tvm
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TABLES = [("replica", False), ("replica", True), ("scannet", False)]
 SKLEARN_PCA = sklearn.decomposition.PCA
