@@ -2492,11 +2492,46 @@ def write_scannet_scan(raw, dest) -> dict:
             "psnr_min": min(psnr)}
 
 
+# the committed progressive ScanNet-size fixture, timed in phase 4g beside
+# the scan's baseline frames, and the times it is decoded
+JPEG_PROGRESSIVE = "tabletop_968x1296_q95_420_progressive.jpg"
+JPEG_PROGRESSIVE_REPS = 3
+
+
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi gives them ("not
+    measured" where nvidia-smi is missing, as in the CPU rehearsal)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "card not measured"
+
+
+def _decode_ms(data: bytes) -> tuple[float, float]:
+    """ms of one decode: parse + entropy decode (native), then the rest
+    (IDCT, upsampling, colour, orientation; numpy)."""
+    from openobj_torch.utils import jpeg
+
+    t0 = time.perf_counter()
+    frame = jpeg.parse(data)
+    coefs = jpeg.entropy_decode(frame, data)
+    t1 = time.perf_counter()
+    jpeg.orient(jpeg.reconstruct(frame, coefs), frame.orientation)
+    t2 = time.perf_counter()
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
 def check_jpeg_decoder(root) -> dict:
-    """The committed fixtures decoded to the stored SHA-256 of OpenCV's
-    decode (shape too), then ms per decoded 968x1296 JPEG, entropy decode
-    (native) and the rest (IDCT, upsampling, colour; numpy), medians over
-    the scan's frames."""
+    """The committed fixtures (baseline, progressive, EXIF orientation 6,
+    CMYK, YCCK) decoded to the stored SHA-256 of OpenCV's decode (shape
+    too), then ms per decoded 968x1296 JPEG, entropy decode (native) and
+    the rest (IDCT, upsampling, colour; numpy): medians over the scan's
+    baseline frames, and over JPEG_PROGRESSIVE_REPS decodes of the
+    progressive fixture, with the card's name and power limit (the decode
+    runs on the host)."""
     import hashlib
 
     from openobj_torch.utils import jpeg
@@ -2509,23 +2544,27 @@ def check_jpeg_decoder(root) -> dict:
         if list(rgb.shape) != entry["shape"] or got != entry["sha256"]:
             raise AssertionError(f"[scannet] fixture {name}: {rgb.shape} {got}, OpenCV's decode "
                                  f"{entry['shape']} {entry['sha256']}")
-    entropy_ms, rest_ms = [], []
+    times = []
     for i in range(SCANNET_RAW_FRAMES):
         with open(os.path.join(root, "color", f"{i}.jpg"), "rb") as f:
-            data = f.read()
-        t0 = time.perf_counter()
-        frame = jpeg.parse(data)
-        coefs = jpeg.entropy_decode(frame, data)
-        t1 = time.perf_counter()
-        jpeg.reconstruct(frame, coefs)
-        t2 = time.perf_counter()
-        entropy_ms.append(1e3 * (t1 - t0))
-        rest_ms.append(1e3 * (t2 - t1))
-    res = {"entropy_ms": float(np.median(entropy_ms)), "rest_ms": float(np.median(rest_ms))}
+            times.append(_decode_ms(f.read()))
+    with open(os.path.join(JPEG_FIXTURES, JPEG_PROGRESSIVE), "rb") as f:
+        data = f.read()
+    if not jpeg.parse(data).progressive:
+        raise AssertionError(f"[scannet] {JPEG_PROGRESSIVE} is not progressive")
+    prog = [_decode_ms(data) for _ in range(JPEG_PROGRESSIVE_REPS)]
+    res = {"entropy_ms": float(np.median([t[0] for t in times])),
+           "rest_ms": float(np.median([t[1] for t in times])),
+           "progressive_entropy_ms": float(np.median([t[0] for t in prog])),
+           "progressive_rest_ms": float(np.median([t[1] for t in prog]))}
+    size = f"{SCANNET_COLOUR[0]}x{SCANNET_COLOUR[1]}"
     log(f"[scannet] JPEG fixtures {sorted(want)} decoded equal to their digests of OpenCV's "
-        f"decode; ms per decoded {SCANNET_COLOUR[0]}x{SCANNET_COLOUR[1]} JPEG (median of "
-        f"{SCANNET_RAW_FRAMES}): {res['entropy_ms'] + res['rest_ms']:.1f} = entropy decode "
-        f"{res['entropy_ms']:.1f} + the rest {res['rest_ms']:.1f}")
+        f"decode; ms per decoded {size} JPEG on the host of {_card()}: baseline (median of "
+        f"{SCANNET_RAW_FRAMES}) {res['entropy_ms'] + res['rest_ms']:.1f} = entropy decode "
+        f"{res['entropy_ms']:.1f} + the rest {res['rest_ms']:.1f}; progressive {JPEG_PROGRESSIVE} "
+        f"(median of {JPEG_PROGRESSIVE_REPS}) "
+        f"{res['progressive_entropy_ms'] + res['progressive_rest_ms']:.1f} = entropy decode "
+        f"{res['progressive_entropy_ms']:.1f} + the rest {res['progressive_rest_ms']:.1f}")
     return res
 
 

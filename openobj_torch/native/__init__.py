@@ -11,8 +11,8 @@ The port's counterpart of ``openobj_tpu.native``. ``geometry.cc`` and
   * ``louvain.cc``: Louvain community detection over the association graph
     (``louvain_labels``);
   * ``jpeg.cc`` (the port's own): the Huffman entropy decode of one
-    baseline JPEG scan into coefficient blocks (``jpeg_decode_scan``, for
-    ``utils.jpeg``).
+    sequential or progressive JPEG scan into coefficient blocks
+    (``jpeg_decode_scan``, for ``utils.jpeg``).
 
 Each is compiled with ``g++ -O3`` at first use into ``build/native/`` at the
 root of the checkout, under a name that carries a digest of the source and
@@ -113,6 +113,11 @@ def _declare_jpeg(lib) -> None:
     lib.jpeg_decode_scan.argtypes = [
         p_u8, c_i64, c_i64, ctypes.c_int, ctypes.POINTER(ctypes.c_int32), p_u8, p_u8,
         c_i64, c_i64, c_i64, ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)), p_i64]
+    lib.jpeg_decode_prog_scan.restype = ctypes.c_int
+    lib.jpeg_decode_prog_scan.argtypes = [
+        p_u8, c_i64, c_i64, ctypes.c_int, ctypes.POINTER(ctypes.c_int32), p_u8, p_u8,
+        c_i64, c_i64, c_i64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)), p_i64]
 
 
 def load():
@@ -279,16 +284,19 @@ def louvain_labels(
 
 def jpeg_decode_scan(data: np.ndarray, start: int, params: np.ndarray, huff_bits: np.ndarray,
                      huff_vals: np.ndarray, mcus_x: int, mcus_y: int, restart: int,
-                     coefs: list) -> tuple[int, int]:
-    """Entropy-decode one baseline JPEG scan of ``data`` (uint8) from
-    ``start`` into the int16 [rows, blocks_w, 64] arrays ``coefs`` (one per
-    component of the scan, zeroed): (0 or a negative error code, offset of
-    the marker that ends the scan). ``params`` is [ncomp, 5] int32 {mcu_h,
-    mcu_v, blocks_w, dc slot, ac slot}; ``huff_bits`` [8, 16] and
-    ``huff_vals`` [8, 256] hold the DC tables in rows 0-3 and the AC tables
-    in rows 4-7. Raises when the library cannot be built: the Python loop
-    (``utils.jpeg.entropy_decode_plain``) is kept only as the plain
-    version that tests hold this one against."""
+                     coefs: list, spectral: tuple[int, int, int, int] | None = None
+                     ) -> tuple[int, int]:
+    """Entropy-decode one JPEG scan of ``data`` (uint8) from ``start`` into
+    the int16 [rows, blocks_w, 64] arrays ``coefs`` (one per component of
+    the scan): (0 or a negative error code, offset of the marker that ends
+    the scan). ``params`` is [ncomp, 5] int32 {mcu_h, mcu_v, blocks_w, dc
+    slot, ac slot}; ``huff_bits`` [8, 16] and ``huff_vals`` [8, 256] hold
+    the DC tables in rows 0-3 and the AC tables in rows 4-7. A sequential
+    scan (``spectral`` None) fills zeroed blocks; a progressive one
+    (``spectral`` = (Ss, Se, Ah, Al)) adds into the blocks the file's
+    earlier scans left. Raises when the library cannot be built: the
+    Python loop (``utils.jpeg.entropy_decode_plain``) is kept only as the
+    plain version that tests hold this one against."""
     lib = _require(load_jpeg(), "JPEG")
     d = np.ascontiguousarray(data, np.uint8)
     pr = np.ascontiguousarray(params, np.int32)
@@ -306,8 +314,13 @@ def jpeg_decode_scan(data: np.ndarray, start: int, params: np.ndarray, huff_bits
     ptrs = (ctypes.POINTER(ctypes.c_int16) * len(coefs))(
         *(c.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for c in coefs))
     end = ctypes.c_int64(0)
-    r = lib.jpeg_decode_scan(
-        d.ctypes.data_as(p_u8), len(d), start, len(coefs),
-        pr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), hb.ctypes.data_as(p_u8),
-        hv.ctypes.data_as(p_u8), mcus_x, mcus_y, restart, ptrs, ctypes.byref(end))
+    args = (d.ctypes.data_as(p_u8), len(d), start, len(coefs),
+            pr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), hb.ctypes.data_as(p_u8),
+            hv.ctypes.data_as(p_u8), mcus_x, mcus_y, restart)
+    if spectral is None:
+        r = lib.jpeg_decode_scan(*args, ptrs, ctypes.byref(end))
+    else:
+        sp = np.array(spectral, np.int32)
+        r = lib.jpeg_decode_prog_scan(*args, sp.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                                      ptrs, ctypes.byref(end))
     return r, end.value

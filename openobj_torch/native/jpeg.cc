@@ -1,5 +1,6 @@
-// Baseline JPEG entropy decoding: one scan's Huffman-coded data into int16
-// coefficient blocks per component (natural order, not yet dequantised).
+// JPEG Huffman entropy decoding: one scan's coded data into int16
+// coefficient blocks per component (natural order, not yet dequantised),
+// for sequential (baseline, extended) and progressive files.
 //
 // Called through ctypes by openobj_torch.utils.jpeg, which parses the
 // markers, dequantises, runs the IDCT, upsamples and converts colour. The
@@ -7,7 +8,13 @@
 // component, AC run lengths with ZRL and EOB, 0xFF00 byte stuffing, 0xFF fill
 // bytes before markers, and restart markers (after every restart interval
 // of MCUs the bit reader is byte-aligned, the RSTn marker checked and the DC
-// predictors reset). Unlike libjpeg it never pads corrupt data with zeros:
+// predictors reset). Progressive scans (T.81 G.1.2, jpeg_decode_prog_scan)
+// follow libjpeg-turbo's jdphuff.c: DC first and refinement scans, which
+// may be interleaved, and AC first and refinement scans of one component,
+// with spectral selection (Ss..Se), successive approximation (Ah/Al),
+// end-of-band runs that carry across blocks until a restart marker, and
+// the refinement scans' correction bits. Each scan adds into the blocks the
+// earlier scans left. Unlike libjpeg it never pads corrupt data with zeros:
 // any inconsistency returns a negative code.
 
 #include <cstdint>
@@ -24,6 +31,7 @@ enum : int {
   kBadTable = -5,       // a Huffman table that is not a valid canonical code
   kBadArgs = -6,
   kExtraData = -7,      // whole bytes of entropy data left after the last MCU
+  kBadDc = -8,          // a DC value that overflows its accumulator
 };
 
 // jpeg_natural_order: zigzag index -> natural (row-major) index
@@ -151,6 +159,49 @@ inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+// After a restart interval: drop the rest of the byte, check the RSTn marker
+// (after any 0xFF fill bytes) and restart the reader behind it.
+int restart_marker(Bits& br, int* rst_no) {
+  if (!br.align()) return kBadRestart;
+  int64_t p = br.pos;
+  while (p < br.n && br.d[p] == 0xFF) ++p;
+  if (p >= br.n || p == br.pos || br.d[p] != 0xD0 + *rst_no) return kBadRestart;
+  *rst_no = (*rst_no + 1) & 7;
+  br.pos = p + 1;
+  br.marker = false;
+  br.acc = 0;
+  br.bits = 0;
+  return kOk;
+}
+
+// pred += diff, refused where libjpeg refuses it (JERR_BAD_DCT_COEF)
+inline bool add_dc(int* pred, int diff) {
+  if ((*pred >= 0 && diff > INT32_MAX - *pred) || (*pred < 0 && diff < INT32_MIN - *pred))
+    return false;
+  *pred += diff;
+  return true;
+}
+
+// The end of a scan: no whole byte of entropy-coded data left over.
+int scan_end(Bits& br, int64_t* end) {
+  if (!br.align()) return kExtraData;
+  br.fill();                        // no-op unless nothing was read at all
+  if (br.bits) return kExtraData;
+  *end = br.pos;
+  return kOk;
+}
+
+// Build the tables of slots marked in used[8] (DC 0-3, then AC 0-3).
+int build_tables(const bool* used, const uint8_t* huff_bits, const uint8_t* huff_vals,
+                 Huff* tables) {
+  for (int t = 0; t < 8; ++t) {
+    if (!used[t]) continue;
+    int r = build_huff(huff_bits + 16 * t, huff_vals + 256 * t, &tables[t]);
+    if (r) return r;
+  }
+  return kOk;
+}
+
 }  // namespace
 
 extern "C" {
@@ -181,11 +232,7 @@ int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start, int ncomp,
     used[dc] = true;
     used[4 + ac] = true;
   }
-  for (int t = 0; t < 8; ++t) {
-    if (!used[t]) continue;
-    int r = build_huff(huff_bits + 16 * t, huff_vals + 256 * t, &tables[t]);
-    if (r) return r;
-  }
+  if (int r = build_tables(used, huff_bits, huff_vals, tables)) return r;
 
   Bits br{data, n, start, 0, 0, false};
   int pred[4] = {0, 0, 0, 0};
@@ -194,16 +241,7 @@ int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start, int ncomp,
   int rst_no = 0;
   for (int64_t m = 0; m < total; ++m) {
     if (restart > 0 && m > 0 && m % restart == 0) {
-      if (!br.align()) return kBadRestart;
-      // the reader stopped at a marker: 0xFF fill bytes, then RSTn
-      int64_t p = br.pos;
-      while (p < n && data[p] == 0xFF) ++p;
-      if (p >= n || p == br.pos || data[p] != 0xD0 + rst_no) return kBadRestart;
-      rst_no = (rst_no + 1) & 7;
-      br.pos = p + 1;
-      br.marker = false;
-      br.acc = 0;
-      br.bits = 0;
+      if (int r = restart_marker(br, &rst_no)) return r;
       pred[0] = pred[1] = pred[2] = pred[3] = 0;
     }
     int64_t my = m / mcus_x, mx = m % mcus_x;
@@ -222,7 +260,7 @@ int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start, int ncomp,
           if (s > 16) return kBadCode;
           int diff = s ? extend(br.get(s, &err), s) : 0;
           if (err) return err;
-          pred[c] += diff;
+          if (!add_dc(&pred[c], diff)) return kBadDc;
           blk[0] = (int16_t)pred[c];
           for (int k = 1; k < 64; ++k) {
             int rs = br.decode(act, &err);
@@ -244,11 +282,156 @@ int jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t start, int ncomp,
       }
     }
   }
-  if (!br.align()) return kExtraData;
-  br.fill();                        // no-op unless nothing was read at all
-  if (br.bits) return kExtraData;
-  *end = br.pos;
-  return kOk;
+  return scan_end(br, end);
+}
+
+// Decode one scan of a progressive file (T.81 G.1.2), as libjpeg-turbo's
+// jdphuff.c decodes it, into the blocks the earlier scans left:
+//   spectral:     {Ss, Se, Ah, Al}: Ss == 0 is a DC scan (Se == 0), which may
+//                 be interleaved; otherwise an AC scan of one component
+//                 (mcu_h = mcu_v = 1) over zigzag Ss..Se. Ah == 0 is a first
+//                 scan, Ah == Al + 1 a refinement of bit Al.
+// The other arguments are jpeg_decode_scan's; a DC refinement uses no
+// table, an AC scan only its AC slot, a DC first scan only its DC slots.
+int jpeg_decode_prog_scan(const uint8_t* data, int64_t n, int64_t start, int ncomp,
+                          const int32_t* params, const uint8_t* huff_bits,
+                          const uint8_t* huff_vals, int64_t mcus_x, int64_t mcus_y,
+                          int64_t restart, const int32_t* spectral, int16_t** coefs,
+                          int64_t* end) {
+  const int ss = spectral[0], se = spectral[1], ah = spectral[2], al = spectral[3];
+  const bool dc = ss == 0;
+  if (ncomp < 1 || ncomp > 4 || start < 0 || start > n || mcus_x < 1 || mcus_y < 1)
+    return kBadArgs;
+  // jdphuff.c's start_pass_phuff_decoder (JERR_BAD_PROGRESSION)
+  if (dc ? se != 0 : (ss > se || se > 63 || ncomp != 1)) return kBadArgs;
+  if ((ah != 0 && al != ah - 1) || al < 0 || al > 13) return kBadArgs;
+  Huff tables[8];
+  bool used[8] = {false};
+  for (int c = 0; c < ncomp; ++c) {
+    int dct = params[c * 5 + 3], act = params[c * 5 + 4];
+    if (dct < 0 || dct > 3 || act < 0 || act > 3) return kBadArgs;
+    if (!dc && (params[c * 5] != 1 || params[c * 5 + 1] != 1)) return kBadArgs;
+    if (dc && ah == 0) used[dct] = true;
+    if (!dc) used[4 + act] = true;
+  }
+  if (int r = build_tables(used, huff_bits, huff_vals, tables)) return r;
+
+  const int p1 = 1 << al;            // 1 in the bit being coded
+  const int m1 = -(1 << al);         // -1 in the bit being coded
+  Bits br{data, n, start, 0, 0, false};
+  int pred[4] = {0, 0, 0, 0};
+  int eobrun = 0;
+  int err = 0;
+  const int64_t total = mcus_x * mcus_y;
+  int rst_no = 0;
+  // a correction bit: |coefficient| grows by p1 unless that bit is set already
+  auto correct = [&](int16_t* t) {
+    if (br.get(1, &err) && (*t & p1) == 0) *t = (int16_t)(*t + (*t >= 0 ? p1 : m1));
+  };
+  for (int64_t m = 0; m < total; ++m) {
+    if (restart > 0 && m > 0 && m % restart == 0) {
+      if (int r = restart_marker(br, &rst_no)) return r;
+      pred[0] = pred[1] = pred[2] = pred[3] = 0;
+      eobrun = 0;
+    }
+    const int64_t my = m / mcus_x, mx = m % mcus_x;
+    for (int c = 0; c < ncomp; ++c) {
+      const int32_t* pc = params + c * 5;
+      const int mh = pc[0], mv = pc[1];
+      const int64_t bw = pc[2];
+      for (int v = 0; v < mv; ++v) {
+        for (int h = 0; h < mh; ++h) {
+          int16_t* blk = coefs[c] + ((my * mv + v) * bw + mx * mh + h) * 64;
+          if (dc && ah == 0) {                 // decode_mcu_DC_first
+            int s = br.decode(tables[pc[3]], &err);
+            if (err) return err;
+            if (s > 15) return kBadCode;
+            int diff = s ? extend(br.get(s, &err), s) : 0;
+            if (err) return err;
+            if (!add_dc(&pred[c], diff)) return kBadDc;
+            blk[0] = (int16_t)((uint32_t)pred[c] << al);
+          } else if (dc) {                     // decode_mcu_DC_refine
+            if (br.get(1, &err)) blk[0] = (int16_t)(blk[0] | p1);
+            if (err) return err;
+          } else if (ah == 0) {                // decode_mcu_AC_first
+            if (eobrun > 0) {
+              --eobrun;
+              continue;
+            }
+            const Huff& act = tables[4 + pc[4]];
+            for (int k = ss; k <= se; ++k) {
+              int rs = br.decode(act, &err);
+              if (err) return err;
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                k += r;
+                if (k > se) return kBadCoefIndex;
+                int v2 = br.get(s, &err);
+                if (err) return err;
+                blk[kNatural[k]] = (int16_t)((uint32_t)extend(v2, s) << al);
+              } else if (r == 15) {
+                k += 15;                       // ZRL
+              } else {                         // EOBr: 2^r + r more bits blocks
+                eobrun = 1 << r;
+                if (r) eobrun += br.get(r, &err);
+                if (err) return err;
+                --eobrun;                      // this block
+                break;
+              }
+            }
+          } else {                             // decode_mcu_AC_refine
+            const Huff& act = tables[4 + pc[4]];
+            int k = ss;
+            if (eobrun == 0) {
+              for (; k <= se; ++k) {
+                int rs = br.decode(act, &err);
+                if (err) return err;
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                  // the size of a new coefficient is always 1 (libjpeg warns
+                  // otherwise and reads the one sign bit all the same)
+                  s = br.get(1, &err) ? p1 : m1;
+                  if (err) return err;
+                } else if (r != 15) {
+                  eobrun = 1 << r;
+                  if (r) eobrun += br.get(r, &err);
+                  if (err) return err;
+                  break;                       // the rest is the EOB run's
+                }
+                // over the nonzero coefficients (a correction bit each) and
+                // r zero ones, to the zero one that becomes nonzero
+                do {
+                  int16_t* t = blk + kNatural[k];
+                  if (*t != 0) {
+                    correct(t);
+                    if (err) return err;
+                  } else if (--r < 0) {
+                    break;
+                  }
+                  ++k;
+                } while (k <= se);
+                if (s) {
+                  if (k > se) return kBadCoefIndex;
+                  blk[kNatural[k]] = (int16_t)s;
+                }
+              }
+            }
+            if (eobrun > 0) {                  // a block of the EOB run
+              for (; k <= se; ++k) {
+                int16_t* t = blk + kNatural[k];
+                if (*t != 0) {
+                  correct(t);
+                  if (err) return err;
+                }
+              }
+              --eobrun;
+            }
+          }
+        }
+      }
+    }
+  }
+  return scan_end(br, end);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding for ScanNet's colour frames (``color/<i>.jpg``).
+"""JPEG decoding for ScanNet's colour frames (``color/<i>.jpg``).
 
 The JAX package reads these frames with ``cv2.imread``; the card's machine
 has neither OpenCV nor PIL, so the port decodes them itself. ``read_jpeg``
@@ -6,28 +6,43 @@ returns, byte for byte, what ``cv2.imread(path)[..., ::-1]`` returns with
 OpenCV's bundled libjpeg-turbo at its defaults:
 
   * the marker parser reads SOI, APPn and COM (skipped, except JFIF, Adobe
-    APP14 and EXIF orientation), DQT (8- and 16-bit tables), DHT, SOF0/SOF1
-    with 8-bit samples, DRI, one or more SOS and EOI;
+    APP14 and the EXIF APP1 segments), DQT (8- and 16-bit tables),
+    DHT, SOF0/SOF1 (sequential) and SOF2 (progressive) with 8-bit samples,
+    DRI, one or more SOS and EOI;
   * the entropy decode runs natively (``native/jpeg.cc``, through ctypes,
     which drops the GIL: the loader decodes on its prefetch thread while
-    the trainer runs); ``entropy_decode_plain`` is the same decode as a
-    Python loop, kept for the tests;
+    the trainer runs): sequential scans, and progressive ones as
+    libjpeg-turbo's ``jdphuff.c`` decodes them (DC and AC first and
+    refinement scans, spectral selection, successive approximation, EOB
+    runs), each adding into the same coefficient blocks;
+    ``entropy_decode_plain`` is the same decode as a Python loop, kept for
+    the tests;
   * dequantisation and libjpeg's integer IDCT (``jidctint.c``'s ISLOW:
     CONST_BITS 13, PASS1_BITS 2, the post-IDCT range-limit table indexed
     with ``& RANGE_MASK``), in numpy over every block at once;
   * fancy upsampling as ``jdsample.c`` does it (``h2v1``, ``h2v2``,
     ``h1v2``; replication for a component at most 2 samples wide and for
     other integral factors), the rows above the first and below the last
-    being that row repeated (``jdmainct.c``'s context pointers);
+    being that row repeated (``jdmainct.c``'s context rows);
   * YCbCr -> RGB with ``jdcolor.c``'s fixed-point tables (SCALEBITS 16), and
     ``jdapimin.c``'s guess of the colour space (JFIF, then Adobe's
     transform, then the component ids). Grey is replicated to 3 channels
-    as OpenCV's colour read does.
+    as OpenCV's colour read does. A 4-component file is CMYK (Adobe
+    transform 0, or no Adobe marker) or YCCK (any other transform), which
+    libjpeg brings to CMYK (``ycck_cmyk_convert``) and OpenCV to BGR with
+    its integer formula (``icvCvt_CMYK2BGR_8u_C4C3R``);
+  * the EXIF orientation of the APP1 segments ahead of the first scan, as
+    OpenCV's ``ExifReader`` reads it (a malformed segment is ignored),
+    applied as its ``ExifTransform``: flips, transposes and rotations for
+    2-8.
 
-Progressive, lossless, arithmetic-coded and 12-bit files, 4-component
-(CMYK/YCCK) files and an EXIF orientation other than 1 raise
-``NotImplementedError`` (ROADMAP A14c). Corrupt or truncated data raises
-``JpegError``: nothing is padded with zeros, unlike libjpeg.
+A progressive file whose scans leave some of the first 9 AC coefficients
+short of bits is refused: libjpeg smooths such blocks
+(``jdcoefct.c``'s ``decompress_smooth_data``), which the port does not. So
+are lossless, arithmetic-coded and 12-bit files and a height given by a
+DNL marker: each raises ``NotImplementedError`` naming ROADMAP A14d.
+Corrupt or truncated data raises ``JpegError``: nothing is padded with
+zeros, unlike libjpeg.
 """
 
 from __future__ import annotations
@@ -37,7 +52,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-ROADMAP_ITEM = "A14c"
+ROADMAP_ITEM = "A14d"
 
 # jpeg_natural_order: zigzag index -> natural (row-major) index in a block
 NATURAL = np.array([
@@ -46,7 +61,7 @@ NATURAL = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+_SOF_NAMES = {0xC3: "lossless", 0xC5: "differential sequential",
               0xC6: "differential progressive", 0xC7: "differential lossless",
               0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
               0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded differential",
@@ -60,8 +75,8 @@ class JpegError(ValueError):
 
 def _refuse(what: str):
     raise NotImplementedError(
-        f"{what}: the port decodes baseline 8-bit grey or 3-component JPEG with "
-        f"orientation 1 only (ROADMAP {ROADMAP_ITEM})")
+        f"{what}: the port decodes sequential and progressive Huffman-coded 8-bit "
+        f"JPEG of 1, 3 or 4 components only (ROADMAP {ROADMAP_ITEM})")
 
 
 @dataclass
@@ -85,6 +100,7 @@ class Scan:
     start: int                      # offset of the entropy-coded data
     end: int                        # offset of the marker that ends it
     restart: int
+    spectral: tuple[int, int, int, int] = (0, 63, 0, 0)   # Ss, Se, Ah, Al
 
 
 @dataclass
@@ -95,6 +111,9 @@ class Frame:
     scans: list[Scan] = field(default_factory=list)
     jfif: bool = False
     adobe_transform: int | None = None
+    progressive: bool = False
+    smoothed: bool = False          # libjpeg would smooth its blocks (progressive)
+    orientation: int = 1            # EXIF, as OpenCV reads it (1 when absent)
 
     @property
     def hmax(self) -> int:
@@ -121,30 +140,83 @@ def _marker_positions(buf: np.ndarray) -> np.ndarray:
     return out
 
 
-def _orientation(payload: bytes) -> int:
-    """EXIF orientation from an APP1 payload, 1 when absent or unreadable."""
-    if not payload.startswith(b"Exif\x00\x00") or len(payload) < 14:
-        return 1
-    tiff = payload[6:]
-    end = {b"II": "<", b"MM": ">"}.get(tiff[:2])
-    if end is None:
-        return 1
+class _ExifEnd(Exception):
+    """A read past the end of the EXIF data (OpenCV's ExifParsingError)."""
+
+
+# IFD0 tags that OpenCV's ExifReader::parseExifEntry reads, by what it reads
+_EXIF_STRINGS = {0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298}
+_EXIF_RATIONALS = {0x011A: 1, 0x011B: 1, 0x013E: 2, 0x013F: 6, 0x0211: 3, 0x0214: 6}
+_EXIF_U16 = {0x0112, 0x0128, 0x0213}
+_EXIF_OFFSET, _ORIENTATION = 0x8769, 0x0112
+
+
+def _orientation(payload: bytes) -> int | None:
+    """The EXIF orientation of an APP1 payload as OpenCV's ``ExifReader``
+    reads it, None when absent: only a payload that starts with
+    ``Exif\\0\\0``, the TIFF header after it, little-endian only for
+    ``II``; IFD0's entries are read in order until one reads past the end,
+    and the entries read before it stand; a tag's first entry wins, and the
+    value is read whatever the entry's type."""
+    if len(payload) <= 6 or not payload.startswith(b"Exif\x00\x00"):
+        return None
+    d = payload[6:]
+    order = "little" if d[:2] == b"II" else "big"
+
+    def u(o: int, n: int) -> int:
+        if o + n - 1 >= len(d):
+            raise _ExifEnd
+        return int.from_bytes(d[o:o + n], order)
+
+    tags: dict[int, int] = {}
     try:
-        (ifd,) = struct.unpack(end + "I", tiff[4:8])
-        (n,) = struct.unpack(end + "H", tiff[ifd:ifd + 2])
-        for i in range(n):
-            e = tiff[ifd + 2 + 12 * i: ifd + 14 + 12 * i]
-            tag, typ = struct.unpack(end + "HH", e[:4])
-            if tag == 0x0112 and typ == 3:
-                return struct.unpack(end + "H", e[8:10])[0]
-    except struct.error:
-        return 1
-    return 1
+        if u(2, 2) != 0x2A:
+            return None
+        off = u(4, 4)
+        n = u(off, 2)
+        off = (off + 2) & 0xFFFFFFFF
+        for _ in range(n):
+            tag, value = u(off, 2), None
+            if tag in _EXIF_U16:
+                value = u(off + 8, 2)
+            elif tag in _EXIF_STRINGS:
+                size = u(off + 4, 4)
+                start = u(off + 8, 4) if size > 4 else 8
+                if start > len(d) or start + size > len(d):
+                    raise _ExifEnd
+            elif tag in _EXIF_RATIONALS:
+                ro = u(off + 8, 4)
+                for _r in range(_EXIF_RATIONALS[tag]):
+                    u(ro, 4)
+                    u(ro + 4, 4)
+                    ro = (ro + 8) & 0xFFFFFFFF
+            elif tag != _EXIF_OFFSET:
+                tag = 0xFFFF                # INVALID_TAG
+            tags.setdefault(tag, value)
+            off = (off + 12) & 0xFFFFFFFF
+    except _ExifEnd:
+        pass
+    return tags.get(_ORIENTATION)
+
+
+def orient(rgb: np.ndarray, orientation: int) -> np.ndarray:
+    """The image turned as OpenCV's ``ExifTransform`` turns it: 2 flips
+    left-right, 3 turns half way, 4 flips upside down, 5 transposes, 6
+    transposes and flips left-right (a quarter turn clockwise), 7
+    transposes and turns half way, 8 transposes and flips upside down;
+    any other value leaves it as it is."""
+    if orientation in (5, 6, 7, 8):
+        rgb = rgb.transpose(1, 0, 2)
+    flip = {2: (slice(None), slice(None, None, -1)), 3: (slice(None, None, -1),) * 2,
+            4: (slice(None, None, -1),), 6: (slice(None), slice(None, None, -1)),
+            7: (slice(None, None, -1),) * 2, 8: (slice(None, None, -1),)}.get(orientation, ())
+    return np.ascontiguousarray(rgb[flip])
 
 
 def parse(data: bytes) -> Frame:
-    """Walk the markers of a baseline JPEG: the frame, its tables and the
-    byte range of each scan's entropy-coded data."""
+    """Walk the markers of a JPEG file: the frame, its tables, each scan's
+    parameters and the byte range of its entropy-coded data, and the EXIF
+    orientation."""
     buf = np.frombuffer(data, np.uint8)
     if len(data) < 4 or data[:2] != b"\xff\xd8":
         raise JpegError("not a JPEG file (no SOI marker)")
@@ -152,8 +224,9 @@ def parse(data: bytes) -> Frame:
     qts: dict[int, np.ndarray] = {}
     huff: dict[tuple[int, int], tuple[np.ndarray, np.ndarray]] = {}
     frame: Frame | None = None
+    coef_bits = None                    # jdphuff.c's, per component and zigzag index
     restart = 0
-    jfif, adobe = False, None
+    jfif, adobe, orientation = False, None, None
     pos = 2
     while True:
         at = pos
@@ -176,7 +249,7 @@ def parse(data: bytes) -> Frame:
         pos += length
         if m in _SOF_NAMES or m == 0xCC:
             _refuse(f"{_SOF_NAMES.get(m, 'arithmetic-coded')} JPEG (SOF 0xFF{m:02X})")
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
             if frame is not None or len(seg) < 6:
                 raise JpegError("corrupt or second frame header")
             p, hgt, wid, nc = struct.unpack(">BHHB", seg[:6])
@@ -184,7 +257,7 @@ def parse(data: bytes) -> Frame:
                 _refuse(f"{p}-bit samples")
             if hgt == 0:
                 _refuse("a frame height given by a DNL marker")
-            if nc not in (1, 3):
+            if nc not in (1, 3, 4):
                 _refuse(f"{nc}-component JPEG")
             if wid == 0 or len(seg) < 6 + 3 * nc:
                 raise JpegError("corrupt frame header")
@@ -195,7 +268,8 @@ def parse(data: bytes) -> Frame:
                 if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
                     raise JpegError("corrupt sampling factors or table slot")
                 comps.append(Component(cid, h, v, tq))
-            frame = Frame(wid, hgt, comps)
+            frame = Frame(wid, hgt, comps, progressive=m == 0xC2)
+            coef_bits = np.full((nc, 64), -1, np.int64)
             hmax, vmax = frame.hmax, frame.vmax
             mx, my = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
             for c in comps:
@@ -243,17 +317,34 @@ def parse(data: bytes) -> Frame:
                 cs, tt = seg[1 + 2 * i], seg[2 + 2 * i]
                 if cs not in ids:
                     raise JpegError(f"scan names component {cs}, not in the frame")
+                if ids.index(cs) in comps:
+                    raise JpegError(f"scan names component {cs} twice")
                 comps.append(ids.index(cs))
                 tables.append((tt >> 4, tt & 15))
             ss, se, ahl = seg[1 + 2 * ns: 4 + 2 * ns]
-            if (ss, se, ahl) != (0, 63, 0):
-                raise JpegError(f"sequential scan with Ss={ss} Se={se} Ah/Al={ahl}")
+            ah, al = ahl >> 4, ahl & 15
+            if ns > 1 and sum(frame.components[i].h * frame.components[i].v
+                              for i in comps) > 10:
+                raise JpegError("an interleaved scan of more than 10 blocks an MCU")
+            if not frame.progressive:
+                if (ss, se, ahl) != (0, 63, 0):
+                    raise JpegError(f"sequential scan with Ss={ss} Se={se} Ah/Al={ahl}")
+                need = [(0, td) for td, _ in tables] + [(1, ta) for _, ta in tables]
+            else:
+                # jdphuff.c's start_pass_phuff_decoder (JERR_BAD_PROGRESSION):
+                # a DC scan (Ss 0) is Se 0, an AC scan one component of
+                # Ss..Se <= 63; a refinement Al = Ah - 1; Al <= 13
+                bad = se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)
+                if bad or (ah and al != ah - 1) or al > 13:
+                    raise JpegError(f"bad progression: Ss={ss} Se={se} Ah={ah} Al={al}")
+                need = ([(0, td) for td, _ in tables] if ah == 0 else []) if ss == 0 \
+                    else [(1, ta) for _, ta in tables]
+                coef_bits[comps, ss:se + 1] = al
             used = {}
-            for (td, ta) in tables:
-                for key in ((0, td), (1, ta)):
-                    if key not in huff:
-                        raise JpegError(f"scan uses Huffman table {key}, never defined")
-                    used[key] = huff[key]
+            for key in need:
+                if key not in huff:
+                    raise JpegError(f"scan uses Huffman table {key}, never defined")
+                used[key] = huff[key]
             for ci in comps:
                 c = frame.components[ci]
                 if c.qt is None:
@@ -265,24 +356,42 @@ def parse(data: bytes) -> Frame:
             if k >= len(markers):
                 raise JpegError("truncated: the entropy-coded data has no end marker")
             end = int(markers[k])
-            frame.scans.append(Scan(comps, tables, used, pos, end, restart))
+            frame.scans.append(Scan(comps, tables, used, pos, end, restart, (ss, se, ah, al)))
             pos = end
         elif m == 0xE0 and seg.startswith(b"JFIF\x00") and len(seg) >= 14:
             jfif = True
-        elif m == 0xE1:
-            o = _orientation(seg)
-            if o not in (0, 1):
-                _refuse(f"EXIF orientation {o}")
+        elif m == 0xE1 and orientation is None and (frame is None or not frame.scans):
+            # OpenCV reads every EXIF APP1 ahead of the first scan into one
+            # table, where the first orientation found stands
+            orientation = _orientation(seg)
         elif m == 0xEE and seg.startswith(b"Adobe") and len(seg) >= 12:
             adobe = seg[11]
         # other APPn, COM and unknown segments are skipped
     if frame is None or not frame.scans:
         raise JpegError("no frame or no scan before EOI")
     frame.jfif, frame.adobe_transform = jfif, adobe
+    frame.orientation = 1 if orientation is None else orientation
     for c in frame.components:
         if c.qt is None:
             raise JpegError(f"component {c.cid} appears in no scan")
+    frame.smoothed = frame.progressive and _smoothed(frame, coef_bits)
     return frame
+
+
+# jdcoefct.c's Q00_POS .. Q30_POS: the natural positions of zigzag 0..9
+_SMOOTH_POS = NATURAL[:10]
+
+
+def _smoothed(frame: Frame, coef_bits: np.ndarray) -> bool:
+    """Whether libjpeg would smooth the blocks of this progressive file
+    (``jdcoefct.c``'s ``smoothing_ok``, read at the first output pass,
+    after every scan): every component's DC partly known and its first 10
+    quantisers nonzero, and some component's AC coefficient 1..9 missing
+    bits (never sent, or not refined down to bit 0)."""
+    for c, bits in zip(frame.components, coef_bits):
+        if not c.qt[_SMOOTH_POS].all() or bits[0] < 0:
+            return False
+    return bool((coef_bits[:, 1:10] != 0).any())
 
 
 # --------------------------------------------------------------------------- #
@@ -307,16 +416,19 @@ def _empty_coefs(frame: Frame) -> list[np.ndarray]:
 
 
 _ERRORS = {-1: "truncated: bits needed past a marker or the end of the data",
-           -2: "corrupt Huffman code", -3: "an AC run past coefficient 63",
+           -2: "corrupt Huffman code", -3: "an AC run past the scan's last coefficient",
            -4: "restart marker missing or out of order",
            -5: "corrupt Huffman table", -6: "bad scan arguments",
-           -7: "extraneous bytes after the last MCU"}
+           -7: "extraneous bytes after the last MCU",
+           -8: "a DC value out of range"}
 
 
 def entropy_decode(frame: Frame, data: bytes) -> list[np.ndarray]:
-    """Every scan's coefficients, by the native decoder: per component an
-    int16 [bh, bw, 64] array of blocks in natural order, not dequantised.
-    Raises when ``native/jpeg.cc`` cannot be built (no fallback)."""
+    """Every scan's coefficients, by the native decoder, in file order: per
+    component an int16 [bh, bw, 64] array of blocks in natural order, not
+    dequantised. Refuses a file libjpeg would smooth (``Frame.smoothed``)
+    once its scans are decoded. Raises when ``native/jpeg.cc`` cannot be
+    built (no fallback)."""
     from openobj_torch import native
 
     buf = np.frombuffer(data, np.uint8)
@@ -325,23 +437,29 @@ def entropy_decode(frame: Frame, data: bytes) -> list[np.ndarray]:
         mx, my, per_mcu = _scan_layout(frame, scan)
         params, bits, vals = _scan_tables(frame, scan, per_mcu)
         r, end = native.jpeg_decode_scan(buf, scan.start, params, bits, vals, mx, my,
-                                         scan.restart, [coefs[i] for i in scan.comps])
+                                         scan.restart, [coefs[i] for i in scan.comps],
+                                         scan.spectral if frame.progressive else None)
         if r != 0:
             raise JpegError(_ERRORS.get(r, f"entropy decode error {r}"))
         if end != scan.end:
             raise JpegError(f"scan ended at offset {end}, its marker is at {scan.end}")
+    if frame.smoothed:      # after the scans, so that a cut or corrupt file raises JpegError
+        _refuse("a progressive JPEG whose scans leave some of AC coefficients 1-9 short of "
+                "bits, whose blocks libjpeg smooths")
     return coefs
 
 
 def _scan_tables(frame: Frame, scan: Scan, per_mcu):
     """The native decoder's arguments: [ncomp, 5] int32 {mcu_h, mcu_v,
     blocks_w, dc slot, ac slot}; [8, 16] BITS and [8, 256] HUFFVAL, DC
-    tables in rows 0-3 and AC tables in rows 4-7."""
+    tables in rows 0-3 and AC tables in rows 4-7. A slot the scan does not
+    use (a progressive scan's other class) is given as 0."""
     bits = np.zeros((8, 16), np.uint8)
     vals = np.zeros((8, 256), np.uint8)
     for (tc, th), (b, v) in scan.huff.items():
         bits[4 * tc + th], vals[4 * tc + th] = b, v
-    params = np.array([[mh, mv, frame.components[ci].bw, td, ta]
+    params = np.array([[mh, mv, frame.components[ci].bw, td if (0, td) in scan.huff else 0,
+                        ta if (1, ta) in scan.huff else 0]
                        for ci, (mh, mv), (td, ta) in zip(scan.comps, per_mcu, scan.tables)],
                       np.int32)
     return params, bits, vals
@@ -400,49 +518,146 @@ def _extend(v: int, s: int) -> int:
     return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
 
 
+def _plain_restart(br: _PlainBits, data: bytes, rst: int) -> int:
+    """Past the RSTn marker that must follow a restart interval; the next n."""
+    br.left = 0
+    p = br.pos
+    while p < len(data) and data[p] == 0xFF:
+        p += 1
+    if p == br.pos or p >= len(data) or data[p] != 0xD0 + rst:
+        raise JpegError(_ERRORS[-4])
+    br.pos = p + 1
+    return (rst + 1) & 7
+
+
+def _int16(v: int) -> int:
+    """C's (int16) cast."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _add_dc(state: list, j: int, diff: int) -> None:
+    """state[j] += diff, refused past int32 as the native decoder refuses it."""
+    state[j] += diff
+    if not -(1 << 31) <= state[j] < (1 << 31):
+        raise JpegError(_ERRORS[-8])
+
+
+def _plain_sequential(br, tabs, blk, state: list, j: int, td: int, ta: int, spectral):
+    """One block of a sequential scan (T.81 F.2.2); ``state[j]`` is its
+    component's DC predictor."""
+    s = _plain_symbol(br, tabs[(0, td)])
+    _add_dc(state, j, _extend(br.bits(s), s) if s else 0)
+    blk[0] = _int16(state[j])
+    k = 1
+    while k < 64:
+        rs = _plain_symbol(br, tabs[(1, ta)])
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            if k > 63:
+                raise JpegError(_ERRORS[-3])
+            blk[NATURAL[k]] = _extend(br.bits(s), s)
+        elif r != 15:
+            break
+        else:
+            k += 15
+        k += 1
+
+
+def _plain_progressive(br, tabs, blk, state: list, j: int, td: int, ta: int, spectral):
+    """One block of a progressive scan, as jdphuff.c's decode_mcu_DC_first,
+    _DC_refine, _AC_first and _AC_refine; ``state`` holds the scan's DC
+    predictors and, last, its EOB run."""
+    ss, se, ah, al = spectral
+    p1, m1 = 1 << al, -(1 << al)
+    if ss == 0 and ah == 0:
+        s = _plain_symbol(br, tabs[(0, td)])
+        if s > 15:
+            raise JpegError(_ERRORS[-2])
+        _add_dc(state, j, _extend(br.bits(s), s) if s else 0)
+        blk[0] = _int16(state[j] << al)
+        return
+    if ss == 0:
+        if br.bit():
+            blk[0] = _int16(int(blk[0]) | p1)
+        return
+
+    def correct(pos):   # |coefficient| grows by p1 unless that bit is set already
+        v = int(blk[pos])
+        if br.bit() and (v & p1) == 0:
+            blk[pos] = _int16(v + (p1 if v >= 0 else m1))
+
+    k = ss
+    if ah == 0:
+        if state[-1] > 0:
+            state[-1] -= 1
+            return
+        while k <= se:
+            rs = _plain_symbol(br, tabs[(1, ta)])
+            r, s = rs >> 4, rs & 15
+            if s:
+                k += r
+                if k > se:
+                    raise JpegError(_ERRORS[-3])
+                blk[NATURAL[k]] = _int16(_extend(br.bits(s), s) << al)
+            elif r == 15:
+                k += 15
+            else:
+                state[-1] = (1 << r) + (br.bits(r) if r else 0) - 1
+                break
+            k += 1
+        return
+    if state[-1] == 0:
+        while k <= se:
+            rs = _plain_symbol(br, tabs[(1, ta)])
+            r, s = rs >> 4, rs & 15
+            if s:
+                s = p1 if br.bit() else m1
+            elif r != 15:
+                state[-1] = (1 << r) + (br.bits(r) if r else 0)
+                break
+            while k <= se:
+                if blk[NATURAL[k]]:
+                    correct(NATURAL[k])
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                if k > se:
+                    raise JpegError(_ERRORS[-3])
+                blk[NATURAL[k]] = s
+            k += 1
+    if state[-1] > 0:
+        for kk in range(k, se + 1):
+            if blk[NATURAL[kk]]:
+                correct(NATURAL[kk])
+        state[-1] -= 1
+
+
 def entropy_decode_plain(frame: Frame, data: bytes) -> list[np.ndarray]:
     """The same decode as ``entropy_decode``, as a Python loop over bits
-    (T.81 F.2.2): the plain version the tests hold the native one to."""
+    (T.81 F.2.2 and G.1.2): the plain version the tests hold the native one
+    to."""
     coefs = _empty_coefs(frame)
+    block = _plain_progressive if frame.progressive else _plain_sequential
     for scan in frame.scans:
         mx, my, per_mcu = _scan_layout(frame, scan)
         tabs = {k: _plain_table(*bv) for k, bv in scan.huff.items()}
         br = _PlainBits(data, scan.start)
-        pred = [0] * len(scan.comps)
+        state = [0] * (len(scan.comps) + 1)        # DC predictors, then the EOB run
         rst = 0
         for m in range(mx * my):
             if scan.restart and m and m % scan.restart == 0:
-                br.left = 0
-                p = br.pos
-                while p < len(data) and data[p] == 0xFF:
-                    p += 1
-                if p == br.pos or p >= len(data) or data[p] != 0xD0 + rst:
-                    raise JpegError(_ERRORS[-4])
-                rst = (rst + 1) & 7
-                br.pos = p + 1
-                pred = [0] * len(scan.comps)
+                rst = _plain_restart(br, data, rst)
+                state = [0] * (len(scan.comps) + 1)
             y, x = divmod(m, mx)
             for j, (ci, (mh, mv), (td, ta)) in enumerate(zip(scan.comps, per_mcu, scan.tables)):
                 for v in range(mv):
                     for h in range(mh):
-                        blk = coefs[ci][y * mv + v, x * mh + h]
-                        s = _plain_symbol(br, tabs[(0, td)])
-                        pred[j] += _extend(br.bits(s), s) if s else 0
-                        blk[0] = ((pred[j] + 0x8000) & 0xFFFF) - 0x8000   # C's (int16) cast
-                        k = 1
-                        while k < 64:
-                            rs = _plain_symbol(br, tabs[(1, ta)])
-                            r, s = rs >> 4, rs & 15
-                            if s:
-                                k += r
-                                if k > 63:
-                                    raise JpegError(_ERRORS[-3])
-                                blk[NATURAL[k]] = _extend(br.bits(s), s)
-                            elif r != 15:
-                                break
-                            else:
-                                k += 15
-                            k += 1
+                        block(br, tabs, coefs[ci][y * mv + v, x * mh + h], state, j, td, ta,
+                              scan.spectral)
         br.left = 0
         if br.pos != scan.end:
             raise JpegError(_ERRORS[-7])
@@ -614,8 +829,18 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return out
 
 
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] RGB from libjpeg's CMYK output [H, W, 4] by OpenCV's
+    ``icvCvt_CMYK2BGR_8u_C4C3R``: each of C, M, Y becomes
+    k - ((255 - x) * k >> 8), in that order R, G, B."""
+    x = cmyk.astype(np.int32)
+    k = x[..., 3:]
+    return (k - (((255 - x[..., :3]) * k) >> 8)).astype(np.uint8)
+
+
 def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
-    """uint8 [H, W, 3] RGB from the coefficients: IDCT, upsampling, colour."""
+    """uint8 [H, W, 3] RGB from the coefficients: IDCT, upsampling, colour
+    (the file as stored: ``decode_jpeg`` turns it by its orientation)."""
     hmax, vmax = frame.hmax, frame.vmax
     planes = []
     for c, k in zip(frame.components, coefs):
@@ -623,6 +848,15 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
         planes.append(full[:frame.height, :frame.width])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=2)
+    if len(planes) == 4:
+        # jdapimin.c: CMYK unless an Adobe marker gives a transform other
+        # than 0, which is YCCK; ycck_cmyk_convert keeps K and makes C, M, Y
+        # 255 less the YCC -> RGB conversion's R, G, B
+        if frame.adobe_transform in (None, 0):
+            cmy = np.stack(planes[:3], axis=-1)
+        else:
+            cmy = 255 - ycc_to_rgb(*planes[:3])
+        return cmyk_to_rgb(np.concatenate([cmy, planes[3][..., None]], axis=-1))
     ids = tuple(c.cid for c in frame.components)
     if frame.jfif:
         rgb = False
@@ -636,13 +870,14 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """uint8 [H, W, 3] RGB of a baseline JPEG held in memory."""
+    """uint8 [H, W, 3] RGB of a JPEG held in memory, turned by its EXIF
+    orientation: what ``cv2.imdecode`` gives, channels reversed."""
     frame = parse(data)
-    return reconstruct(frame, entropy_decode(frame, data))
+    return orient(reconstruct(frame, entropy_decode(frame, data)), frame.orientation)
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """uint8 [H, W, 3] RGB of a baseline JPEG file: what
+    """uint8 [H, W, 3] RGB of a JPEG file: what
     ``cv2.imread(path)[..., ::-1]`` gives."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read())

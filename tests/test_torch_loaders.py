@@ -167,8 +167,9 @@ def test_scannet_png_colour_and_part_downsample(tmp_path):
 
 
 def test_scannet_jpeg_colour_raises(tmp_path):
-    """Every .jpg colour frame decodes as OpenCV decodes it; a progressive
-    one (which ScanNet never holds) raises, naming its ROADMAP item."""
+    """Every .jpg colour frame decodes as OpenCV decodes it, a progressive
+    one too; an arithmetic-coded one (which ScanNet never holds) raises,
+    naming its ROADMAP item."""
     _scannet(tmp_path / "jpg", "jpg")
     ds = tl.ScanNet(str(tmp_path / "jpg"), stride=1)
     assert len(ds) == 30
@@ -177,8 +178,58 @@ def test_scannet_jpeg_colour_raises(tmp_path):
             ds[i].rgb, cv2.imread(ds.color_paths[i])[..., ::-1])
     cv2.imwrite(ds.color_paths[4], cv2.imread(ds.color_paths[4]),
                 [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive.*A14c"):
-        ds[4]
+    np.testing.assert_array_equal(ds[4].rgb, cv2.imread(ds.color_paths[4])[..., ::-1])
+    with open(ds.color_paths[5], "rb") as f:
+        data = f.read()
+    i = data.index(b"\xff\xc0")
+    with open(ds.color_paths[5], "wb") as f:
+        f.write(data[:i + 1] + b"\xc9" + data[i + 2:])       # SOF9: arithmetic coding
+    with pytest.raises(NotImplementedError, match="arithmetic.*A14d"):
+        ds[5]
+
+
+def _exif_orientation_6(data: bytes) -> bytes:
+    """A JPEG file's bytes with an EXIF APP1 segment (orientation 6) after SOI."""
+    payload = (b"Exif\x00\x00MM\x00\x2a" + (8).to_bytes(4, "big") + (1).to_bytes(2, "big")
+               + bytes.fromhex("0112 0003 00000001 0006 0000") + bytes(4))
+    return data[:2] + b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big") + payload + data[2:]
+
+
+def test_scannet_progressive_and_rotated_frames_equal(tmp_path):
+    """ScanNet's layout with colour frames re-saved as progressive 968x1296
+    JPEG (4:2:0, q95), frame 1 also carrying EXIF orientation 6 (so OpenCV
+    turns it to 1296x968): the port's loader gives the JAX loader's rgb bit
+    for bit, and the whole sample. Each depth frame has its colour frame's
+    size, so neither loader resizes the colour."""
+    root = tmp_path / "scan"
+    _scannet(root, "jpg")
+    for name in os.listdir(root / "color"):
+        if int(name.split(".")[0]) >= 3:
+            os.remove(root / "color" / name)
+            os.remove(root / "depth" / name.replace(".jpg", ".png"))
+    np.savetxt(str(root / "traj_w_c.txt"), np.stack([np.eye(4).reshape(-1)] * 3), delimiter=" ")
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[:968, :1296]
+    for i in range(3):
+        im = np.stack([xx * 0.19, yy * 0.26, (xx + 2 * yy + 40 * i) % 256], -1)
+        im = np.clip(im + rng.normal(0, 12, im.shape), 0, 255).astype(np.uint8)
+        ok, buf = cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY, 95,
+                                            cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                                            cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])
+        assert ok
+        data = _exif_orientation_6(buf.tobytes()) if i == 1 else buf.tobytes()
+        (root / "color" / f"{i}.jpg").write_bytes(data)
+        hw = (1296, 968) if i == 1 else (968, 1296)
+        cv2.imwrite(str(root / "depth" / f"{i}.png"),
+                    (rng.uniform(0.5, 3.0, hw) * 1000).astype(np.uint16))
+    t, j = tl.ScanNet(str(root), stride=1), jl.ScanNet(str(root), stride=1)
+    assert len(t) == len(j) == 3
+    for i in range(3):
+        a, b = t[i], j[i]
+        assert a.rgb.shape == ((1296, 968, 3) if i == 1 else (968, 1296, 3))
+        np.testing.assert_array_equal(a.rgb, b.rgb)
+        assert_samples_equal(a, b)
 
 
 def _unit(rng, n):

@@ -140,8 +140,8 @@ def test_clis_default_to_the_card(tmp_path):
 
 def test_scannet_jpg_colour_refused(tmp_path):
     """RawFrames on the ScanNet layout decodes color/*.jpg as the JAX
-    package's (cv2) does; only what ScanNet never holds, a progressive
-    file, is refused."""
+    package's (cv2) does, baseline and progressive; only what ScanNet never
+    holds, an arithmetic-coded file, is refused."""
     for d in ("color", "depth"):
         os.makedirs(tmp_path / d)
     rng = np.random.default_rng(0)
@@ -154,10 +154,15 @@ def test_scannet_jpg_colour_refused(tmp_path):
     frames = tcli.RawFrames(str(tmp_path), "ScanNet")
     ref = jcli.RawFrames(str(tmp_path), "ScanNet")
     assert len(frames) == len(ref) == 2
-    for got, want in zip(frames[0], ref[0]):
-        assert got.dtype == want.dtype
-        np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="progressive.*A14c"):
+    for i in range(2):
+        for got, want in zip(frames[i], ref[i]):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    path = tmp_path / "color" / "1.jpg"
+    data = path.read_bytes()
+    i = data.index(b"\xff\xc2")
+    path.write_bytes(data[:i + 1] + b"\xca" + data[i + 2:])   # SOF10: arithmetic, progressive
+    with pytest.raises(NotImplementedError, match="arithmetic.*A14d"):
         frames[1]
 
 
