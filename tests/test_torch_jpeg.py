@@ -336,9 +336,10 @@ def test_exif_read_as_opencv_reads_it(case, want):
     """Where the orientation tag stands and what is around it: the tag not
     first in IFD0, an entry of another type, an entry count past the end,
     an entry that reads past the end after or before the tag (the entries
-    read before it stand), a wrong TIFF mark or byte order, an IFD past the
-    end, a byte order other than II (read as MM), an APP1 that is not EXIF, and several EXIF segments (the first
-    orientation found stands). Each as cv2 reads it."""
+    read before it stand), a wrong TIFF mark, an IFD past the end, a byte
+    order other than II (read as MM), an APP1 that is not EXIF, and several
+    EXIF segments (the first orientation found stands). Each as cv2 reads
+    it."""
     o6 = [(0x0112, 3, 1, 6)]
     payloads = {
         "after_make": [_exif([MAKE, *o6])],
