@@ -131,8 +131,11 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      q95 JPEGs by this script's numpy encoder, each decoded by the port and
      gated > 35 dB against its source; depth resized nearest to 480x640; the
      depth camera's intrinsics; the ground-truth maps held aside); the
-     committed JPEG fixtures (tests/data/jpeg/) decoded equal to their
-     digests of OpenCV's decode; then scripts.run_scenes on an unedited copy
+     committed JPEG fixtures (tests/data/jpeg/: baseline, progressive,
+     arithmetic-coded, lossless, smoothed, rotated, CMYK, YCCK) decoded and
+     the PNG fixtures (tests/data/png/: palette, low-bit grey, Adam7, tRNS,
+     16-bit) read equal to their digests of OpenCV's decode; then
+     scripts.run_scenes on an unedited copy
      of configs/scannet/scene0011_01.json with --perception auto,
      --max-frames 3, --device cuda and --distributed as a group of one
      (NCCL's init and a barrier on the card), counts reset around it: auto
@@ -141,7 +144,8 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      the code implies), summary.json; multislice.run_parallel on one device
      group (the worker's current card); the matched instance mIoU at frames
      0, 10, 20 within 0.02 of the CPU rehearsal's (rehearse_scannet); prints
-     ms per decoded JPEG (entropy decode and the rest), per loaded and per
+     ms per decoded JPEG (entropy decode and the rest: baseline, progressive,
+     arithmetic-coded sequential and progressive), per loaded and per
      trained frame, per keyframe of each perception stage, the export's and
      the phase's seconds;
   5. the probe kernels (csrc/probes.cu, ports of the Pallas kernels of
@@ -2430,6 +2434,7 @@ SCANNET_COLOUR, SCANNET_DEPTH = (968, 1296), (480, 640)
 SCANNET_RAW_FRAMES, SCANNET_PSNR_DB = 21, 35.0
 SCANNET_CPU_MIOU, SCANNET_MIOU_TOL = 0.9827623919138745, 0.02
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
 
 
 def free_port() -> int:
@@ -2492,9 +2497,11 @@ def write_scannet_scan(raw, dest) -> dict:
             "psnr_min": min(psnr)}
 
 
-# the committed progressive ScanNet-size fixture, timed in phase 4g beside
-# the scan's baseline frames, and the times it is decoded
+# the committed progressive and arithmetic-coded ScanNet-size fixtures, timed
+# in phase 4g beside the scan's baseline frames, and the times each is decoded
 JPEG_PROGRESSIVE = "tabletop_968x1296_q95_420_progressive.jpg"
+JPEG_ARITH = {"arith": "tabletop_968x1296_q95_420_arith.jpg",
+              "arith_progressive": "tabletop_968x1296_q95_420_arith_progressive.jpg"}
 JPEG_PROGRESSIVE_REPS = 3
 
 
@@ -2510,40 +2517,77 @@ def _card() -> str:
         return "card not measured"
 
 
-def _decode_ms(data: bytes) -> tuple[float, float]:
-    """ms of one decode: parse + entropy decode (native), then the rest
-    (IDCT, upsampling, colour, orientation; numpy)."""
+def _decode_timed(data: bytes) -> tuple[np.ndarray, float, float]:
+    """One decode: the RGB image, ms of parse + entropy decode (native),
+    ms of the rest (smoothing, IDCT, upsampling, colour, orientation;
+    numpy)."""
     from openobj_torch.utils import jpeg
 
     t0 = time.perf_counter()
     frame = jpeg.parse(data)
     coefs = jpeg.entropy_decode(frame, data)
     t1 = time.perf_counter()
-    jpeg.orient(jpeg.reconstruct(frame, coefs), frame.orientation)
+    rgb = jpeg.orient(jpeg.reconstruct(frame, coefs), frame.orientation)
     t2 = time.perf_counter()
-    return 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+    return rgb, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def _decode_ms(data: bytes) -> tuple[float, float]:
+    return _decode_timed(data)[1:]
+
+
+def _sha256(im: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(im).tobytes()).hexdigest()
+
+
+def check_png_reader() -> None:
+    """The committed PNG fixtures (palette, low-bit grey, Adam7, tRNS,
+    16-bit) read to the stored digests of OpenCV's decode, unchanged and
+    as colour."""
+    from openobj_torch.utils import png
+
+    with open(os.path.join(PNG_FIXTURES, "digests.json")) as f:
+        want = json.load(f)
+    for name, modes in want.items():
+        for mode, entry in modes.items():
+            im = png.read_png(os.path.join(PNG_FIXTURES, name), colour=mode == "colour")
+            got = {"shape": list(im.shape), "dtype": str(im.dtype), "sha256": _sha256(im)}
+            if got != entry:
+                raise AssertionError(f"[scannet] PNG fixture {name} ({mode}): {got}, OpenCV's "
+                                     f"decode {entry}")
+    log(f"[scannet] PNG fixtures {sorted(want)} read equal to their digests of OpenCV's decode, "
+        "unchanged and as colour")
 
 
 def check_jpeg_decoder(root) -> dict:
-    """The committed fixtures (baseline, progressive, EXIF orientation 6,
-    CMYK, YCCK) decoded to the stored SHA-256 of OpenCV's decode (shape
-    too), then ms per decoded 968x1296 JPEG, entropy decode (native) and
-    the rest (IDCT, upsampling, colour; numpy): medians over the scan's
+    """The committed fixtures (baseline, progressive, arithmetic-coded,
+    lossless, smoothed, EXIF orientation 6, CMYK, YCCK) decoded to the
+    stored SHA-256 of OpenCV's decode (shape too), the PNG fixtures
+    likewise, then ms per decoded 968x1296 JPEG, entropy decode (native)
+    and the rest (IDCT, upsampling, colour; numpy): medians over the scan's
     baseline frames, and over JPEG_PROGRESSIVE_REPS decodes of the
-    progressive fixture, with the card's name and power limit (the decode
-    runs on the host)."""
-    import hashlib
-
+    progressive and of each arithmetic-coded fixture (the first of them the
+    digest's), with the card's name and power limit (the decode runs on the
+    host)."""
     from openobj_torch.utils import jpeg
 
     with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
         want = json.load(f)
+    timed = {}
     for name, entry in want.items():
-        rgb = jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, name))
-        got = hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
-        if list(rgb.shape) != entry["shape"] or got != entry["sha256"]:
-            raise AssertionError(f"[scannet] fixture {name}: {rgb.shape} {got}, OpenCV's decode "
-                                 f"{entry['shape']} {entry['sha256']}")
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        rgb, *ms = _decode_timed(data)
+        if list(rgb.shape) != entry["shape"] or _sha256(rgb) != entry["sha256"]:
+            raise AssertionError(f"[scannet] fixture {name}: {rgb.shape} {_sha256(rgb)}, "
+                                 f"OpenCV's decode {entry['shape']} {entry['sha256']}")
+        if name in JPEG_ARITH.values():
+            if not jpeg.parse(data).arithmetic:
+                raise AssertionError(f"[scannet] {name} is not arithmetic-coded")
+            timed[name] = [ms] + [_decode_ms(data) for _ in range(JPEG_PROGRESSIVE_REPS - 1)]
+    check_png_reader()
     times = []
     for i in range(SCANNET_RAW_FRAMES):
         with open(os.path.join(root, "color", f"{i}.jpg"), "rb") as f:
@@ -2557,14 +2601,22 @@ def check_jpeg_decoder(root) -> dict:
            "rest_ms": float(np.median([t[1] for t in times])),
            "progressive_entropy_ms": float(np.median([t[0] for t in prog])),
            "progressive_rest_ms": float(np.median([t[1] for t in prog]))}
+    for key, name in JPEG_ARITH.items():
+        res[f"{key}_entropy_ms"] = float(np.median([t[0] for t in timed[name]]))
+        res[f"{key}_rest_ms"] = float(np.median([t[1] for t in timed[name]]))
+
+    def both(key):
+        return (f"{res[key + '_entropy_ms'] + res[key + '_rest_ms']:.1f} = entropy decode "
+                f"{res[key + '_entropy_ms']:.1f} + the rest {res[key + '_rest_ms']:.1f}")
+
     size = f"{SCANNET_COLOUR[0]}x{SCANNET_COLOUR[1]}"
     log(f"[scannet] JPEG fixtures {sorted(want)} decoded equal to their digests of OpenCV's "
         f"decode; ms per decoded {size} JPEG on the host of {_card()}: baseline (median of "
         f"{SCANNET_RAW_FRAMES}) {res['entropy_ms'] + res['rest_ms']:.1f} = entropy decode "
         f"{res['entropy_ms']:.1f} + the rest {res['rest_ms']:.1f}; progressive {JPEG_PROGRESSIVE} "
-        f"(median of {JPEG_PROGRESSIVE_REPS}) "
-        f"{res['progressive_entropy_ms'] + res['progressive_rest_ms']:.1f} = entropy decode "
-        f"{res['progressive_entropy_ms']:.1f} + the rest {res['progressive_rest_ms']:.1f}")
+        f"(median of {JPEG_PROGRESSIVE_REPS}) {both('progressive')}; arithmetic-coded (median of "
+        f"{JPEG_PROGRESSIVE_REPS} each) {JPEG_ARITH['arith']} {both('arith')}; progressive "
+        f"{JPEG_ARITH['arith_progressive']} {both('arith_progressive')}")
     return res
 
 

@@ -1,8 +1,8 @@
 """Replica / ScanNet sequence loaders.
 
 Port of ``openobj_tpu.data.loaders``. Images are read with the port's PNG
-codec (``utils.png``) and ScanNet's ``.jpg`` colour frames with its baseline
-JPEG decoder (``utils.jpeg``, equal to OpenCV's decode), and resized with
+codec (``utils.png``) and ScanNet's ``.jpg`` colour frames with its JPEG
+decoder (``utils.jpeg``), each equal to OpenCV's decode, and resized with
 ``data.transforms.resize``, where the JAX package uses OpenCV; frames stay
 numpy here and become tensors at the ``SceneMapper`` boundary.
 
@@ -296,21 +296,15 @@ class _SequenceDataset:
 
 def _read_rgb(path: str) -> np.ndarray:
     """[H, W, 3] uint8 RGB of a colour frame, as OpenCV's default colour
-    read gives it: a ``.jpg``/``.jpeg`` file through the baseline JPEG
-    decoder, a PNG with its alpha channel dropped, grey replicated and
-    16-bit samples keeping their high byte. Other formats raise."""
+    read (``IMREAD_COLOR``) gives it: a ``.jpg``/``.jpeg`` file through the
+    JPEG decoder, a ``.png`` through the PNG reader's colour read (alpha
+    dropped, grey and palettes expanded, 16-bit samples keeping their high
+    byte). Other formats raise."""
     if path.lower().endswith((".jpg", ".jpeg")):
         return read_jpeg(path)
     if not path.lower().endswith(".png"):
         raise NotImplementedError(f"{path}: the port reads JPEG and PNG colour frames")
-    im = read_png(path)
-    if im.dtype == np.uint16:
-        im = (im >> 8).astype(np.uint8)
-    if im.ndim == 2:
-        im = np.repeat(im[..., None], 3, axis=2)
-    elif im.shape[2] == 2:
-        im = np.repeat(im[..., :1], 3, axis=2)
-    return np.ascontiguousarray(im[..., :3])
+    return read_png(path, colour=True)
 
 
 class Replica(_SequenceDataset):

@@ -213,11 +213,15 @@ def evaluate_run(render_dir: str, gt_rgb_dir: str, gt_depth_dir: str | None,
     import os
     import re
 
+    from openobj_torch.data.loaders import _read_rgb
     from openobj_torch.utils.png import read_png
 
-    def imread(path):
-        """The image, or None when the file is missing (as OpenCV's)."""
-        return read_png(path) if os.path.exists(path) else None
+    def imread(path, colour=False):
+        """The image as ``cv2.imread`` reads it (``IMREAD_COLOR`` when
+        ``colour``, else unchanged), or None when the file is missing."""
+        if not os.path.exists(path):
+            return None
+        return _read_rgb(path) if colour else read_png(path)
 
     if inst_to_class is None:
         mpath = os.path.join(render_dir, "mapping_class.json")
@@ -235,8 +239,8 @@ def evaluate_run(render_dir: str, gt_rgb_dir: str, gt_depth_dir: str | None,
     pred_rgbs, gt_rgbs, pred_d, gt_d, pred_sem, gt_sem = [], [], [], [], [], []
     pred_inst, gt_inst = [], []
     for i in frames:
-        pred_rgbs.append(imread(os.path.join(render_dir, f"rgb_{i}.png")))
-        gt_rgbs.append(imread(os.path.join(gt_rgb_dir, f"rgb_{i}.png")))
+        pred_rgbs.append(imread(os.path.join(render_dir, f"rgb_{i}.png"), colour=True))
+        gt_rgbs.append(imread(os.path.join(gt_rgb_dir, f"rgb_{i}.png"), colour=True))
         if gt_depth_dir:
             pd = imread(os.path.join(render_dir, f"depth_{i}.png"))
             gd = imread(os.path.join(gt_depth_dir, f"depth_{i}.png"))

@@ -10,9 +10,11 @@ The port's counterpart of ``openobj_tpu.native``. ``geometry.cc`` and
     (``felz_union_find``);
   * ``louvain.cc``: Louvain community detection over the association graph
     (``louvain_labels``);
-  * ``jpeg.cc`` (the port's own): the Huffman entropy decode of one
-    sequential or progressive JPEG scan into coefficient blocks
-    (``jpeg_decode_scan``, for ``utils.jpeg``).
+  * ``jpeg.cc`` (the port's own): the entropy decode of one sequential or
+    progressive JPEG scan into coefficient blocks, Huffman-coded
+    (``jpeg_decode_scan``) or arithmetic-coded (``jpeg_decode_arith_scan``),
+    and of one lossless scan into sample planes
+    (``jpeg_decode_lossless_scan``), for ``utils.jpeg``.
 
 Each is compiled with ``g++ -O3`` at first use into ``build/native/`` at the
 root of the checkout, under a name that carries a digest of the source and
@@ -118,6 +120,16 @@ def _declare_jpeg(lib) -> None:
         p_u8, c_i64, c_i64, ctypes.c_int, ctypes.POINTER(ctypes.c_int32), p_u8, p_u8,
         c_i64, c_i64, c_i64, ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)), p_i64]
+    lib.jpeg_decode_arith_scan.restype = ctypes.c_int
+    lib.jpeg_decode_arith_scan.argtypes = [
+        p_u8, c_i64, c_i64, ctypes.c_int, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), c_i64, c_i64, c_i64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)), p_i64]
+    lib.jpeg_decode_lossless_scan.restype = ctypes.c_int
+    lib.jpeg_decode_lossless_scan.argtypes = [
+        p_u8, c_i64, c_i64, ctypes.c_int, ctypes.POINTER(ctypes.c_int32), p_u8, p_u8,
+        c_i64, c_i64, c_i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint16)), p_i64]
 
 
 def load():
@@ -304,15 +316,7 @@ def jpeg_decode_scan(data: np.ndarray, start: int, params: np.ndarray, huff_bits
     hv = np.ascontiguousarray(huff_vals, np.uint8)
     if pr.shape != (len(coefs), 5) or hb.shape != (8, 16) or hv.shape != (8, 256):
         raise ValueError(f"jpeg_decode_scan: params {pr.shape}, tables {hb.shape} {hv.shape}")
-    for c, (_, _, bw, _, _) in zip(coefs, pr):
-        if c.dtype != np.int16 or not c.flags.c_contiguous or c.shape[1:] != (bw, 64):
-            raise ValueError(f"jpeg_decode_scan: a coefficient buffer {c.dtype} {c.shape}")
-    rows = [c.shape[0] for c in coefs]
-    for (mh, mv, bw, _, _), r in zip(pr, rows):
-        if mcus_x * mh > bw or mcus_y * mv > r:
-            raise ValueError("jpeg_decode_scan: the scan's MCUs overrun a coefficient buffer")
-    ptrs = (ctypes.POINTER(ctypes.c_int16) * len(coefs))(
-        *(c.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for c in coefs))
+    ptrs = _coef_ptrs(coefs, pr[:, 2], mcus_x, mcus_y, pr[:, :2], "jpeg_decode_scan")
     end = ctypes.c_int64(0)
     args = (d.ctypes.data_as(p_u8), len(d), start, len(coefs),
             pr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), hb.ctypes.data_as(p_u8),
@@ -323,4 +327,83 @@ def jpeg_decode_scan(data: np.ndarray, start: int, params: np.ndarray, huff_bits
         sp = np.array(spectral, np.int32)
         r = lib.jpeg_decode_prog_scan(*args, sp.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                                       ptrs, ctypes.byref(end))
+    return r, end.value
+
+
+def _coef_ptrs(coefs: list, widths, mcus_x: int, mcus_y: int, per_mcu, what: str):
+    """ctypes pointers to the int16 [rows, blocks_w, 64] coefficient
+    buffers of a scan's components, checked against its MCUs."""
+    for c, bw, (mh, mv) in zip(coefs, widths, per_mcu):
+        if c.dtype != np.int16 or not c.flags.c_contiguous or c.shape[1:] != (bw, 64):
+            raise ValueError(f"{what}: a coefficient buffer {c.dtype} {c.shape}")
+        if mcus_x * mh > bw or mcus_y * mv > c.shape[0]:
+            raise ValueError(f"{what}: the scan's MCUs overrun a coefficient buffer")
+    return (ctypes.POINTER(ctypes.c_int16) * len(coefs))(
+        *(c.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for c in coefs))
+
+
+def jpeg_decode_arith_scan(data: np.ndarray, start: int, params: np.ndarray, cond: np.ndarray,
+                           mcus_x: int, mcus_y: int, restart: int, coefs: list,
+                           spectral: tuple[int, int, int, int] | None = None
+                           ) -> tuple[int, int]:
+    """Decode one arithmetic-coded JPEG scan of ``data`` (uint8) from
+    ``start`` into the int16 [rows, blocks_w, 64] arrays ``coefs``: (0 or a
+    negative error code, offset where the coder stopped). ``params`` is
+    [ncomp, 5] int32 {mcu_h, mcu_v, blocks_w, dc slot, ac slot} (slots
+    0..15); ``cond`` [3, 16] the DAC conditioning values in force (L, U of
+    each DC slot, Kx of each AC slot). A sequential scan (``spectral``
+    None) fills zeroed blocks; a progressive one adds into them. Raises
+    when the library cannot be built: ``utils.jpeg.entropy_decode_plain``
+    is the plain version that tests hold this one against."""
+    lib = _require(load_jpeg(), "JPEG")
+    d = np.ascontiguousarray(data, np.uint8)
+    pr = np.ascontiguousarray(params, np.int32)
+    cd = np.ascontiguousarray(cond, np.int32)
+    if pr.shape != (len(coefs), 5) or cd.shape != (3, 16):
+        raise ValueError(f"jpeg_decode_arith_scan: params {pr.shape}, conditioning {cd.shape}")
+    ptrs = _coef_ptrs(coefs, pr[:, 2], mcus_x, mcus_y, pr[:, :2], "jpeg_decode_arith_scan")
+    sp = None if spectral is None else np.array(spectral, np.int32)
+    end = ctypes.c_int64(0)
+    r = lib.jpeg_decode_arith_scan(
+        d.ctypes.data_as(p_u8), len(d), start, len(coefs),
+        pr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        cd.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), mcus_x, mcus_y, restart,
+        None if sp is None else sp.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ptrs, ctypes.byref(end))
+    return r, end.value
+
+
+def jpeg_decode_lossless_scan(data: np.ndarray, start: int, params: np.ndarray,
+                              huff_bits: np.ndarray, huff_vals: np.ndarray, mcus_x: int,
+                              mcus_y: int, restart: int, psv: int, pt: int, precision: int,
+                              planes: list) -> tuple[int, int]:
+    """Decode one lossless JPEG scan of ``data`` (uint8) from ``start``
+    into the uint16 [mcus_y * mcu_v, mcus_x * mcu_h] sample planes
+    ``planes``, one per component of the scan: (0 or a negative error
+    code, offset of the marker that ends the scan). ``params`` is [ncomp,
+    6] int32 {mcu_h, mcu_v, width, height, dc slot, v}; the tables are
+    ``jpeg_decode_scan``'s. The samples are those before the point
+    transform's shift by ``pt``. Raises when the library cannot be built:
+    ``utils.jpeg.entropy_decode_plain`` is the plain version that tests
+    hold this one against."""
+    lib = _require(load_jpeg(), "JPEG")
+    d = np.ascontiguousarray(data, np.uint8)
+    pr = np.ascontiguousarray(params, np.int32)
+    hb = np.ascontiguousarray(huff_bits, np.uint8)
+    hv = np.ascontiguousarray(huff_vals, np.uint8)
+    if pr.shape != (len(planes), 6) or hb.shape != (8, 16) or hv.shape != (8, 256):
+        raise ValueError(f"jpeg_decode_lossless_scan: params {pr.shape}, tables "
+                         f"{hb.shape} {hv.shape}")
+    for p, (mh, mv) in zip(planes, pr[:, :2]):
+        if (p.dtype != np.uint16 or not p.flags.c_contiguous
+                or p.shape != (mcus_y * mv, mcus_x * mh)):
+            raise ValueError(f"jpeg_decode_lossless_scan: a plane {p.dtype} {p.shape}")
+    ptrs = (ctypes.POINTER(ctypes.c_uint16) * len(planes))(
+        *(p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)) for p in planes))
+    end = ctypes.c_int64(0)
+    r = lib.jpeg_decode_lossless_scan(
+        d.ctypes.data_as(p_u8), len(d), start, len(planes),
+        pr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), hb.ctypes.data_as(p_u8),
+        hv.ctypes.data_as(p_u8), mcus_x, mcus_y, restart, psv, pt, precision, ptrs,
+        ctypes.byref(end))
     return r, end.value

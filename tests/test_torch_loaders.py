@@ -168,8 +168,8 @@ def test_scannet_png_colour_and_part_downsample(tmp_path):
 
 def test_scannet_jpeg_colour_raises(tmp_path):
     """Every .jpg colour frame decodes as OpenCV decodes it, a progressive
-    one too; an arithmetic-coded one (which ScanNet never holds) raises,
-    naming its ROADMAP item."""
+    one too; a hierarchical one (SOF5), which OpenCV reads as None too,
+    raises."""
     _scannet(tmp_path / "jpg", "jpg")
     ds = tl.ScanNet(str(tmp_path / "jpg"), stride=1)
     assert len(ds) == 30
@@ -183,9 +183,79 @@ def test_scannet_jpeg_colour_raises(tmp_path):
         data = f.read()
     i = data.index(b"\xff\xc0")
     with open(ds.color_paths[5], "wb") as f:
-        f.write(data[:i + 1] + b"\xc9" + data[i + 2:])       # SOF9: arithmetic coding
-    with pytest.raises(NotImplementedError, match="arithmetic.*A14d"):
+        f.write(data[:i + 1] + b"\xc5" + data[i + 2:])       # SOF5: differential (hierarchical)
+    assert cv2.imread(ds.color_paths[5]) is None
+    with pytest.raises(NotImplementedError, match="differential"):
         ds[5]
+
+
+def test_scannet_arithmetic_colour_equal(tmp_path):
+    """A scan whose colour frames libjpeg transcoded to arithmetic coding
+    (sequential, progressive with restarts): the port's samples equal the
+    JAX loader's, colour included."""
+    from openobj_torch.utils import jpeg
+    from test_torch_jpeg import WRITERS, build_writers, transcode
+
+    exe = build_writers(str(tmp_path))["arith"]
+    if not os.path.isfile(exe):
+        pytest.skip(f"the {WRITERS['arith'][0]} writer: {exe}")
+    root = tmp_path / "scan"
+    _scannet(root, "jpg")
+    for i, name in enumerate(sorted(os.listdir(root / "color"))):
+        path = root / "color" / name
+        path.write_bytes(transcode(exe, path.read_bytes(),
+                                   *(("-progressive", "-restart", "2") if i % 2 else ())))
+        assert jpeg.parse(path.read_bytes()).arithmetic
+    t, j = tl.ScanNet(str(root), stride=10), jl.ScanNet(str(root), stride=10)
+    assert len(t) == len(j) == 3
+    for i in range(3):
+        assert_samples_equal(t[i], j[i])
+
+
+def _palette_png(rgb: np.ndarray, interlace: int) -> bytes:
+    """``rgb`` quantised to a 4-bit palette (its 16 most common colours
+    after dropping the low 6 bits), Adam7-interlaced when asked."""
+    from test_torch_png import encode
+
+    q = (rgb >> 6) << 6
+    colours, idx = np.unique(q.reshape(-1, 3), axis=0, return_inverse=True)
+    order = np.argsort(-np.bincount(idx))[:16]
+    lut = np.zeros(len(colours), np.int64)
+    lut[order] = np.arange(len(order))
+    return encode(lut[idx].reshape(rgb.shape[:2]), 4, 3, interlace, plte=colours[order],
+                  trns=bytes([255, 128]))
+
+
+def test_replica_palette_and_interlaced_frames_equal(tmp_path):
+    """Replica's rgb_<i>.png frames re-saved as a 4-bit palette with tRNS,
+    Adam7-interlaced RGB, 16-bit RGBA and grey + alpha: the port's samples
+    equal the JAX loader's (cv2.imread's IMREAD_COLOR), colour included."""
+    from test_torch_png import encode
+
+    root = tmp_path / "scene"
+    write_replica_dataset(str(root), n_raw_frames=30)
+    rng = np.random.default_rng(7)
+    for i in range(30):
+        p = root / "rgb" / f"rgb_{i}.png"
+        rgb = cv2.imread(str(p))[..., ::-1].astype(np.int64)
+        kind = i % 4
+        if kind == 0:
+            data = _palette_png(rgb, interlace=i % 8 == 0)
+        elif kind == 1:
+            data = encode(rgb, 8, 2, interlace=1)
+        elif kind == 2:
+            rgba = np.concatenate([rgb * 257 + rng.integers(0, 256, rgb.shape),
+                                   rng.integers(0, 65536, rgb.shape[:2] + (1,))], -1)
+            data = encode(rgba, 16, 6)
+        else:
+            data = encode(np.stack([rgb[..., 1], rng.integers(0, 256, rgb.shape[:2])], -1), 8, 4,
+                          interlace=1)
+        p.write_bytes(data)
+    for kw in (dict(stride=10), dict(start=1, stride=1)):
+        t, j = tl.Replica(str(root), **kw), jl.Replica(str(root), **kw)
+        assert len(t) == len(j)
+        for i in range(min(len(t), 4)):
+            assert_samples_equal(t[i], j[i])
 
 
 def _exif_orientation_6(data: bytes) -> bytes:

@@ -202,6 +202,39 @@ def test_evaluate_run_matches(runs, tmp_path):
             assert got[k] == pytest.approx(ref[k], rel=1e-12)
 
 
+def test_evaluate_run_reads_colour_as_cv2(tmp_path):
+    """Ground-truth and rendered colour are read as cv2.imread reads them
+    by default (IMREAD_COLOR): RGBA, 16-bit RGB, grey and palette
+    ground-truth frames and an RGBA render give the JAX evaluate_run's
+    PSNR. Read unchanged, they would not have the render's shape."""
+    from test_torch_png import encode
+
+    rng = np.random.default_rng(9)
+    render, gt = tmp_path / "render", tmp_path / "gt"
+    os.makedirs(render)
+    os.makedirs(gt)
+    h, w = 12, 16
+    truth = rng.integers(0, 256, (4, h, w, 3))
+    pal = rng.integers(0, 256, (16, 3))
+    idx = rng.integers(0, 16, (h, w))
+    truth[3] = pal[idx]
+    gt_files = [encode(np.concatenate([truth[0], rng.integers(0, 256, (h, w, 1))], -1), 8, 6),
+                encode(truth[1] * 257 + rng.integers(0, 256, (h, w, 3)), 16, 2, interlace=1),
+                encode(truth[2][..., 1], 8, 0),
+                encode(idx, 4, 3, plte=pal, trns=bytes(range(0, 160, 10)))]
+    for i, data in enumerate(gt_files):
+        (gt / f"rgb_{i}.png").write_bytes(data)
+        noisy = np.clip(truth[i] + rng.integers(-9, 10, (h, w, 3)), 0, 255)
+        render_rgb = (encode(np.concatenate([noisy, np.full((h, w, 1), 200)], -1), 8, 6)
+                      if i == 0 else png.encode_png(noisy.astype(np.uint8)))
+        (render / f"rgb_{i}.png").write_bytes(render_rgb)
+    ref = jeval.evaluate_run(str(render), str(gt), None, None, 20)
+    got = teval.evaluate_run(str(render), str(gt), None, None, 20)
+    assert got.keys() == ref.keys() == {"psnr"}
+    assert got["psnr"] == pytest.approx(ref["psnr"], rel=1e-12)
+    assert png.read_png(str(gt / "rgb_0.png")).shape == (h, w, 4)
+
+
 def test_eval_functions_equal():
     rng = np.random.default_rng(0)
     pred = rng.integers(0, 6, (5, 12, 16))

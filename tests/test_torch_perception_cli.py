@@ -140,8 +140,8 @@ def test_clis_default_to_the_card(tmp_path):
 
 def test_scannet_jpg_colour_refused(tmp_path):
     """RawFrames on the ScanNet layout decodes color/*.jpg as the JAX
-    package's (cv2) does, baseline and progressive; only what ScanNet never
-    holds, an arithmetic-coded file, is refused."""
+    package's (cv2) does, baseline and progressive; only what cv2 reads as
+    None too, here a differential (hierarchical) frame, is refused."""
     for d in ("color", "depth"):
         os.makedirs(tmp_path / d)
     rng = np.random.default_rng(0)
@@ -161,8 +161,9 @@ def test_scannet_jpg_colour_refused(tmp_path):
     path = tmp_path / "color" / "1.jpg"
     data = path.read_bytes()
     i = data.index(b"\xff\xc2")
-    path.write_bytes(data[:i + 1] + b"\xca" + data[i + 2:])   # SOF10: arithmetic, progressive
-    with pytest.raises(NotImplementedError, match="arithmetic.*A14d"):
+    path.write_bytes(data[:i + 1] + b"\xc6" + data[i + 2:])   # SOF6: differential progressive
+    assert cv2.imread(str(path)) is None
+    with pytest.raises(NotImplementedError, match="differential.*cv2.imread"):
         frames[1]
 
 
