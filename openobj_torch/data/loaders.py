@@ -1,8 +1,9 @@
 """Replica / ScanNet sequence loaders.
 
 Port of ``openobj_tpu.data.loaders``. Images are read with the port's PNG
-codec (``utils.png``) and ScanNet's ``.jpg`` colour frames with its JPEG
-decoder (``utils.jpeg``), each equal to OpenCV's decode, and resized with
+codec (``utils.png``) and JPEG decoder (``utils.jpeg``), each equal to
+OpenCV's decode and, as OpenCV does, chosen by the file's first bytes and
+not its name (``read_image``), and resized with
 ``data.transforms.resize``, where the JAX package uses OpenCV; frames stay
 numpy here and become tensors at the ``SceneMapper`` boundary.
 
@@ -41,8 +42,8 @@ import numpy as np
 from openobj_torch.data.transforms import (
     enlarge_bbox, resize, scale_depth, undistort, undistort_maps,
 )
-from openobj_torch.utils.jpeg import read_jpeg
-from openobj_torch.utils.png import read_png
+from openobj_torch.utils.jpeg import decode_jpeg
+from openobj_torch.utils.png import decode_png
 
 BACKGROUND_CLS = (1,)  # the association pipeline's wall id (dataset.py:67)
 
@@ -233,13 +234,13 @@ class _SequenceDataset:
         idx = int(self.start + i * self.stride)
         idx_no = idx // self.assoc_stride
         rgb = _read_rgb(self._rgb_path(idx))
-        depth_raw = read_png(self._depth_path(idx)).astype(np.float32)
+        depth_raw = read_image(self._depth_path(idx)).astype(np.float32)
         depth_raw = np.nan_to_num(depth_raw, nan=0.0)
         if rgb.shape[:2] != depth_raw.shape:
             # bring rgb to depth resolution FIRST so one set of maps (built
             # for the depth intrinsics) undistorts everything consistently
             rgb = resize(rgb, (depth_raw.shape[1], depth_raw.shape[0]))
-        inst_raw = read_png(self._inst_path(idx_no))
+        inst_raw = read_image(self._inst_path(idx_no))
         if inst_raw.shape[:2] != depth_raw.shape:
             # bring the id image to depth resolution too (nearest — ids
             # must never blend); otherwise masks are misaligned with the
@@ -294,17 +295,41 @@ class _SequenceDataset:
         )
 
 
+_PNG_SIGNATURE, _JPEG_SOI = b"\x89PNG\r\n\x1a\n", b"\xff\xd8"
+
+
+def read_image(path: str, colour: bool = False) -> np.ndarray:
+    """The image of a file as ``cv2.imread(path, cv2.IMREAD_COLOR if colour
+    else cv2.IMREAD_UNCHANGED)`` reads it, channels in RGB(A) order. As
+    OpenCV does, the decoder is chosen by the file's first bytes, whatever
+    its name: the PNG reader (colour: alpha dropped, grey and palettes
+    expanded, 16-bit samples keeping their high byte) or the JPEG decoder
+    (colour: turned by its EXIF orientation; unchanged: as stored, grey as
+    [H, W]). A file of any other format raises ``NotImplementedError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_PNG_SIGNATURE):
+        return decode_png(data, colour)
+    if data.startswith(_JPEG_SOI):
+        return decode_jpeg(data, unchanged=not colour)
+    raise NotImplementedError(f"{path}: neither a PNG nor a JPEG file (the port reads those two)")
+
+
+def imread(path: str, colour: bool = False) -> np.ndarray | None:
+    """``read_image``, or None where ``cv2.imread`` returns None: a file
+    missing or unreadable, or one that neither decoder reads (empty,
+    truncated, a chunk failing its CRC, corrupt data, another format).
+    Only those failures map to None; any other error propagates."""
+    try:
+        return read_image(path, colour)
+    except (OSError, ValueError, NotImplementedError):   # JpegError is a ValueError
+        return None
+
+
 def _read_rgb(path: str) -> np.ndarray:
     """[H, W, 3] uint8 RGB of a colour frame, as OpenCV's default colour
-    read (``IMREAD_COLOR``) gives it: a ``.jpg``/``.jpeg`` file through the
-    JPEG decoder, a ``.png`` through the PNG reader's colour read (alpha
-    dropped, grey and palettes expanded, 16-bit samples keeping their high
-    byte). Other formats raise."""
-    if path.lower().endswith((".jpg", ".jpeg")):
-        return read_jpeg(path)
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: the port reads JPEG and PNG colour frames")
-    return read_png(path, colour=True)
+    read (``IMREAD_COLOR``) gives it (``read_image``)."""
+    return read_image(path, colour=True)
 
 
 class Replica(_SequenceDataset):

@@ -213,15 +213,7 @@ def evaluate_run(render_dir: str, gt_rgb_dir: str, gt_depth_dir: str | None,
     import os
     import re
 
-    from openobj_torch.data.loaders import _read_rgb
-    from openobj_torch.utils.png import read_png
-
-    def imread(path, colour=False):
-        """The image as ``cv2.imread`` reads it (``IMREAD_COLOR`` when
-        ``colour``, else unchanged), or None when the file is missing."""
-        if not os.path.exists(path):
-            return None
-        return _read_rgb(path) if colour else read_png(path)
+    from openobj_torch.data.loaders import imread
 
     if inst_to_class is None:
         mpath = os.path.join(render_dir, "mapping_class.json")

@@ -23,8 +23,9 @@ Port of ``openobj_tpu.perception.cli``, with every flag of the JAX CLIs and
 one more, ``--device`` (the card unless the caller asks for the CPU): the
 association's similarity matrices, the part maps' painting and the
 transformers models run there. Frames are read with the port's PNG codec
-(``utils.png``) and ScanNet's ``.jpg`` colour frames with its baseline JPEG
-decoder (``utils.jpeg``), both through ``data.loaders._read_rgb``. The association YAML is read and written without PyYAML
+(``utils.png``) and JPEG decoder (``utils.jpeg``) through
+``data.loaders.read_image``, which picks the decoder by the file's first
+bytes as OpenCV does. The association YAML is read and written without PyYAML
 (``load_assoc_yaml`` here, ``utils.yaml_subset.dump_flat`` in
 ``perception.auto``), for the subset the reference schema and
 ``perception.auto`` use. Each stage is
@@ -43,7 +44,7 @@ import os
 import numpy as np
 import torch
 
-from openobj_torch.data.loaders import _read_rgb
+from openobj_torch.data.loaders import _read_rgb, read_image
 from openobj_torch.data.transforms import resize, scale_depth
 from openobj_torch.perception import encoders as enc
 from openobj_torch.perception import graph as graph_mod
@@ -53,7 +54,6 @@ from openobj_torch.perception.mask_generation import (
 )
 from openobj_torch.perception.segmentation import GraphSegmenter
 from openobj_torch.utils import yaml_subset
-from openobj_torch.utils.png import read_png
 from openobj_torch.utils.profiling import performance_measure
 
 
@@ -108,7 +108,7 @@ class RawFrames:
     def __getitem__(self, i: int):
         rgb = _read_rgb(self.rgb_paths[i])
         depth = scale_depth(
-            read_png(self.depth_paths[i]).astype(np.float32),
+            read_image(self.depth_paths[i]).astype(np.float32),
             self.depth_scale, self.max_depth,
         )
         if rgb.shape[:2] != depth.shape:
@@ -398,7 +398,7 @@ def associate_main(argv=None):
         fm = mask_init[key]
         gt_sem = None
         if gt_paths is not None:
-            gt_sem = read_png(gt_paths[ordinal]).astype(np.int32)
+            gt_sem = read_image(gt_paths[ordinal]).astype(np.int32)
         frames.append(pipeline.FrameInput(
             masks=[np.asarray(m, bool) for m in fm["mask"]],
             captions=list(fm["caption"]),

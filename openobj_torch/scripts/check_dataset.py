@@ -9,9 +9,9 @@ time is spent.
 
 Port of ``scripts/check_dataset.py``, with the same PASS/WARN/FAIL rows on
 the same tree. It is a host preflight and takes no ``--device`` (the JAX one
-forces the CPU): frames are read with the port's readers (``utils.png``;
-colour through ``data.loaders._read_rgb``, ScanNet's JPEG included) where
-the JAX script uses OpenCV.
+forces the CPU): frames are read with the port's readers (``utils.png`` and
+``utils.jpeg``, through ``data.loaders.imread``, which returns None where
+``cv2.imread`` does) where the JAX script uses OpenCV.
 
 Contracts checked (docs/DATA.md; reference objnerf/dataset.py:52-109):
   traj_w_c.txt row-per-frame flattened 4x4 poses; rgb/depth frame files and
@@ -33,6 +33,8 @@ import sys
 
 import numpy as np
 
+from openobj_torch.data.loaders import imread
+
 _ROWS = []
 
 
@@ -41,18 +43,6 @@ def check(name, ok, detail="", warn=False):
     _ROWS.append((status, name, detail))
     print(f"[{status}] {name}" + (f" — {detail}" if detail else ""), flush=True)
     return ok
-
-
-def _imread(path, colour=False):
-    """The image at ``path`` (colour: [H, W, 3] uint8; else as stored), or
-    None when it cannot be read, as ``cv2.imread`` returns."""
-    from openobj_torch.data.loaders import _read_rgb
-    from openobj_torch.utils.png import read_png
-
-    try:
-        return _read_rgb(path) if colour else read_png(path)
-    except Exception:  # noqa: BLE001 — a file that does not decode
-        return None
 
 
 def check_poses(root, n_needed):
@@ -85,12 +75,12 @@ def check_frame_files(ds, cfg, sample_idxs):
         rp, dp = ds._rgb_path(idx), ds._depth_path(idx)
         if not check(f"rgb frame {idx}", os.path.isfile(rp), rp):
             continue
-        rgb = _imread(rp, colour=True)
+        rgb = imread(rp, colour=True)
         check(f"rgb frame {idx} decodes 3-channel",
               rgb is not None and rgb.ndim == 3 and rgb.shape[2] == 3)
         if not check(f"depth frame {idx}", os.path.isfile(dp), dp):
             continue
-        depth = _imread(dp)
+        depth = imread(dp)
         if not check(f"depth frame {idx} decodes", depth is not None):
             continue
         check(f"depth frame {idx} integer depth (mm convention)",
@@ -119,7 +109,7 @@ def check_instances(ds, sample_idxs):
         if not check(f"instance image for frame {idx} (assoc "
                      f"{idx // ds.assoc_stride})", os.path.isfile(ip), ip):
             continue
-        inst = _imread(ip)
+        inst = imread(ip)
         if not check(f"instance image {idx // ds.assoc_stride} decodes",
                      inst is not None):
             continue

@@ -1417,11 +1417,16 @@ def reconstruct(frame: Frame, coefs: list[np.ndarray]) -> np.ndarray:
     return ycc_to_rgb(*planes)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, unchanged: bool = False) -> np.ndarray:
     """uint8 [H, W, 3] RGB of a JPEG held in memory, turned by its EXIF
-    orientation: what ``cv2.imdecode`` gives, channels reversed."""
+    orientation: what ``cv2.imdecode`` gives, channels reversed. With
+    ``unchanged``, what it gives with ``IMREAD_UNCHANGED``: the image as
+    stored, not turned, and a grey file as [H, W]."""
     frame = parse(data)
-    return orient(reconstruct(frame, entropy_decode(frame, data)), frame.orientation)
+    rgb = reconstruct(frame, entropy_decode(frame, data))
+    if unchanged:
+        return np.ascontiguousarray(rgb[..., 0]) if len(frame.components) == 1 else rgb
+    return orient(rgb, frame.orientation)
 
 
 def read_jpeg(path: str) -> np.ndarray:

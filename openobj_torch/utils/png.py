@@ -152,7 +152,8 @@ def _pixels(raw: np.ndarray, w: int, h: int, ch: int, depth: int, interlace: int
 
 def _chunks(data: bytes):
     """(kind, body) of each chunk up to IEND; a critical chunk that fails
-    its CRC raises, an ancillary one is left out (libpng's defaults)."""
+    its CRC raises, an ancillary one is left out (libpng's defaults), and
+    so does a file cut before IEND, as OpenCV refuses it."""
     pos = 8
     while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
@@ -169,6 +170,7 @@ def _chunks(data: bytes):
         yield kind, body
         if kind == b"IEND":
             return
+    raise ValueError("PNG: the file ends before its IEND chunk")
 
 
 def decode_png(data: bytes, colour: bool = False) -> np.ndarray:

@@ -258,6 +258,32 @@ def test_replica_palette_and_interlaced_frames_equal(tmp_path):
             assert_samples_equal(t[i], j[i])
 
 
+def test_frames_read_by_signature_not_name(tmp_path):
+    """The loaders choose the decoder by a file's first bytes, as cv2.imread
+    does: Replica's rgb_<i>.png frames holding JPEG bytes and ScanNet's
+    color/<i>.jpg frames holding PNG bytes give the JAX loader's samples,
+    colour included."""
+    root = tmp_path / "scene"
+    write_replica_dataset(str(root), n_raw_frames=20)
+    for i in range(20):
+        p = root / "rgb" / f"rgb_{i}.png"
+        ok, buf = cv2.imencode(".jpg", cv2.imread(str(p)), [cv2.IMWRITE_JPEG_QUALITY, 90])
+        assert ok
+        p.write_bytes(buf.tobytes())
+    scan = tmp_path / "scan"
+    _scannet(scan, "jpg")
+    for i in range(0, 30, 2):
+        p = scan / "color" / f"{i}.jpg"
+        ok, buf = cv2.imencode(".png", cv2.imread(str(p)))
+        assert ok
+        p.write_bytes(buf.tobytes())
+    for t, j in ((tl.Replica(str(root)), jl.Replica(str(root))),
+                 (tl.ScanNet(str(scan), stride=1), jl.ScanNet(str(scan), stride=1))):
+        assert len(t) == len(j)
+        for i in range(min(len(t), 4)):
+            assert_samples_equal(t[i], j[i])
+
+
 def _exif_orientation_6(data: bytes) -> bytes:
     """A JPEG file's bytes with an EXIF APP1 segment (orientation 6) after SOI."""
     payload = (b"Exif\x00\x00MM\x00\x2a" + (8).to_bytes(4, "big") + (1).to_bytes(2, "big")

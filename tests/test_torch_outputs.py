@@ -18,6 +18,7 @@ to ~2e-5 m.
 
 import glob
 import os
+import struct
 from types import SimpleNamespace
 
 import numpy as np
@@ -233,6 +234,51 @@ def test_evaluate_run_reads_colour_as_cv2(tmp_path):
     assert got.keys() == ref.keys() == {"psnr"}
     assert got["psnr"] == pytest.approx(ref["psnr"], rel=1e-12)
     assert png.read_png(str(gt / "rgb_0.png")).shape == (h, w, 4)
+
+
+def test_evaluate_run_skips_unreadable_renders(tmp_path):
+    """A maskid render cut short and an instance render whose IDAT fails its
+    CRC read as None (as cv2.imread reads them): both packages skip that
+    frame's semantic rows and the other frame's instance and semantic rows,
+    and the metrics agree. The same run with the renders intact scores
+    otherwise, so the rows were skipped."""
+    rng = np.random.default_rng(4)
+    render, gt = tmp_path / "render", tmp_path / "gt"
+    os.makedirs(render)
+    os.makedirs(gt)
+    h, w = 12, 16
+    (render / "mapping_class.json").write_text('{"0": 2, "4": 5, "5": 7, "6": 5}')
+    intact = {}
+    for i in range(3):
+        truth = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        (gt / f"rgb_{i}.png").write_bytes(png.encode_png(truth))
+        noisy = np.clip(truth + rng.integers(-9, 10, (h, w, 3)), 0, 255).astype(np.uint8)
+        (render / f"rgb_{i}.png").write_bytes(png.encode_png(noisy))
+        gi = rng.choice([0, 1, 2, 4, 5, 6], (h, w)).astype(np.uint16)
+        pi = np.where(rng.random((h, w)) < 0.8, gi, rng.choice([0, 4, 5, 6], (h, w)))
+        (gt / f"semantic_instance_{i}.png").write_bytes(png.encode_png(gi))
+        for name, im in ((f"inst_{i}.png", pi.astype(np.uint16)),
+                         (f"maskid_{i}.png", rng.integers(0, 9, (h, w)).astype(np.uint16))):
+            intact[name] = png.encode_png(im)
+            (render / name).write_bytes(intact[name])
+
+    def run(pkg):
+        return pkg.evaluate_run(str(render), str(gt), None, None, 9, gt_inst_dir=str(gt))
+
+    whole = run(jeval)
+    data = intact["maskid_1.png"]
+    (render / "maskid_1.png").write_bytes(data[:len(data) // 2])
+    data = bytearray(intact["inst_2.png"])
+    idat = data.index(b"IDAT")
+    data[idat + 4 + struct.unpack(">I", data[idat - 4:idat])[0]] ^= 1
+    (render / "inst_2.png").write_bytes(bytes(data))
+    for name in ("maskid_1.png", "inst_2.png"):
+        assert cv2.imread(str(render / name), -1) is None
+    ref, got = run(jeval), run(teval)
+    assert got.keys() == ref.keys() == whole.keys() and "inst_miou" in ref and "miou" in ref
+    for k in ref:
+        assert got[k] == pytest.approx(ref[k], rel=1e-12), k
+    assert ref["miou"] != whole["miou"] and ref["inst_miou"] != whole["inst_miou"]
 
 
 def test_eval_functions_equal():
