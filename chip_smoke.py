@@ -17,13 +17,20 @@ It builds the CUDA kernels from openobj_torch/csrc with nvcc (sm_90a), then:
      (ff.bf16_output_errors for K1, BF16_RATIO per leaf for K2, the
      conversion bit for bit), timed with their bounds (K1's beside its
      encode's own floor) and K1 bf16's launch, and K2r over the bf16
-     library's slots;
+     library's slots; and the flat AdamW kernel (csrc/adamw_flat.cu) against
+     its plain version on the room_0 fg and bg trees with some slots frozen
+     (ADAMW_RTOL per leaf), timed beside its byte bound, the plain flat
+     version, the per-leaf tree update and torch._fused_adamw_;
   3. runs the port of examples/synthetic_convergence.py through the kernels
      and a few training steps on the card against the same steps on the CPU;
   4. drives the main path: SceneMapper.process_frame at the Replica room_0
      envelope (configs/replica/room_0.json, 680x1200 frames, 50 objects +
      background, 512-d part features) for 3 frames, with the launch counts
-     reset just before and read just after;
+     reset just before and read just after; then, from that state, one
+     frame with the per-leaf update and one with trainer.optim_impl "flat"
+     (counts reset around it: the flat AdamW kernel 200 times, once a model
+     a step), whose step losses must match the tree frame's
+     (FLAT_FRAME_RTOL);
   4b. the map's outputs of that mapper at full width, with the counts reset
      just before and read just after: train.save_checkpoints (one object
      and the background reloaded, field outputs bit-identical),
@@ -216,6 +223,14 @@ STEP_RTOL_BF16 = 1e-3
 # mesh of more than one rank (the CPU tests' tolerance for 2 and 4 ranks,
 # tests/test_torch_sharding.py); on a mesh of one they are equal
 SHARDED_RTOL = 2e-5
+# the flat AdamW kernel (csrc/adamw_flat.cu) against its plain version, per
+# leaf max|d|/max|ref| (powf's last bit against torch.pow), and phase 4's
+# flat frame's step losses against a tree-update frame from the same state
+ADAMW_RTOL = 1e-6
+FLAT_FRAME_RTOL = 1e-5
+# slots of the room_0 bucket frozen in phase 2's flat AdamW check: the 14
+# empty slots of 50 objects in 64, and two of the objects' own
+ADAMW_FROZEN = (3, 17, *range(50, 64))
 SHARDED_BAND = 64           # rows of the pose phase 4i renders inside and outside the mesh
 # phase 4b meshes this many objects (and keeps its one-mesh breakdown)
 MESH_OBJECTS = 4
@@ -604,6 +619,174 @@ def check_kernels_bf16(device, shapes) -> dict:
 # --------------------------------------------------------------------------- #
 
 
+def device_busy_ms(fn, iters: int = 10) -> float:
+    """The device time (ms) of every kernel one call of ``fn`` launches,
+    summed, from a torch.profiler trace of ``iters`` calls behind as many
+    untraced ones; fails where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for step in range(2):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            if step == 0:
+                prof.step()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us > 0:
+        raise RuntimeError("trace: no device time")
+    return us / iters / 1e3
+
+
+def packed_grads(gen, params, stacked: bool, device) -> dict:
+    """Random gradients laid out as the trainer's autograd leaves them: views
+    into one packed [O, P] (or [P]) gradient, each slot's row contiguous."""
+    import torch
+    from openobj_torch.core import optim
+
+    leaves = [(p, x) for p, x in optim.flatten_with_path(params) if optim.trainable(p)]
+    rows = [x[0].numel() if stacked else x.numel() for _, x in leaves]
+    lead = (leaves[0][1].shape[0],) if stacked else ()
+    packed = 1e-2 * torch.randn(lead + (sum(rows),), generator=gen, device=device)
+    out, at = {}, 0
+    for (path, x), k in zip(leaves, rows):
+        optim.set_path(out, path, (packed[:, at:at + k] if stacked else packed[at:at + k])
+                       .view(x.shape))
+        at += k
+    return out
+
+
+def check_adamw_flat(device, smi: str) -> dict:
+    """The flat AdamW kernel against its plain version on the room_0 trees
+    (fg: the 64-slot bucket, h=32, with ADAMW_FROZEN's slots frozen; bg:
+    h=128), from a state with moments and per-slot counts: per leaf within
+    ADAMW_RTOL, the new counts equal, frozen slots bit for bit, the inputs
+    untouched. Times (one launch a model per step): the kernel's device
+    time (torch.profiler), the wrapper's call (CUDA events, host work
+    included), the plain flat version, the per-leaf tree update (events,
+    and its kernels' device time summed) and torch._fused_adamw_ over the
+    same leaves cut into slots (the library's one call; no per-slot gate, so
+    only the stepping slots go in), beside the byte bound."""
+    import torch
+    from openobj_torch.config import load_scene_config
+    from openobj_torch.core import optim, trainer
+    from openobj_torch.models.object_field import tree_map
+    from openobj_torch.scripts._benchlib import bound_ms
+
+    tc = load_scene_config(os.path.join(ROOT, "configs", "replica", "room_0.json")).train
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    st = trainer.init_train_state(gen, tc, n_slots=FG["o"], device=device)
+    frozen = torch.zeros(FG["o"], dtype=torch.bool)
+    frozen[list(ADAMW_FROZEN)] = True
+    active = (~frozen).to(device)
+    rows = []
+    for name, params, opt, act in (("fg", st.fg_params, st.fg_opt, active),
+                                   ("bg", st.bg_params, st.bg_opt, None)):
+        stacked = act is not None
+        opt = optim.AdamWState(
+            mu=tree_map(lambda x: 1e-2 * torch.randn(x.shape, generator=gen,
+                                                           device=device), opt.mu),
+            nu=tree_map(lambda x: 1e-4 * torch.rand(x.shape, generator=gen,
+                                                          device=device), opt.nu),
+            count=(torch.randint(0, 300, opt.count.shape, generator=gen, device=device)
+                   .to(torch.int32)))
+        grads = packed_grads(gen, params, stacked, device)
+        leaves = optim._trainable_leaves(params, grads, opt)
+        before = [x.clone() for _, *xs in leaves for x in xs if x is not None]
+        optim.reset_counts()
+        k_p, k_s = optim.adamw_update_flat(params, grads, opt, tc.learning_rate,
+                                           tc.weight_decay, act)
+        p_p, p_s = optim.adamw_update_flat_plain(params, grads, opt, tc.learning_rate,
+                                                 tc.weight_decay, act)
+        torch.cuda.synchronize()
+        if optim.COUNTS["adamw_flat"] != 1:
+            raise AssertionError(f"[adamw_flat] {name}: {optim.COUNTS} launches, expected 1")
+        after = [x for _, *xs in leaves for x in xs if x is not None]
+        if not all(torch.equal(a, b) for a, b in zip(before, after)):
+            raise AssertionError(f"[adamw_flat] {name}: the update changed its inputs")
+        if not torch.equal(k_s.count, p_s.count):
+            raise AssertionError(f"[adamw_flat] {name}: counts {k_s.count} vs {p_s.count}")
+        worst, err = 0.0, 0.0
+        for tree_k, tree_p, tree_in in ((k_p, p_p, params), (k_s.mu, p_s.mu, opt.mu),
+                                        (k_s.nu, p_s.nu, opt.nu)):
+            ref, start = dict(optim.flatten_with_path(tree_p)), dict(optim.flatten_with_path(tree_in))
+            for path, x in optim.flatten_with_path(tree_k):
+                d = float((x - ref[path]).abs().max())
+                rel = d / (float(ref[path].abs().max()) + 1e-30)
+                worst, err = max(worst, rel), max(err, d)
+                if not rel <= ADAMW_RTOL:
+                    raise AssertionError(f"[adamw_flat] {name} {path}: max|d|/max|ref| "
+                                         f"{rel:.3e} > {ADAMW_RTOL}")
+                if stacked and optim.trainable(path) and not torch.equal(
+                        x[frozen.to(device)], start[path][frozen.to(device)]):
+                    raise AssertionError(f"[adamw_flat] {name} {path}: a frozen slot moved")
+
+        # times; the launch alone, from its arguments made once
+        lib = optim._lib()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        args = (lib, leaves, opt.count, act, tc.learning_rate, tc.weight_decay, 0.9, 0.999,
+                1e-8, stream)
+        t_kernel = traced_ms(lambda: optim.flat_launch(*args), "adamw_flat_kernel")
+        t_call = time_ms(lambda: optim.adamw_update_flat(params, grads, opt, tc.learning_rate,
+                                                         tc.weight_decay, act))
+        t_plain = time_ms(lambda: optim.adamw_update_flat_plain(
+            params, grads, opt, tc.learning_rate, tc.weight_decay, act))
+
+        def tree():
+            return optim.adamw_update(params, grads, opt, tc.learning_rate, tc.weight_decay, act)
+
+        t_tree, t_tree_busy = time_ms(tree), device_busy_ms(tree)
+        # the library's one call, in place on copies: per-slot views of the
+        # stepping slots (the fused kernel keeps one step count a tensor)
+        slots = [i for i in range(FG["o"]) if not frozen[i]] if stacked else [None]
+        lib_lists = [[], [], [], []]   # p, g, m, v: a view a (leaf, stepping slot)
+        for _, *xs in leaves:
+            for x, out in zip(xs, lib_lists):
+                y = x.clone()
+                out.extend([y[i] for i in slots] if stacked else [y])
+        steps = [(opt.count[i] if stacked else opt.count).float() + 1
+                 for _ in leaves for i in slots]
+
+        def library():
+            torch._fused_adamw_(*lib_lists, [], steps, lr=tc.learning_rate, beta1=0.9,
+                                beta2=0.999, weight_decay=tc.weight_decay, eps=1e-8,
+                                amsgrad=False, maximize=False)
+
+        try:
+            t_lib = time_ms(library)
+        except (RuntimeError, TypeError, AttributeError) as e:   # no such call in this torch
+            log(f"[adamw_flat] {name}: torch._fused_adamw_ unavailable ({e})")
+            t_lib = None
+
+        # bytes this run's data needs: a stepping slot's float read 4 times
+        # (p, g, m, v) and written 3 (p, m, v); a frozen one read and written 3
+        # times; the counts read and written, the gate read
+        n_on = (FG["o"] - len(ADAMW_FROZEN)) if stacked else 1
+        n_slots = FG["o"] if stacked else 1
+        per_slot = sum(p.numel() for _, p, _, _, _ in leaves) // n_slots
+        nbytes = per_slot * (28 * n_on + 24 * (n_slots - n_on)) + 9 * n_slots
+        bound = bound_ms(15.0 * per_slot * n_on, nbytes)
+        rows.append(dict(shape=name, dims=[n_slots, per_slot], leaves=len(leaves), ms=t_kernel,
+                         call_ms=t_call, plain_ms=t_plain, tree_ms=t_tree,
+                         tree_busy_ms=t_tree_busy, library_ms=t_lib, bound=bound, err=err,
+                         rel=worst, bytes=nbytes))
+        log(f"[adamw_flat] {name}: {len(leaves)} leaves x {n_slots} slots ({n_on} stepping) x "
+            f"{per_slot} floats, max|d|/max|ref| {worst:.2e} (limit {ADAMW_RTOL}), max abs "
+            f"{err:.2e}, counts equal, frozen slots and inputs bit-identical | kernel "
+            f"{1e3 * t_kernel:.2f} us a launch (device, traced), the wrapper's call "
+            f"{1e3 * t_call:.2f} us (events, host work included), bound {1e3 * bound[0]:.2f} us "
+            f"{bound[1]} ({nbytes} bytes at 3.35 TB/s) | plain flat {t_plain:.4f} ms | tree "
+            f"update {t_tree:.4f} ms (events), its kernels' device time {t_tree_busy:.4f} ms | "
+            f"torch._fused_adamw_ over {len(lib_lists[0])} slot views "
+            f"{'n/a' if t_lib is None else f'{t_lib:.4f} ms'} | {smi}")
+    return {"adamw_flat": rows}
+
+
 def check_convergence(device) -> None:
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import torch_synthetic_convergence as conv
@@ -809,7 +992,63 @@ def run_main_path(device, profile: bool = False):
         f"{[round(t * 1e3, 1) for t in times]} ms (first includes warm-up); "
         f"last-step losses {[round(float(v[-1]), 4) for v in vecs]}; counts {counts}")
     log(f"[main] ms/frame (frames 2-3): {1e3 * float(np.mean(times[1:])):.1f}")
-    return by_shape, cfg, mapper, frames, vecs
+    flat = run_flat_frame(device, mapper, tc)
+    return by_shape, cfg, mapper, frames, vecs, flat
+
+
+def run_flat_frame(device, mapper, tc) -> dict:
+    """Phase 4's frame with ``trainer.optim_impl`` "flat": from the mapper's
+    state after its frames, one frame with the per-leaf update and one with
+    the flat one (one launch of the flat AdamW kernel a model a step), the
+    same start state and generator seed, the counts reset just before the
+    flat frame and read just after: the flat kernel 2 x n_iters times, K1,
+    K2 and K2r n_iters times at fg and at bg, nothing plain or eager; its
+    step losses within FLAT_FRAME_RTOL of the tree frame's."""
+    import dataclasses
+
+    import torch
+    from openobj_torch.core import optim, trainer
+    from openobj_torch.ops import fused_field as ff
+
+    start = _clone_state(mapper.state)
+    fg_tables, bg_tables = mapper._fg_tables_device(), mapper._bg_tables_device()
+
+    def frame(cfg):
+        gen = torch.Generator(device=device).manual_seed(13)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, losses = trainer.train_frame(_clone_state(start), mapper.store, mapper.cam_dirs,
+                                        fg_tables, bg_tables, gen, cfg)
+        losses = losses.cpu().numpy()
+        return losses, 1e3 * (time.perf_counter() - t0)
+
+    tree, tree_ms = frame(tc)
+    ff.reset_counts()
+    optim.reset_counts()
+    flat, flat_ms = frame(dataclasses.replace(tc, optim_impl="flat"))
+    counts, by_shape = dict(ff.COUNTS), dict(ff.COUNTS_BY_SHAPE)
+    launches = optim.COUNTS["adamw_flat"]
+    steps = tc.n_iters_per_frame
+    want = {(k, s["o"], s["n"], s["h"]): steps for s in (FG, BG)
+            for k in ("fused_field_fwd", "fused_field_bwd", "fused_field_bwd_reduce")}
+    if launches != 2 * steps or by_shape != want or counts["fused_field_plain"] \
+            or counts["field_eager"]:
+        raise AssertionError(f"[room_0 flat] flat AdamW {launches} launches (expected "
+                             f"{2 * steps}), field launches {by_shape} (counts {counts})")
+    if flat.shape != tree.shape or not np.isfinite(flat).all():
+        raise AssertionError(f"[room_0 flat] losses {flat}")
+    rel = float(np.max(np.abs(flat - tree) / np.abs(tree)))
+    if not rel <= FLAT_FRAME_RTOL:
+        raise AssertionError(f"[room_0 flat] losses {rel:.3e} from the tree frame's (limit "
+                             f"{FLAT_FRAME_RTOL}): {flat} vs {tree}")
+    log(f"[room_0 flat] one frame with optim_impl \"flat\" from phase 4's state: "
+        f"{flat_ms:.1f} ms (the tree update's frame from the same state and seed, run first: "
+        f"{tree_ms:.1f} ms); flat AdamW {launches} launches, K1/K2/K2r {steps} each at fg and "
+        f"bg; largest relative loss difference {rel:.3e} (limit {FLAT_FRAME_RTOL}), "
+        f"{'bit-equal' if np.array_equal(flat, tree) else 'not bit-equal'}; last losses "
+        f"{float(flat[-1]):.6f} / {float(tree[-1]):.6f}")
+    return {"launches": launches, "by_shape": by_shape, "rel": rel, "flat_ms": flat_ms,
+            "tree_ms": tree_ms}
 
 
 # --------------------------------------------------------------------------- #
@@ -2946,10 +3185,11 @@ def main(argv=None) -> int:
     per = phase("2 kernels", check_kernels, device, (FG, BG) + OTHER_WIDTHS)
     per.update(phase("2 kernels bf16", check_kernels_bf16, device, (FG, BG)))
     per["fused_field_bwd_reduce"] += per.pop("reduce_bf16")   # K2r over the bf16 slots
+    adamw = phase("2 kernels adamw", check_adamw_flat, device, smi)["adamw_flat"]
     phase("3 convergence", check_convergence, device)
     phase("3 steps", check_steps_vs_cpu, device)
-    by_shape_main, cfg, mapper, frames, vecs = phase("4 main", run_main_path, device,
-                                                     profile=args.profile)
+    by_shape_main, cfg, mapper, frames, vecs, flat = phase("4 main", run_main_path, device,
+                                                           profile=args.profile)
     k1_output_rows, by_shape_out = phase("4b outputs", run_outputs, device, cfg, mapper, frames)
     bf16 = phase("4h room_0 bf16", run_room0_bf16, device, frames, vecs, mapper)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -3044,6 +3284,25 @@ def main(argv=None) -> int:
             rows[-1]["launch"] = {s["shape"]: s["launch"] for s in shapes}
         if name in ("fused_field_fwd", "fused_field_fwd_bf16"):   # beside the bound
             rows[-1]["encode_floor_ms"] = sum(s["encode_floor"] for s in shapes)
+    # the flat AdamW kernel: one launch a model a step (fg + bg summed, as
+    # the field's rows); not a Pallas site, the JAX function it ports
+    rows.append({
+        "name": "adamw_flat", "route": "cuda", "source": "openobj_torch/csrc/adamw_flat.cu",
+        "replaces": "openobj_tpu/core/optim.py:121", "launches": flat["launches"],
+        "launches_by_path": {"room_0 flat": flat["launches"]},
+        "max_abs_err": max(r["err"] for r in adamw),
+        "ms": sum(r["ms"] for r in adamw), "plain_ms": sum(r["plain_ms"] for r in adamw),
+        "bound_ms": sum(r["bound"][0] for r in adamw),
+        "bound_by": max(r["bound"] for r in adamw)[1],
+        "library_ms": (None if any(r["library_ms"] is None for r in adamw)
+                       else sum(r["library_ms"] for r in adamw)),
+        # the per-leaf tree update of the same step: CUDA events around it,
+        # and its kernels' device time summed
+        "tree_ms": sum(r["tree_ms"] for r in adamw),
+        "tree_busy_ms": sum(r["tree_busy_ms"] for r in adamw),
+        "per_shape": [{k: v for k, v in r.items() if k != "bound"}
+                      | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]} for r in adamw],
+    })
     rows += probe_rows
     log(f"[time] phases {phase_s}")
     log(f"[time] chip_smoke.py {time.perf_counter() - t_start:.1f} s")

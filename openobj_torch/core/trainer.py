@@ -39,9 +39,12 @@ launched. ``compute_dtype="bf16"`` thus follows the JAX kernel's bf16
 numerics where the kernels cover the shape (the JAX trainer's pallas path
 itself evaluates the kernel in f32 whatever ``compute_dtype`` says) and
 the XLA field's elsewhere; the part loss takes the dtype too, and params,
-gradients and optimizer state stay f32. Knobs that only shape the JAX
-program's layout (``scan_unroll``, ``remat``, ``gemm_impl``,
-``optim_impl``, and the JAX package's ray-minor batch storage) are
+gradients and optimizer state stay f32. ``optim_impl="flat"`` runs each
+step's update as ``optim.adamw_update_flat``, as the JAX trainer does: on
+a CUDA device one launch of the flat AdamW kernel a model, on the CPU its
+plain version; any other value keeps the per-leaf ``adamw_update``. Knobs
+that only shape the JAX program's layout (``scan_unroll``, ``remat``,
+``gemm_impl``, and the JAX package's ray-minor batch storage) are
 accepted so that configs load, and ignored.
 """
 
@@ -93,10 +96,11 @@ class TrainConfig:
     # kernels wherever they cover its shape (module docstring)
     field_impl: str = "xla"
     compute_dtype: str = "f32"             # "f32" | "bf16" (products on bf16 operands)
+    # the optimizer step: "tree" (per leaf) or "flat" (one update a model)
+    optim_impl: str = "tree"
     # JAX program layout knobs: accepted, ignored
     gemm_impl: str = "segmented"
     scan_unroll: int = 4
-    optim_impl: str = "tree"
     remat: bool = False
     # the order of the draws (module docstring): each step draws its own z
     # lattice, or its own rays
@@ -448,12 +452,13 @@ def run_step(state: TrainState, fg_sl: dict, bg_sl: dict | None,
     grads = sharding.data_sum_all(grads)
     grads = optim.unflatten(zip(wrt, grads))
 
-    fg_params, fg_opt = optim.adamw_update(
+    update = optim.adamw_update_flat if cfg.optim_impl == "flat" else optim.adamw_update
+    fg_params, fg_opt = update(
         state.fg_params, grads["fg"], state.fg_opt,
         lr=cfg.learning_rate, weight_decay=cfg.weight_decay, active=active)
     bg_params, bg_opt = state.bg_params, state.bg_opt
     if bg_sl is not None:
-        bg_params, bg_opt = optim.adamw_update(
+        bg_params, bg_opt = update(
             state.bg_params, grads["bg"], state.bg_opt,
             lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
     return TrainState(fg_params, fg_opt, bg_params, bg_opt, state.n_shards), loss

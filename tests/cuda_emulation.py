@@ -102,6 +102,7 @@ STUB = r"""
 #define __align__(x)
 #define __launch_bounds__(...)
 #define __restrict__
+#define __grid_constant__
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint4 { uint32_t x, y, z, w; };
@@ -218,6 +219,10 @@ inline float ld_cluster(const float* p, unsigned rank) {
 }
 inline float __ldg(const float* p) { return *p; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 template <class T> T min(T a, T b) { return a < b ? a : b; }

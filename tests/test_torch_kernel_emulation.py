@@ -23,6 +23,8 @@ import torch
 
 from cuda_emulation import (CSRC, EMU_TC_WIDTHS, FWD_ATOL, GRAD_RTOL, emulated, field,
                             fused_field_emu, ptr)
+from openobj_torch.core import optim as toptim
+from openobj_torch.models import object_field as tof
 from openobj_torch.ops import fused_field as tff
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
@@ -206,3 +208,80 @@ def test_sass_diff_compares_kernels_by_instruction():
     assert a["_ZNNS_k1Ev"] == ["LDC R1, c[0x0][0x28] ;", "EXIT ;"]
     assert sass_diff.compare(a, b) == (1, ["_ZNNS_k2Ev", "_ZNNS_k3Ev"])
     assert sass_diff.compare(a, a) == (2, [])
+
+
+# --------------------------------------------------------------------------- #
+# the flat AdamW kernel (csrc/adamw_flat.cu)
+# --------------------------------------------------------------------------- #
+
+ADAMW_RTOL = 1e-6    # max |d| / max |ref| per leaf, as on the card: powf's last bit
+
+
+@pytest.fixture(scope="module")
+def adamw_lib(tmp_path_factory):
+    return toptim.typed(emulated(tmp_path_factory, "adamw_flat"))
+
+
+def _packed_grads(gen, params, stacked, unused):
+    """Gradients as autograd leaves them in the trainer: views into one
+    packed [O, P] (or [P]) gradient, each slot's row contiguous, slots P
+    apart (the fused field's), but for the clip head's output layer, whose
+    weight and bias come transposed out of one [O, c, r + 1] gradient, and
+    ``unused`` leaves, which get None."""
+    leaves = [(p, x) for p, x in toptim.flatten_with_path(params) if toptim.trainable(p)]
+    lead = leaves[0][1].shape[:1] if stacked else ()
+    sizes = [x[0].numel() if stacked else x.numel() for _, x in leaves]
+    packed = 0.1 * torch.randn(lead + (sum(sizes),), generator=gen)
+    r, c = params["mlp"]["out_clip"]["w"].shape[-2:]
+    aug = 0.1 * torch.randn(lead + (c, r + 1), generator=gen)
+    out, at = {}, 0
+    for (path, x), k in zip(leaves, sizes):
+        g = (packed[:, at:at + k] if stacked else packed[at:at + k]).view(x.shape)
+        if path[-2] == "out_clip":
+            g = aug[..., :r].transpose(-1, -2) if path[-1] == "w" else aug[..., r]
+        toptim.set_path(out, path, None if path[-2] in unused else g)
+        at += k
+    return out
+
+
+@pytest.mark.parametrize("stacked,hidden,unused", [
+    (True, 8, ("clip_linear",)),   # 3 slots, one frozen; a leaf without a gradient
+    (True, 8, ()),
+    (False, 24, ()),               # the bg model: in_layer's 87 x 24 row in 2 chunks
+])
+def test_emulated_adamw_flat_matches_plain(adamw_lib, stacked, hidden, unused):
+    """One launch over every trainable leaf equals the plain flat update:
+    the table's leaves, slots, chunks of a row, a gradient read through its
+    strides (slots apart, transposed) or absent, frozen slots copied, the
+    count moved by active."""
+    from openobj_torch.core import optim as toptim
+
+    gen = torch.Generator().manual_seed(3)
+    if stacked:
+        params = tof.init_stacked_fields(gen, 3, hidden=hidden, clip_size=4, device="cpu")
+        active = torch.tensor([True, False, True])
+        count = torch.tensor([2, 0, 5], dtype=torch.int32)
+    else:
+        params = tof.init_field_params(gen, hidden=hidden, clip_size=4, device="cpu")
+        active, count = None, torch.tensor(7, dtype=torch.int32)
+    state = toptim.AdamWState(
+        mu=tof.tree_map(lambda x: 0.01 * torch.randn(x.shape, generator=gen), params),
+        nu=tof.tree_map(lambda x: 1e-4 * torch.rand(x.shape, generator=gen), params),
+        count=count)
+    grads = _packed_grads(gen, params, stacked, unused)
+    kw = dict(lr=1e-3, weight_decay=0.013)
+    ref_p, ref_s = toptim.adamw_update_flat_plain(params, grads, state, active=active, **kw)
+    leaves = toptim._trainable_leaves(params, grads, state)
+    assert any(g is None for _, _, g, _, _ in leaves) == bool(unused)
+    new, new_count = toptim.flat_launch(adamw_lib, leaves, count, active, kw["lr"],
+                                        kw["weight_decay"], 0.9, 0.999, 1e-8, None)
+    assert torch.equal(new_count, ref_s.count)
+    olds = [dict(toptim.flatten_with_path(t)) for t in (params, state.mu, state.nu)]
+    refs = [dict(toptim.flatten_with_path(t)) for t in (ref_p, ref_s.mu, ref_s.nu)]
+    for path, *outs in new:
+        for got, ref, old in zip(outs, refs, olds):
+            want = ref[path]
+            scale = float(want.abs().max()) + 1e-30
+            assert float((got - want).abs().max()) / scale <= ADAMW_RTOL, path
+            if stacked:   # the frozen slot passes through bit for bit
+                assert torch.equal(got[1], old[path][1]), path

@@ -423,3 +423,54 @@ def test_render_and_mesh_through_k1_match_plain(cuda_device, monkeypatch):
     assert float((got["depth"] - ref["depth"])[same].abs().max()) <= 1e-3
     assert float((got["color"] - ref["color"])[same].abs().max()) <= 1e-3
     assert np.abs(occ_k - occ_p).max() <= 1e-4
+
+
+ADAMW_RTOL = 1e-6    # flat AdamW kernel vs plain, per leaf max|d| / max|ref|: powf's last bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,h", [(64, 32), (None, 128), (3, 8)])
+def test_cuda_adamw_flat_matches_plain(cuda_device, o, h):
+    """The flat AdamW kernel against its plain version on the card (stacked
+    with some slots frozen, and the unstacked bg model), through the
+    trainer's packed-gradient views, three steps; the inputs stay as they
+    were and the frozen slots pass through bit for bit."""
+    from openobj_torch.core import optim
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if o is None:
+        params = tof.init_field_params(gen, hidden=h, clip_size=512, device=cuda_device)
+        state, active = optim.init_adamw_state(params), None
+    else:
+        params = tof.init_stacked_fields(gen, o, hidden=h, clip_size=512, device=cuda_device)
+        state = optim.init_adamw_state(params, n_slots=o)
+        active = torch.arange(o, device=cuda_device) % 5 != 3
+    kern = plain = (params, state)
+    optim.reset_counts()
+    for _ in range(3):
+        leaves = optim.flatten_with_path(params)
+        rows = [x[0].numel() if o else x.numel() for _, x in leaves]
+        packed = torch.randn(((o,) if o else ()) + (sum(rows),), generator=gen,
+                             device=cuda_device)
+        grads, at = {}, 0
+        for (path, x), k in zip(leaves, rows):
+            optim.set_path(grads, path,
+                           (packed[:, at:at + k] if o else packed[at:at + k]).view(x.shape))
+            at += k
+        before = {q: x.clone() for q, x in optim.flatten_with_path(kern[0])}
+        new = optim.adamw_update_flat(kern[0], grads, kern[1], 1e-3, 0.013, active)
+        for q, x in optim.flatten_with_path(kern[0]):
+            assert torch.equal(before[q], x), q
+        kern = new
+        plain = optim.adamw_update_flat_plain(plain[0], grads, plain[1], 1e-3, 0.013, active)
+    torch.cuda.synchronize()
+    assert optim.COUNTS["adamw_flat"] == 3
+    assert torch.equal(kern[1].count, plain[1].count)
+    for a, b in ((kern[0], plain[0]), (kern[1].mu, plain[1].mu), (kern[1].nu, plain[1].nu)):
+        fb = dict(optim.flatten_with_path(b))
+        for q, x in optim.flatten_with_path(a):
+            scale = float(fb[q].abs().max()) + 1e-30
+            assert float((x - fb[q]).abs().max()) / scale <= ADAMW_RTOL, q
+            if o is not None and o > 3 and optim.trainable(q):   # slot 3 frozen throughout
+                start = dict(optim.flatten_with_path(params))[q][3] if a is kern[0] else 0 * x[3]
+                assert torch.equal(x[3], start), q

@@ -41,10 +41,12 @@ def _jax_kernel_at(monkeypatch, compute_dtype):
 # takes its kernels' plain version (the JAX kernel's numerics), the JAX
 # trainer its XLA field, whose weight gradients are rounded to bf16 (8e-3
 # apart on the worst leaf); measured 5.1e-5 over these 4 steps, and the
-# two drift apart with more steps (2.9e-4 by step 6 of 8).
+# two drift apart with more steps (2.9e-4 by step 6 of 8). "-flat": the
+# step's update as adamw_update_flat in both packages (optim_impl="flat").
 _STEP_CASES = {
     "xla": ("xla", {}),
     "pallas": ("pallas", {}),
+    "xla-flat": ("xla", dict(optim_impl="flat")),
     "pallas-bf16": ("pallas", dict(compute_dtype="bf16")),
     "xla-bf16": ("xla", dict(compute_dtype="bf16")),
     "xla-bf16-max_deg4": ("xla", dict(compute_dtype="bf16", max_deg=4)),
