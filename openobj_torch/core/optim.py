@@ -244,20 +244,18 @@ def _lib():
 
 def _grad_layout(g: torch.Tensor, stacked: bool) -> tuple[int, int, int, int]:
     """(slot stride, columns, row stride, column stride) of a gradient leaf,
-    in elements, each slot a matrix of at most 2 dimensions: a view into a
-    packed gradient as autograd leaves it (slices, transposes) or a tensor
-    of its own."""
+    in elements, each slot a vector or a matrix: a view into a packed
+    gradient as autograd leaves it (slices, transposes) or a tensor of its
+    own."""
     x = g[0] if stacked else g
     if x.dim() == 2:
         cols, rs, cs = x.shape[1], x.stride(0), x.stride(1)
     elif x.dim() == 1:
         cols, cs = x.shape[0], x.stride(0)
         rs = cols * cs
-    elif x.dim() == 0:
-        cols, rs, cs = 1, 1, 1
     else:
         raise ValueError(f"adamw_update_flat: a gradient leaf of shape {tuple(g.shape)}: a "
-                         "slot of more than 2 dimensions")
+                         "slot of other than 1 or 2 dimensions")
     return (g.stride(0) if stacked else 0), cols, rs, cs
 
 

@@ -4,9 +4,9 @@
 // adamw_update_flat (:121), which the JAX trainer runs with
 // TrainConfig.optim_impl == "flat" (openobj_tpu/core/trainer.py:618) and XLA
 // compiles into one fused op over the concatenated leaves. The per-leaf
-// update (core/optim.py adamw_update) costs some fifteen launches a leaf,
-// some 500 a training step over the fg and bg models; this kernel is one a
-// model.
+// update (core/optim.py adamw_update) runs some eighteen elementwise ops a
+// leaf, 642 a training step over the room_0 fg and bg models (19 leaves
+// each); this kernel is one launch a model.
 //
 // What it computes, per element of every trainable leaf (a stacked leaf is
 // [O, row], the unstacked background model one slot of its whole size):
