@@ -714,7 +714,8 @@ def check_adamw_flat(device, smi: str) -> dict:
         worst, err = 0.0, 0.0
         for tree_k, tree_p, tree_in in ((k_p, p_p, params), (k_s.mu, p_s.mu, opt.mu),
                                         (k_s.nu, p_s.nu, opt.nu)):
-            ref, start = dict(optim.flatten_with_path(tree_p)), dict(optim.flatten_with_path(tree_in))
+            ref = dict(optim.flatten_with_path(tree_p))
+            start = dict(optim.flatten_with_path(tree_in))
             for path, x in optim.flatten_with_path(tree_k):
                 d = float((x - ref[path]).abs().max())
                 rel = d / (float(ref[path].abs().max()) + 1e-30)
@@ -3236,7 +3237,7 @@ def main(argv=None) -> int:
              "room_0 export": exported["by_shape"], "scannet": scannet["by_shape"],
              "room_0 bf16": bf16["by_shape"], "room_0 sharded": sharded["by_shape"],
              "room_0 sharded mapper": sharded["mapper_shapes"],
-             "room_0 sharded render": sharded["render_shapes"],
+             "room_0 sharded render": sharded["render_shapes"], "room_0 flat": flat["by_shape"],
              **{f"room_0 bf16 {k}": v for k, v in bf16["by_shape_options"].items()}}
 
     def launches_at(name, dims):
